@@ -1,0 +1,128 @@
+"""GNN models in the aggregate-update paradigm (paper Alg. 1, §5.3);
+counterpart of ``repro.gnn.models`` for GraphSAGE and GCN.
+
+Models consume a padded mini-batch as a dict of tensors (see
+``core/trainer.batch_to_arrays``):
+  feats      (N_0, f0)   input features for the deepest layer's vertices
+  edge_src[l](E_l,)      local src index into layer l's vertex set
+  edge_dst[l](E_l,)      local dst index into layer l+1's vertex set
+  edge_mask[l], node_mask[l], self_idx[l], labels
+plus, under ``aggregate_backend="pallas_edges"``, each layer's edge-segment
+layout (``agg_*``), which routes the aggregation through the CUDA kernel
+(``kernels/aggregate.AggregateEdges``). ``"reference"`` aggregates with a
+masked segment sum in plain PyTorch. GIN and GAT wait (ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.gnn import GNNModelConfig
+from repro_torch.kernels.aggregate import AggregateEdges
+from repro_torch.kernels.layout import BLK
+from repro_torch.nn.param import PSpec
+
+# the aggregate_backend values the port runs
+BACKENDS = ("reference", "pallas_edges")
+MODELS = ("graphsage", "gcn")
+
+# aggregation semantics per model; "mean" bakes 1/deg into the layout's
+# edge values host-side
+AGG_KIND = {"graphsage": "mean", "gcn": "mean", "gin": "sum", "gat": None}
+
+
+def aggregate(h_src: torch.Tensor, edge_src: torch.Tensor,
+              edge_dst: torch.Tensor, edge_mask: torch.Tensor, n_dst: int,
+              kind: str = "mean") -> torch.Tensor:
+    """Masked segment aggregation of messages h_src[edge_src] into dst rows."""
+    msg = h_src[edge_src] * edge_mask[:, None].to(h_src.dtype)
+    zeros = h_src.new_zeros((n_dst, h_src.shape[1]))
+    agg = zeros.index_add(0, edge_dst, msg)
+    if kind == "sum":
+        return agg
+    deg = h_src.new_zeros(n_dst).index_add(0, edge_dst,
+                                           edge_mask.to(h_src.dtype))
+    if kind == "mean":
+        return agg / deg.clamp_min(1.0)[:, None]
+    raise ValueError(kind)
+
+
+def _dims(cfg: GNNModelConfig, f_in: int, n_classes: int) -> list:
+    return [f_in] + [cfg.hidden] * (cfg.num_layers - 1) + [n_classes]
+
+
+def param_spec(cfg: GNNModelConfig, f_in: int, n_classes: int):
+    if cfg.name not in MODELS:
+        raise NotImplementedError(
+            f"model {cfg.name!r} is not ported yet (ROADMAP.md queue A, "
+            f"item A.1); the port runs {MODELS}")
+    dims = _dims(cfg, f_in, n_classes)
+    layers = []
+    for l in range(cfg.num_layers):
+        fi, fo = dims[l], dims[l + 1]
+        if cfg.name == "graphsage":
+            layers.append({"w_self": PSpec((fi, fo)),
+                           "w_neigh": PSpec((fi, fo)),
+                           "b": PSpec((fo,), "zeros")})
+        else:
+            layers.append({"w": PSpec((fi, fo)),
+                           "b": PSpec((fo,), "zeros")})
+    return {"layers": layers}
+
+
+def _kernel_aggregate(batch, l: int, h: torch.Tensor,
+                      n_dst: int) -> torch.Tensor:
+    """Layer-l aggregation through the edge-segment kernel. ``h`` is
+    zero-padded to the layout's source blocks here, not in the kernel, and
+    the output is cut back to the layer's ``n_dst`` rows."""
+    cols_t = batch["agg_cols_t"][l]
+    n_src_pad = cols_t.shape[0] * BLK
+    h32 = h.float()
+    if n_src_pad != h32.shape[0]:
+        h32 = F.pad(h32, (0, 0, 0, n_src_pad - h32.shape[0]))
+    out = AggregateEdges.apply(
+        batch["agg_tile_off"][l], batch["agg_val"][l],
+        batch["agg_tile_seg"][l], batch["agg_cols"][l],
+        batch["agg_tile_off_t"][l], batch["agg_val_t"][l],
+        batch["agg_tile_seg_t"][l], cols_t, h32.contiguous())
+    return out[:n_dst].to(h.dtype)
+
+
+def _layer(cfg: GNNModelConfig, p, h, batch, l: int, n_dst: int):
+    h_self = h[batch["self_idx"][l]]
+    if cfg.aggregate_backend == "pallas_edges" and "agg_tile_off" in batch:
+        agg = _kernel_aggregate(batch, l, h, n_dst)
+    else:
+        agg = aggregate(h, batch["edge_src"][l], batch["edge_dst"][l],
+                        batch["edge_mask"][l], n_dst, AGG_KIND[cfg.name])
+    if cfg.name == "graphsage":
+        return h_self @ p["w_self"] + agg @ p["w_neigh"] + p["b"]
+    if cfg.name == "gcn":
+        return (agg + h_self) @ p["w"] * 0.5 + p["b"]
+    raise NotImplementedError(
+        f"model {cfg.name!r} is not ported yet (ROADMAP.md queue A, item "
+        f"A.1)")
+
+
+def forward(cfg: GNNModelConfig, params, batch) -> torch.Tensor:
+    """Returns logits (T, n_classes) for the target vertices."""
+    h = batch["feats"]
+    n_layers = cfg.num_layers
+    for l in range(n_layers):
+        n_dst = batch["self_idx"][l].shape[0]
+        h = _layer(cfg, params["layers"][l], h, batch, l, n_dst)
+        if l != n_layers - 1:
+            h = torch.relu(h)
+            h = h * batch["node_mask"][l + 1][:, None].to(h.dtype)
+    return h
+
+
+def loss_fn(cfg: GNNModelConfig, params, batch):
+    """Mean cross-entropy over the targets, and the metrics dict."""
+    logits = forward(cfg, params, batch).float()
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(1, labels[:, None])[:, 0]
+    loss = (lse - ll).mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"loss": loss, "acc": acc}

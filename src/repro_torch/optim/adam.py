@@ -1,0 +1,62 @@
+"""AdamW written out by hand (counterpart of ``repro.optim.adam.AdamW``),
+not ``torch.optim``: the reference clips to a global gradient norm, uses
+b2 = 0.95, folds weight decay into the step and applies bias correction by
+division, and the port must take the same steps.
+
+Parameters, gradients and moments are flat lists of tensors (the order of
+``nn.param.flatten``); the update returns new tensors and leaves its inputs
+as they were.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Sequence
+
+import torch
+
+
+def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(l.float().square().sum() for l in leaves))
+
+
+@dataclass(frozen=True)
+class AdamW:
+    schedule: Callable  # step -> lr
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+    def init(self, params: Sequence[torch.Tensor]) -> dict:
+        return {"m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+                "v": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+                "step": 0}
+
+    def update(self, grads: Sequence[torch.Tensor], state: dict,
+               params: Sequence[torch.Tensor]):
+        """One step. Returns (new params, new state, {"lr", "grad_norm"})."""
+        step = state["step"] + 1
+        lr = self.schedule(step)
+        gnorm = global_norm(grads)
+        scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
+        stepf = torch.tensor(step, dtype=torch.float32)
+        bc1 = 1.0 - self.b1 ** stepf
+        bc2 = 1.0 - self.b2 ** stepf
+        b1, b2 = self.b1, self.b2
+        new_p: List[torch.Tensor] = []
+        new_m: List[torch.Tensor] = []
+        new_v: List[torch.Tensor] = []
+        for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+            g = g.float() * scale
+            m32 = m * b1 + (1 - b1) * g
+            v32 = v * b2 + (1 - b2) * g.square()
+            mhat = m32 / bc1
+            vhat = v32 / bc2
+            delta = (mhat / (vhat.sqrt() + self.eps)
+                     + self.weight_decay * p.float())
+            new_p.append((p.float() - lr * delta).to(p.dtype))
+            new_m.append(m32)
+            new_v.append(v32)
+        return (new_p, {"m": new_m, "v": new_v, "step": step},
+                {"lr": lr, "grad_norm": gnorm})

@@ -1,0 +1,196 @@
+"""The port's host modules are bitwise copies of the reference's: from the
+same seed they build the same graph, partition, batches, layouts, schedule
+and gathered feature blocks (so parity of the two trainers comes down to
+the device step)."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from repro.configs.gnn import GNNModelConfig as JCfg
+from repro.core import scheduler as jsched
+from repro.core.feature_store import FeatureStore as JStore
+from repro.core.partition import get_partitioner as j_partitioner
+from repro.core.sampler import NeighborSampler as JSampler
+from repro.data import graphs as jgraphs
+from repro.kernels import layout as jlayout
+
+from repro_torch.configs.gnn import GNNModelConfig as TCfg
+from repro_torch.core import scheduler as tsched
+from repro_torch.core.feature_store import FeatureStore as TStore
+from repro_torch.core.partition import get_partitioner as t_partitioner
+from repro_torch.core.sampler import NeighborSampler as TSampler
+from repro_torch.data import graphs as tgraphs
+from repro_torch.kernels import layout as tlayout
+
+SMALL = dict(num_layers=2, hidden=16, fanouts=(4, 3), batch_targets=32)
+
+
+def _graphs(seed=0, scale=10):
+    kw = dict(scale=scale, edge_factor=6, feat_dim=16, num_classes=4,
+              seed=seed)
+    return jgraphs.synthetic_graph(**kw), tgraphs.synthetic_graph(**kw)
+
+
+def _assert_graph_equal(a, b):
+    for f in ("indptr", "indices", "features", "labels", "train_ids"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+    assert a.num_classes == b.num_classes and a.name == b.name
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_synthetic_graph_bitwise(seed):
+    _assert_graph_equal(*_graphs(seed))
+
+
+def test_scaled_dataset_bitwise():
+    _assert_graph_equal(jgraphs.scaled_dataset("reddit", scale=8, seed=1),
+                        tgraphs.scaled_dataset("reddit", scale=8, seed=1))
+
+
+@pytest.mark.parametrize("fanout", [1, 3, 10])
+def test_sample_in_neighbors_bitwise(fanout):
+    jg, _ = _graphs()
+    frontier = np.random.default_rng(5).choice(jg.num_vertices, 100,
+                                               replace=False)
+    a = jgraphs.sample_in_neighbors(jg.indptr, jg.indices, frontier, fanout,
+                                    np.random.default_rng(9))
+    b = tgraphs.sample_in_neighbors(jg.indptr, jg.indices, frontier, fanout,
+                                    np.random.default_rng(9))
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("name", ["metis_like", "pagraph"])
+@pytest.mark.parametrize("p", [1, 2, 3])
+def test_partition_bitwise(name, p):
+    jg, tg = _graphs()
+    a = j_partitioner(name)(jg, p, 0)
+    b = t_partitioner(name)(tg, p, 0)
+    assert a.assignment.dtype == b.assignment.dtype
+    np.testing.assert_array_equal(a.assignment, b.assignment)
+    assert (a.num_parts, a.strategy) == (b.num_parts, b.strategy)
+
+
+def _assert_batch_equal(a, b):
+    for f in ("nodes", "node_mask", "edge_src", "edge_dst", "edge_mask",
+              "self_idx"):
+        for x, y in zip(getattr(a, f), getattr(b, f)):
+            assert x.dtype == y.dtype, f
+            np.testing.assert_array_equal(x, y, err_msg=f)
+    np.testing.assert_array_equal(a.targets, b.targets)
+    np.testing.assert_array_equal(a.labels, b.labels)
+    assert (a.partition_id, a.seq_no) == (b.partition_id, b.seq_no)
+
+
+def _samplers(fanouts=(4, 3), batch=32):
+    jg, tg = _graphs()
+    kw = dict(SMALL, fanouts=fanouts, batch_targets=batch)
+    ids = jg.train_ids[::2]
+    return (JSampler(jg, JCfg("graphsage", **kw), ids, 1, 7),
+            TSampler(tg, TCfg("graphsage", **kw), ids, 1, 7))
+
+
+def test_sampler_batch_at_and_cursor_bitwise():
+    js, ts = _samplers()
+    for epoch, index in [(0, 0), (0, 1), (2, 0), (1, 1)]:
+        _assert_batch_equal(js.batch_at(epoch, index),
+                            ts.batch_at(epoch, index))
+    # the cursor walks past an epoch boundary (a ragged tail batch included)
+    for _ in range(2 * js.epoch_batches() + 1):
+        assert js.batches_remaining() == ts.batches_remaining()
+        _assert_batch_equal(js.next_batch(), ts.next_batch())
+    assert (js.epoch, js._cursor) == (ts.epoch, ts._cursor)
+
+
+@pytest.mark.parametrize("fanouts,batch", [((4, 3), 32), ((25, 10), 64)])
+def test_block_capacities_and_layouts_bitwise(fanouts, batch):
+    js, ts = _samplers(fanouts, batch)
+    caps = jlayout.block_capacities(js.cfg)
+    assert caps == tlayout.block_capacities(ts.cfg)
+    mb = js.batch_at(0, 0)
+    for kind in ("mean", "sum"):
+        a = jlayout.build_layer_layouts(mb.edge_src, mb.edge_dst,
+                                        mb.edge_mask, caps, kind,
+                                        edge_stream=True)
+        b = tlayout.build_layer_layouts(mb.edge_src, mb.edge_dst,
+                                        mb.edge_mask, caps, kind)
+        assert set(a) == set(b)
+        for k in a:
+            for x, y in zip(a[k], b[k]):
+                assert x.dtype == y.dtype, k
+                np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+@pytest.mark.parametrize("seed,mask_p", [(0, 0.8), (1, 0.0), (2, 1.0)])
+def test_block_coo_pair_bitwise(seed, mask_p):
+    rng = np.random.default_rng(seed)
+    n_src, n_dst, E = 300, 200, 900
+    es = rng.integers(0, n_src, E).astype(np.int32)
+    ed = rng.integers(0, n_dst, E).astype(np.int32)
+    em = rng.random(E) < mask_p
+    vals = rng.standard_normal(E).astype(np.float32)
+    a = jlayout.build_block_coo_pair(es, ed, em, n_src, n_dst, vals,
+                                     edge_stream=True)
+    b = tlayout.build_block_coo_pair(es, ed, em, n_src, n_dst, vals,
+                                     edge_stream=True)
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _as_tuples(schedule):
+    return [dataclasses.astuple(a) for a in schedule]
+
+
+@pytest.mark.parametrize("counts", [[3], [4, 2, 5], [1, 0, 3, 2], [6, 6]])
+def test_schedules_bitwise(counts):
+    assert (_as_tuples(jsched.two_stage_schedule(counts))
+            == _as_tuples(tsched.two_stage_schedule(counts)))
+    assert (_as_tuples(jsched.naive_schedule(counts))
+            == _as_tuples(tsched.naive_schedule(counts)))
+    sched = jsched.two_stage_schedule(counts)
+    a = [_as_tuples(g) for g in jsched.iterations(sched)]
+    b = [_as_tuples(g) for g in tsched.iterations(
+        tsched.two_stage_schedule(counts))]
+    assert a == b
+    assert (jsched.schedule_stats(sched, len(counts))
+            == tsched.schedule_stats(tsched.two_stage_schedule(counts),
+                                     len(counts)))
+
+
+def test_load_balancer_round_robin_matches():
+    rng = np.random.default_rng(0)
+    ja = jsched.LoadBalancer(3, "round_robin")
+    ta = tsched.LoadBalancer(3)
+    for group in jsched.iterations(jsched.two_stage_schedule([4, 2, 5])):
+        loads = rng.random(len(group)).tolist()
+        tgroup = [tsched.Assignment(*dataclasses.astuple(a)) for a in group]
+        assert ja.assign(group, loads) == ta.assign(tgroup, loads)
+    assert ja.load == ta.load and ja.imbalance() == ta.imbalance()
+
+
+@pytest.mark.parametrize("algo", ["distdgl", "pagraph"])
+@pytest.mark.parametrize("p", [1, 2])
+def test_feature_store_gather_bitwise(algo, p):
+    jg, tg = _graphs()
+    part = {"distdgl": "metis_like", "pagraph": "pagraph"}[algo]
+    js = JStore(jg, j_partitioner(part)(jg, p, 0), algo)
+    ts = TStore(tg, t_partitioner(part)(tg, p, 0), algo)
+    js_, ts_ = _samplers()
+    for epoch, i in [(0, 0), (0, 1), (1, 0)]:
+        mb = js_.batch_at(epoch, i)
+        for d in range(p):
+            a = js.gather(d, mb.nodes[0], mb.node_mask[0])
+            b = ts.gather(d, mb.nodes[0], mb.node_mask[0])
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    for d in range(p):
+        assert dataclasses.astuple(js.stats[d]) == \
+            dataclasses.astuple(ts.stats[d])
+        np.testing.assert_array_equal(js.core.resident_ids(d),
+                                      ts.core.resident_ids(d))
+    assert js.beta() == ts.beta()

@@ -3,35 +3,61 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — synchronous GraphSAGE training at the
-paper's width (2 layers, hidden 128, fanouts (25, 10), 1024 targets per
-batch, ``aggregate_backend="pallas_edges"``) on a Reddit-shaped graph of
-2^18 vertices (602 features, 41 classes) — through its normal entry point,
-``SyncGNNTrainer.run_iteration``, and holds every CUDA kernel of that path
-against its plain PyTorch version. Phases, each of which exits non-zero on
-failure:
+Drives the port's main paths — synchronous training at the paper's width
+(2 layers, hidden 128, fanouts (25, 10), 1024 targets per batch) on a
+Reddit-shaped graph of 2^18 vertices (602 features, 41 classes) — through
+their normal entry point, ``SyncGNNTrainer.run_iteration``, and holds
+every CUDA kernel of those paths against its plain PyTorch version. The
+paths: GraphSAGE on ``aggregate_backend="pallas_edges"`` (the
+``aggregate_edges`` kernel, then the update matmul), GraphSAGE on
+``"pallas_fused"`` (``aggregate_fused`` forward, ``fused_bwd`` and
+``aggregate_edges`` backward), and GIN on ``"pallas_fused"`` at 128
+targets, whose last layer has one destination block and so takes
+``fused_bwd_merged``. Phases, each of which exits non-zero on failure:
 
   1. device report: the card's name, and its name and power limit as
      ``nvidia-smi`` gives them;
   2. build: every kernel source in ``src/repro_torch/kernels/csrc`` goes
      through ``nvcc`` (one process per source, all started together), and
-     the compiler's register report is printed (each launch line below
-     gives the dynamic shared memory it uses);
-  3. kernel vs plain: one paper-shape batch is sampled and each of the
-     kernel's three launches per iteration (layer-0 forward, layer-1
-     forward, layer-1 backward over A^T) runs through the kernel and its
-     plain version on the card, within rtol 1e-5 / atol 1e-6 (fp32 sums in
-     another order). Times by CUDA events after warm-up, with the launches
-     queued behind a busy card so they time the device: the kernel, the
-     plain version, and ``torch.sparse.mm`` on a CSR of the same edges (a
-     yardstick the port never calls), beside the bound: the larger of the
-     bytes the launch must move over 3.35 TB/s and its flops over the
-     67 TFLOP/s fp32 rate (published H100 SXM peaks);
-  4. training: five iterations with the launch counts set to 0 just
-     before; each must launch the kernel exactly 3 times and give a finite
-     loss, and the first loss must match ``aggregate_backend="reference"``
-     (plain segment sums on the card) from the same parameters and batch
-     within rtol 1e-4;
+     the compiler's register report is printed;
+  3. kernel vs plain, at the shapes the main paths give each kernel: one
+     paper-shape batch for ``aggregate_edges`` (layer-0 forward, layer-1
+     forward, layer-1 backward over A^T), ``aggregate_fused`` and
+     ``fused_bwd`` (layers 0 and 1, no self term), and one 128-target GIN
+     batch for ``aggregate_fused`` and ``fused_bwd`` with a self term
+     ``s`` (layers 0 and 1) and ``fused_bwd_merged`` (its layer 1). Each
+     launch is held against its
+     plain version on the card within rtol 1e-5 and atol 1e-6 times the
+     largest magnitude of the plain result (at least 1e-6): fp32 sums are
+     taken in another order, and the fused products contract up to 602
+     features or 26,624 rows, so an element that cancels towards zero
+     keeps an absolute error of about sqrt(K)·eps of its terms' size. Times
+     by CUDA events after warm-up, with the launches queued behind a busy
+     card so they time the device: the kernel, its plain version, and
+     yardsticks the port never calls — ``torch.sparse.mm`` on a CSR of the
+     same edges for ``aggregate_edges``; for the fused kernels, which no
+     single PyTorch call computes, the port's unfused composition (the
+     ``aggregate_edges`` kernel and ``torch.matmul``) and ``torch.sparse.mm``
+     with ``torch.matmul``. Beside them the bound: the larger of the bytes
+     the launch must move over 3.35 TB/s and its flops over the 67 TFLOP/s
+     fp32 rate (published H100 SXM peaks). The fused kernels' update flops
+     are counted over the destination rows that hold an edge or a self
+     term (``flops``), and over all padded rows as ``flops_all_rows``;
+     without a bias the backward reads ``g`` over the same rows, since a
+     row whose z is zero adds nothing to dw. The ``kernels`` line sums
+     each kernel's times and bounds over the launches this phase checked;
+  4. training, each path with every launch count set to 0 just before it
+     and read just after: five iterations of GraphSAGE on
+     ``"pallas_edges"`` (3 ``aggregate_edges`` launches each), five on
+     ``"pallas_fused"`` (2 ``aggregate_fused``, 2 ``fused_bwd`` and 1
+     ``aggregate_edges`` each), two of GIN on ``"pallas_fused"`` at 128
+     targets (2 ``aggregate_fused``, 1 ``fused_bwd`` and 1
+     ``fused_bwd_merged`` each); any other count fails. Losses must be
+     finite, and each path's first loss must match
+     ``aggregate_backend="reference"`` (plain segment sums on the card)
+     from the same parameters and batch within rtol 1e-4. The peak device
+     memory of each backend's run is printed beside the aggregate bytes
+     the trainer says it keeps in device memory;
   5. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -53,11 +79,26 @@ import torch
 
 SCALE = 18          # 2^18 vertices, Reddit's 602 features and 41 classes
 ITERATIONS = 5
+MERGED_TARGETS = 128    # one destination block at the last layer
+MERGED_ITERATIONS = 2
 SEED = 0
 RTOL, ATOL = 1e-5, 1e-6
 LOSS_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+FWD = ("tile_off", "val", "tile_seg", "cols")
+BWD = ("tile_off_t", "val_t", "tile_seg_t", "cols_t")
+KERNEL_SOURCES = {
+    "aggregate_edges": ("src/repro_torch/kernels/csrc/aggregate_edges.cu",
+                        "src/repro/kernels/aggregate.py:275"),
+    "aggregate_fused": ("src/repro_torch/kernels/csrc/aggregate_fused.cu",
+                        "src/repro/kernels/aggregate.py:526"),
+    "fused_bwd": ("src/repro_torch/kernels/csrc/aggregate_fused_bwd.cu",
+                  "src/repro/kernels/aggregate.py:558"),
+    "fused_bwd_merged": (
+        "src/repro_torch/kernels/csrc/aggregate_fused_bwd.cu",
+        "src/repro/kernels/aggregate.py:818"),
+}
 
 
 def fail(msg: str) -> None:
@@ -85,6 +126,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def check_close(name: str, what: str, out, ref) -> float:
+    """Fails unless ``out`` matches ``ref`` (see the module docstring for
+    the tolerance); returns the max abs error."""
+    if out is None or ref is None:
+        if out is not None or ref is not None:
+            fail(f"{name}: {what} is {out} on the kernel, {ref} plain")
+        return 0.0
+    if out.shape != ref.shape:
+        fail(f"{name}: {what} has shape {tuple(out.shape)}, plain "
+             f"{tuple(ref.shape)}")
+    if not torch.isfinite(out).all():
+        fail(f"{name}: non-finite {what}")
+    scale = max(1.0, float(ref.abs().max())) if ref.numel() else 1.0
+    try:
+        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL * scale)
+    except AssertionError as e:
+        fail(f"{name}: {what} of the kernel disagrees with the plain "
+             f"version: {e}")
+    return float((out - ref).abs().max()) if out.numel() else 0.0
+
+
 def edge_coords(lay: dict, keys) -> tuple:
     """(dst row, src row, weight) of every valid edge of one launch's
     segments, on the host — for the CSR yardstick and the bound."""
@@ -98,55 +160,292 @@ def edge_coords(lay: dict, keys) -> tuple:
             + off % 128, val[:n])
 
 
-def check_launch(name, agg, lay, keys, h, n_out):
-    """Kernel vs plain on the card, the times, and the bound of one launch."""
-    args = [torch.from_numpy(np.ascontiguousarray(lay[k])).cuda()
+def csr(lay: dict, keys, n_out: int, n_in: int) -> torch.Tensor:
+    """The launch's A (or A^T) as a CSR on the card, for
+    ``torch.sparse.mm``."""
+    dst, src, w = edge_coords(lay, keys)
+    with warnings.catch_warnings():  # CSR support is marked beta
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([dst, src])),
+            torch.from_numpy(w.astype(np.float32)), (n_out, n_in),
+            check_invariants=True).coalesce().to_sparse_csr().cuda()
+
+
+def sparse_mm(a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse.mm(a, h)
+
+
+def segment_bytes(lay: dict, keys) -> int:
+    """Bytes of a launch's valid edges (tile_off + val), seg and cols."""
+    return (8 * int(lay[keys[2]][-1])
+            + 4 * (len(lay[keys[2]]) + lay[keys[3]].size))
+
+
+def bound(bytes_moved: int, flops: int) -> dict:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return {"bytes": bytes_moved, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def on_card(lay: dict, keys) -> list:
+    return [torch.from_numpy(np.ascontiguousarray(lay[k])).cuda()
             for k in keys]
+
+
+def report(row: dict) -> dict:
+    print("launch " + json.dumps(row), flush=True)
+    return row
+
+
+def check_edges_launch(name, agg, lay, keys, h, n_out):
+    """aggregate_edges vs plain on the card, the times, and the bound of
+    one launch."""
+    args = on_card(lay, keys)
     out = agg.aggregate_edges(*args, h)
     ref = agg.aggregate_edges_plain(*args, h)
     torch.cuda.synchronize()
+    max_abs = check_close(name, "out", out, ref)
     err = (out - ref).abs()
-    max_abs = float(err.max())
     max_rel = float((err / ref.abs().clamp_min(ATOL)).max())
-    try:
-        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
-    except AssertionError as e:
-        fail(f"{name}: kernel disagrees with the plain version: {e}")
-    if not torch.isfinite(out).all():
-        fail(f"{name}: non-finite output")
-
-    dst, src, w = edge_coords(lay, keys)
+    a = csr(lay, keys, n_out, h.shape[0])
+    lib_err = float((sparse_mm(a, h) - ref).abs().max())
+    dst, src, _ = edge_coords(lay, keys)
     F = h.shape[1]
-    with warnings.catch_warnings():  # CSR support is marked beta
-        warnings.simplefilter("ignore", UserWarning)
-        csr = torch.sparse_coo_tensor(
-            torch.from_numpy(np.stack([dst, src])),
-            torch.from_numpy(w.astype(np.float32)), (n_out, h.shape[0]),
-            check_invariants=True).coalesce().to_sparse_csr().cuda()
-        lib = torch.sparse.mm(csr, h)
-    lib_err = float((lib - ref).abs().max())
-
-    kernel_ms = time_ms(lambda: agg.aggregate_edges(*args, h))
-    plain_ms = time_ms(lambda: agg.aggregate_edges_plain(*args, h))
-    library_ms = time_ms(lambda: torch.sparse.mm(csr, h))
-    n_edges = len(dst)
-    n_rows = len(np.unique(src))
-    bytes_moved = (8 * n_edges + 4 * (len(lay[keys[2]]) + lay[keys[3]].size)
-                   + 4 * F * (n_rows + n_out))
-    flops = 2 * n_edges * F
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    row = {"launch": name, "edges": n_edges, "src_rows": n_rows,
-           "h": list(h.shape), "out": [n_out, F],
+    row = {"kernel": "aggregate_edges", "launch": name, "edges": len(dst),
+           "src_rows": len(np.unique(src)), "h": list(h.shape),
+           "out": [n_out, F],
            "smem_bytes": agg.aggregate_edges_smem_bytes(args[3].shape[1]),
-           "max_abs_err": max_abs,
-           "max_rel_err": max_rel, "library_max_abs_err": lib_err,
-           "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bytes": bytes_moved, "flops": flops,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    print("launch " + json.dumps(row), flush=True)
-    return row
+           "max_abs_err": max_abs, "max_rel_err": max_rel,
+           "library_max_abs_err": lib_err,
+           "ms": time_ms(lambda: agg.aggregate_edges(*args, h)),
+           "plain_ms": time_ms(lambda: agg.aggregate_edges_plain(*args, h)),
+           "library_ms": time_ms(lambda: sparse_mm(a, h))}
+    row.update(bound(segment_bytes(lay, keys)
+                     + 4 * F * (row["src_rows"] + n_out),
+                     2 * len(dst) * F))
+    return report(row)
+
+
+def update_rows(lay: dict, s) -> int:
+    """Destination rows that hold an edge or a (nonzero) self term."""
+    rows = set(edge_coords(lay, FWD)[0].tolist())
+    if s is not None:
+        rows |= set(torch.nonzero(s.abs().sum(1)).flatten().tolist())
+    return len(rows)
+
+
+def fused_shapes(lay: dict, h, w, s) -> dict:
+    dst, src, _ = edge_coords(lay, FWD)
+    n_dst_pad = lay["cols"].shape[0] * 128
+    return {"edges": len(dst), "src_rows": len(np.unique(src)),
+            "update_rows": update_rows(lay, s), "n_dst_pad": n_dst_pad,
+            "h": list(h.shape), "w": list(w.shape), "self_term": s is not None}
+
+
+def check_fused_fwd(name, agg, lay, h, w, s=None):
+    """aggregate_fused vs plain on the card, its times, yardsticks and
+    bound for one launch (no bias and no activation: the models keep those
+    outside the kernel)."""
+    args = on_card(lay, FWD)
+    out = agg.aggregate_fused(*args, h, w, None, s)
+    ref = agg.aggregate_fused_plain(*args, h, w, None, s)
+    torch.cuda.synchronize()
+    row = {"kernel": "aggregate_fused", "launch": name,
+           **fused_shapes(lay, h, w, s),
+           "smem_bytes": agg.aggregate_fused_smem_bytes(args[3].shape[1]),
+           "max_abs_err": check_close(name, "out", out, ref)}
+    F, N = w.shape
+    n_dst_pad = row["n_dst_pad"]
+    a = csr(lay, FWD, n_dst_pad, h.shape[0])
+
+    def unfused():
+        z = agg.aggregate_edges(*args, h)
+        return (z if s is None else z + s) @ w
+
+    def sparse():
+        z = sparse_mm(a, h)
+        return (z if s is None else z + s) @ w
+
+    row.update(ms=time_ms(lambda: agg.aggregate_fused(*args, h, w, None, s)),
+               plain_ms=time_ms(lambda: agg.aggregate_fused_plain(
+                   *args, h, w, None, s)),
+               library_ms=None, unfused_ms=time_ms(unfused),
+               sparse_ms=time_ms(sparse))
+    agg_flops = 2 * row["edges"] * F
+    row.update(bound(segment_bytes(lay, FWD) + 4 * F * row["src_rows"]
+                     + 4 * F * N + (4 * n_dst_pad * F if s is not None else 0)
+                     + 4 * n_dst_pad * N,
+                     agg_flops + 2 * row["update_rows"] * F * N))
+    row["flops_all_rows"] = agg_flops + 2 * n_dst_pad * F * N
+    return report(row)
+
+
+def check_fused_bwd(name, agg, lay, h, w, g, s=None):
+    """fused_bwd vs plain on the card (act none: dw only), with its dw
+    partial buffer, times, yardsticks and bound."""
+    args = on_card(lay, FWD)
+    got = agg.fused_bwd(*args, h, g, w, None, s)
+    want = agg.fused_bwd_plain(*args, h, g, w, None, s)
+    torch.cuda.synchronize()
+    err = max(check_close(name, what, a, b)
+              for what, a, b in zip(("dw", "db", "dy"), got, want))
+    F, N = w.shape
+    n_dstb = lay["cols"].shape[0]
+    groups, size = agg.fused_bwd_groups(n_dstb, F, N)
+    row = {"kernel": "fused_bwd", "launch": name,
+           **fused_shapes(lay, h, w, s),
+           "smem_bytes": agg.fused_bwd_smem_bytes(args[3].shape[1]),
+           "dw_groups": groups, "blocks_per_group": size,
+           "partial_bytes": groups * F * N * 4, "max_abs_err": err}
+    n_dst_pad = row["n_dst_pad"]
+    a = csr(lay, FWD, n_dst_pad, h.shape[0])
+
+    def unfused():
+        z = agg.aggregate_edges(*args, h)
+        return (z if s is None else z + s).T @ g
+
+    def sparse():
+        z = sparse_mm(a, h)
+        return (z if s is None else z + s).T @ g
+
+    row.update(ms=time_ms(lambda: agg.fused_bwd(*args, h, g, w, None, s)),
+               plain_ms=time_ms(lambda: agg.fused_bwd_plain(
+                   *args, h, g, w, None, s)),
+               library_ms=None, unfused_ms=time_ms(unfused),
+               sparse_ms=time_ms(sparse))
+    agg_flops = 2 * row["edges"] * F
+    row.update(bound(segment_bytes(lay, FWD) + 4 * F * row["src_rows"]
+                     + 4 * row["update_rows"] * N  # g; no bias, no db
+                     + (4 * n_dst_pad * F if s is not None else 0)
+                     + 4 * F * N,
+                     agg_flops + 2 * row["update_rows"] * F * N))
+    row["flops_all_rows"] = agg_flops + 2 * n_dst_pad * F * N
+    return report(row)
+
+
+def check_merged(name, agg, lay, h, w, g, s):
+    """fused_bwd_merged vs plain on the card (one destination block, act
+    none), its times, yardsticks and bound."""
+    args = on_card(lay, FWD + BWD)
+    dz = (g @ w.T).contiguous()
+    got = agg.fused_bwd_merged(*args, h, g, dz, s)
+    want = agg.fused_bwd_merged_plain(*args, h, g, dz, s)
+    torch.cuda.synchronize()
+    err = max(check_close(name, what, a, b)
+              for what, a, b in zip(("dw", "db", "dh"), got, want))
+    F, N = w.shape
+    row = {"kernel": "fused_bwd_merged", "launch": name,
+           **fused_shapes(lay, h, w, s),
+           "edges_t": int(lay["tile_seg_t"][-1]),
+           "smem_bytes": agg.fused_bwd_merged_smem_bytes(
+               args[3].shape[1], args[7].shape[1]),
+           "max_abs_err": err}
+    n_src = h.shape[0]
+    a = csr(lay, FWD, 128, n_src)
+    at = csr(lay, BWD, n_src, 128)
+
+    def unfused():
+        z = agg.aggregate_edges(*args[:4], h) + s
+        return z.T @ g, agg.aggregate_edges(*args[4:], dz)
+
+    def sparse():
+        z = sparse_mm(a, h) + s
+        return z.T @ g, sparse_mm(at, dz)
+
+    row.update(ms=time_ms(lambda: agg.fused_bwd_merged(*args, h, g, dz, s)),
+               plain_ms=time_ms(lambda: agg.fused_bwd_merged_plain(
+                   *args, h, g, dz, s)),
+               library_ms=None, unfused_ms=time_ms(unfused),
+               sparse_ms=time_ms(sparse))
+    agg_flops = 2 * (row["edges"] + row["edges_t"]) * F
+    row.update(bound(segment_bytes(lay, FWD) + segment_bytes(lay, BWD)
+                     + 4 * F * row["src_rows"] + 4 * row["update_rows"] * N
+                     + 4 * 128 * 2 * F
+                     + 4 * F * N + 4 * n_src * F,
+                     agg_flops + 2 * row["update_rows"] * F * N))
+    row["flops_all_rows"] = agg_flops + 2 * 128 * F * N
+    return report(row)
+
+
+def run_path(label, trainer, groups, expected, agg) -> dict:
+    """Drive one path through ``run_iteration`` with every launch count set
+    to 0 just before and read just after; fails on any other count per
+    iteration than ``expected`` or on a non-finite loss."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    agg.reset_launch_counts()
+    steps = []
+    for it, group in enumerate(groups):
+        before = dict(agg.launch_counts)
+        t0 = time.perf_counter()
+        m = trainer.run_iteration(group)
+        wall = time.perf_counter() - t0
+        got = {k: agg.launch_counts[k] - before[k] for k in before}
+        m.update(path=label, iteration=it, wall_s=wall, launches=got,
+                 nvtps=m["vertices_traversed"] / wall)
+        print("iteration " + json.dumps(m), flush=True)
+        if got != expected:
+            fail(f"{label}: iteration {it} launched {got}, expected "
+                 f"{expected}")
+        if not np.isfinite(m["loss"]):
+            fail(f"{label}: iteration {it} loss is {m['loss']}")
+        steps.append(m)
+    torch.cuda.synchronize()
+    return {"steps": steps, "launches": dict(agg.launch_counts),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "aggregate_intermediate_bytes":
+                trainer.aggregate_intermediate_bytes()}
+
+
+def reference_loss(trainer_cls, graph, cfg, params, group) -> tuple:
+    """First loss of ``aggregate_backend="reference"`` from the same
+    parameters and batch, and the peak device memory of that iteration."""
+    ref = trainer_cls(graph, dataclasses.replace(
+        cfg, aggregate_backend="reference"), num_devices=1,
+        algorithm="distdgl", seed=SEED, device="cuda", params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = ref.run_iteration(group)["loss"]
+    torch.cuda.synchronize()
+    return loss, torch.cuda.max_memory_allocated()
+
+
+def check_first_loss(label, run, ref_loss) -> None:
+    first = run["steps"][0]["loss"]
+    if not np.isclose(first, ref_loss, rtol=LOSS_RTOL, atol=0):
+        fail(f"{label}: first loss {first} vs reference backend {ref_loss}")
+    print(f"{label}: first loss {first!r} vs reference backend "
+          f"{ref_loss!r}", flush=True)
+
+
+def kernel_entry(name, rows, launches_by_path) -> dict:
+    src, replaces = KERNEL_SOURCES[name]
+    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
+    t_ops = sum(r["flops"] for r in rows) / FP32_FLOPS
+
+    def total(key):
+        vals = [r[key] for r in rows]
+        return None if None in vals else sum(vals)
+
+    entry = {"name": name, "route": "cuda", "source": src,
+             "replaces": replaces,
+             "launches": sum(launches_by_path.values()),
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": total("ms"), "plain_ms": total("plain_ms"),
+             "bound_ms": total("bound_ms"),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": total("library_ms"),
+             "launches_by_path": launches_by_path}
+    if "unfused_ms" in rows[0]:
+        entry.update(unfused_ms=total("unfused_ms"),
+                     sparse_ms=total("sparse_ms"))
+    entry["per_launch"] = rows
+    return entry
 
 
 def main() -> None:
@@ -160,6 +459,7 @@ def main() -> None:
         from repro_torch.core.sampler import NeighborSampler
         from repro_torch.core.trainer import SyncGNNTrainer
         from repro_torch.data.graphs import scaled_dataset
+        from repro_torch.gnn.models import AGG_KIND
         from repro_torch.kernels import aggregate as agg
         from repro_torch.kernels import build
         from repro_torch.kernels.layout import (block_capacities,
@@ -190,12 +490,13 @@ def main() -> None:
         fail(f"kernel build: {e}")
     print(f"build: {len(reports)} kernel source(s) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, report in reports.items():
-        for line in report.splitlines():
-            if "ptxas info" in line:
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "ptxas info" in line and ("Used" in line
+                                         or "Compiling" in line):
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    # 3. every launch of the main path, kernel vs plain, on one batch
+    # 3. every launch of the main paths, kernel vs plain
     t0 = time.perf_counter()
     graph = scaled_dataset("reddit", scale=SCALE, seed=SEED)
     print(f"graph: {graph.name}, {graph.num_vertices} vertices, "
@@ -204,82 +505,131 @@ def main() -> None:
     cfg = GNNModelConfig("graphsage", num_layers=2, hidden=128,
                          fanouts=(25, 10), batch_targets=1024,
                          aggregate_backend="pallas_edges")
-    caps = block_capacities(cfg)
     mb = NeighborSampler(graph, cfg, graph.train_ids, 0, SEED).batch_at(0, 0)
-    lay = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask, caps,
-                              "mean")
+    lay = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
+                              block_capacities(cfg), "mean")
     layers = [{k[4:]: v[l] for k, v in lay.items()} for l in range(2)]
-    fwd = ("tile_off", "val", "tile_seg", "cols")
-    bwd = ("tile_off_t", "val_t", "tile_seg_t", "cols_t")
     pad = [layers[l]["cols_t"].shape[0] * 128 for l in range(2)]
     out_rows = [layers[l]["cols"].shape[0] * 128 for l in range(2)]
     feats = graph.features[mb.nodes[0]] * mb.node_mask[0][:, None]
-    h0 = torch.zeros((pad[0], feats.shape[1]), device="cuda")
-    h0[:len(feats)] = torch.from_numpy(feats).cuda()
+    f0, hid, n_cls = feats.shape[1], cfg.hidden, graph.num_classes
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    h1 = torch.randn((pad[1], cfg.hidden), device="cuda", generator=gen)
-    g1 = torch.randn((out_rows[1], cfg.hidden), device="cuda", generator=gen)
-    launches = [
-        check_launch("layer0_fwd", agg, layers[0], fwd, h0, out_rows[0]),
-        check_launch("layer1_fwd", agg, layers[1], fwd, h1, out_rows[1]),
-        check_launch("layer1_bwd", agg, layers[1], bwd, g1, pad[1]),
-    ]
-    del h0, h1, g1
 
-    # 4. the main path: training steps through the trainer's entry point
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * scale
+
+    h0 = torch.zeros((pad[0], f0), device="cuda")
+    h0[:len(feats)] = torch.from_numpy(feats).cuda()
+    h1, g1 = randn(pad[1], hid), randn(out_rows[1], hid)
+    rows = {"aggregate_edges": [
+        check_edges_launch("layer0_fwd", agg, layers[0], FWD, h0,
+                           out_rows[0]),
+        check_edges_launch("layer1_fwd", agg, layers[1], FWD, h1,
+                           out_rows[1]),
+        check_edges_launch("layer1_bwd", agg, layers[1], BWD, g1, pad[1])]}
+    w0, w1 = randn(f0, hid, scale=f0 ** -0.5), randn(hid, n_cls,
+                                                     scale=hid ** -0.5)
+    rows["aggregate_fused"] = [
+        check_fused_fwd("layer0_fused_fwd", agg, layers[0], h0, w0),
+        check_fused_fwd("layer1_fused_fwd", agg, layers[1], h1, w1)]
+    rows["fused_bwd"] = [
+        check_fused_bwd("layer0_fused_bwd", agg, layers[0], h0, w0,
+                        randn(out_rows[0], hid)),
+        check_fused_bwd("layer1_fused_bwd", agg, layers[1], h1, w1,
+                        randn(out_rows[1], n_cls))]
+    cfg_m = dataclasses.replace(cfg, name="gin", aggregate_backend=
+                                "pallas_fused", batch_targets=MERGED_TARGETS)
+    mb_m = NeighborSampler(graph, cfg_m, graph.train_ids, 0,
+                           SEED).batch_at(0, 0)
+    lay_m = build_layer_layouts(mb_m.edge_src, mb_m.edge_dst,
+                                mb_m.edge_mask, block_capacities(cfg_m),
+                                AGG_KIND["gin"])
+    lay_m0, lay_m1 = ({k[4:]: v[l] for k, v in lay_m.items()}
+                      for l in range(2))
+    if lay_m1["cols"].shape[0] != 1:
+        fail(f"the {MERGED_TARGETS}-target batch's layer 1 has "
+             f"{lay_m1['cols'].shape[0]} destination blocks, not 1")
+    # GIN's launches carry the self term s = (1 + eps) h_self
+    feats_m = graph.features[mb_m.nodes[0]] * mb_m.node_mask[0][:, None]
+    hm0 = torch.zeros((lay_m0["cols_t"].shape[0] * 128, f0), device="cuda")
+    hm0[:len(feats_m)] = torch.from_numpy(feats_m).cuda()
+    hm1 = randn(lay_m1["cols_t"].shape[0] * 128, hid)
+    dst_m = [lay_m0["cols"].shape[0] * 128, 128]
+    for l, (lay_l, h_l, w_l) in enumerate((
+            (lay_m0, hm0, randn(f0, hid, scale=f0 ** -0.5)),
+            (lay_m1, hm1, randn(hid, n_cls, scale=hid ** -0.5)))):
+        s_l = randn(dst_m[l], h_l.shape[1])
+        rows["aggregate_fused"].append(check_fused_fwd(
+            f"gin{MERGED_TARGETS}_layer{l}_fused_fwd", agg, lay_l, h_l, w_l,
+            s_l))
+        rows["fused_bwd"].append(check_fused_bwd(
+            f"gin{MERGED_TARGETS}_layer{l}_fused_bwd", agg, lay_l, h_l, w_l,
+            randn(dst_m[l], w_l.shape[1]), s_l))
+    rows["fused_bwd_merged"] = [check_merged(
+        "layer1_merged_bwd", agg, lay_m1,
+        randn(lay_m1["cols_t"].shape[0] * 128, hid),
+        randn(hid, n_cls, scale=hid ** -0.5), randn(128, n_cls),
+        randn(128, hid))]
+    del h0, h1, g1, w0, w1, hm0, hm1
+    torch.cuda.empty_cache()
+
+    # 4. the main paths: training steps through the trainer's entry point
     t0 = time.perf_counter()
-    trainer = SyncGNNTrainer(graph, cfg, num_devices=1, algorithm="distdgl",
-                             seed=SEED, device="cuda")
-    reference = SyncGNNTrainer(
-        graph, dataclasses.replace(cfg, aggregate_backend="reference"),
-        num_devices=1, algorithm="distdgl", seed=SEED, device="cuda",
-        params=params_to_numpy(trainer.params))
+    runs, peaks = {}, {}
+    edges_tr = SyncGNNTrainer(graph, cfg, num_devices=1, algorithm="distdgl",
+                              seed=SEED, device="cuda")
+    params0 = params_to_numpy(edges_tr.params)
+    groups = list(sched.iterations(edges_tr.epoch_schedule()))[:ITERATIONS]
+    ref_loss, peaks["reference"] = reference_loss(
+        SyncGNNTrainer, graph, cfg, params0, groups[0])
     print(f"trainers built in {time.perf_counter() - t0:.1f} s", flush=True)
-    groups = list(sched.iterations(trainer.epoch_schedule()))[:ITERATIONS]
-    ref_loss = reference.run_iteration(groups[0])["loss"]
+    none = {k: 0 for k in agg.launch_counts}
+    runs["pallas_edges"] = run_path(
+        "graphsage/pallas_edges", edges_tr, groups,
+        {**none, "aggregate_edges": 3}, agg)
+    check_first_loss("graphsage/pallas_edges", runs["pallas_edges"],
+                     ref_loss)
+    del edges_tr
+    fused_tr = SyncGNNTrainer(
+        graph, dataclasses.replace(cfg, aggregate_backend="pallas_fused"),
+        num_devices=1, algorithm="distdgl", seed=SEED, device="cuda",
+        params=params0)
+    runs["pallas_fused"] = run_path(
+        "graphsage/pallas_fused", fused_tr, groups,
+        {**none, "aggregate_fused": 2, "fused_bwd": 2, "aggregate_edges": 1},
+        agg)
+    check_first_loss("graphsage/pallas_fused", runs["pallas_fused"],
+                     ref_loss)
+    del fused_tr
+    memory = {be: {"peak_bytes": runs[be]["peak_bytes"] if be in runs
+                   else peaks[be],
+                   "aggregate_intermediate_bytes":
+                       runs[be]["aggregate_intermediate_bytes"]
+                       if be in runs else 0}
+              for be in ("reference", "pallas_edges", "pallas_fused")}
+    print("peak_memory " + json.dumps(memory), flush=True)
 
-    agg.reset_launch_counts()
-    steps = []
-    for it, group in enumerate(groups):
-        before = agg.launch_counts["aggregate_edges"]
-        t0 = time.perf_counter()
-        m = trainer.run_iteration(group)
-        wall = time.perf_counter() - t0
-        got = agg.launch_counts["aggregate_edges"] - before
-        m.update(iteration=it, wall_s=wall, launches=got,
-                 nvtps=m["vertices_traversed"] / wall)
-        print("iteration " + json.dumps(m), flush=True)
-        if got != 3:
-            fail(f"iteration {it} launched aggregate_edges {got} times, "
-                 f"expected 3")
-        if not np.isfinite(m["loss"]):
-            fail(f"iteration {it} loss is {m['loss']}")
-        steps.append(m)
-    main_launches = agg.launch_counts["aggregate_edges"]
-    first = steps[0]["loss"]
-    if not np.isclose(first, ref_loss, rtol=LOSS_RTOL, atol=0):
-        fail(f"first loss {first} vs reference backend {ref_loss}")
-    print(f"first loss {first!r} vs reference backend {ref_loss!r}; "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    merged_tr = SyncGNNTrainer(graph, cfg_m, num_devices=1,
+                               algorithm="distdgl", seed=SEED, device="cuda")
+    groups_m = list(sched.iterations(
+        merged_tr.epoch_schedule()))[:MERGED_ITERATIONS]
+    ref_loss_m, _ = reference_loss(SyncGNNTrainer, graph, cfg_m,
+                                   params_to_numpy(merged_tr.params),
+                                   groups_m[0])
+    runs["merged"] = run_path(
+        f"gin/pallas_fused/{MERGED_TARGETS}_targets", merged_tr, groups_m,
+        {**none, "aggregate_fused": 2, "fused_bwd": 1,
+         "fused_bwd_merged": 1}, agg)
+    check_first_loss(f"gin/pallas_fused/{MERGED_TARGETS}_targets",
+                     runs["merged"], ref_loss_m)
 
     # 5. summary
-    def total(key):
-        return sum(r[key] for r in launches)
-
-    t_bytes = sum(r["bytes"] for r in launches) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(r["flops"] for r in launches) / FP32_FLOPS * 1e3
-    kernels = [{
-        "name": "aggregate_edges", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/aggregate_edges.cu",
-        "replaces": "src/repro/kernels/aggregate.py:275",
-        "launches": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in launches),
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": total("library_ms"),
-        "per_launch": launches}]
+    kernels = [kernel_entry(name, rows[name], {
+        path: run["launches"][name] for path, run in runs.items()})
+        for name in KERNEL_SOURCES]
+    for k in kernels:
+        if k["launches"] == 0:
+            fail(f"{k['name']} was launched no time on the main paths")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

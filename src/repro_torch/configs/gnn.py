@@ -11,8 +11,9 @@ the feature cache). The reference's deprecated flat-kwarg spellings
 (``cache_capacity=...`` on the config) are not copied: pass the nested
 groups.
 
-The port runs ``aggregate_backend`` "reference" and "pallas_edges" (the
-backend names are kept: they name a layout and datapath, not Pallas).
+The port runs ``aggregate_backend`` "reference", "pallas_edges" and
+"pallas_fused" (the backend names are kept: they name a layout and
+datapath, not Pallas).
 """
 from __future__ import annotations
 
@@ -77,8 +78,10 @@ class GNNModelConfig:
     ``name`` is "gcn" | "graphsage" | "gin" | "gat"; ``num_layers``,
     ``hidden``, ``fanouts`` and ``batch_targets`` are the paper's Table 5
     shapes. ``aggregate_backend`` picks the aggregation datapath:
-    "reference" (masked segment sum in plain PyTorch) or "pallas_edges"
-    (per-tile edge segments through the hand-written CUDA kernel).
+    "reference" (masked segment sum in plain PyTorch), "pallas_edges"
+    (per-tile edge segments through the hand-written CUDA aggregation
+    kernel, then the update matmul) or "pallas_fused" (aggregation and
+    update matmul in one hand-written CUDA kernel, forward and backward).
     The reference's ``kernel_interpret`` (Pallas execution mode) has no
     counterpart here.
     """

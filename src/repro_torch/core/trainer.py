@@ -4,7 +4,8 @@
 Per synchronous iteration (paper Fig. 2 / Alg. 2 + gradient sync):
   1. the two-stage scheduler picks p mini-batches, one per simulated device;
   2. the host samples each batch in-process, builds each layer's
-     edge-segment layout (``aggregate_backend="pallas_edges"``) and gathers
+     edge-segment layout (``aggregate_backend`` "pallas_edges" or
+     "pallas_fused") and gathers
      its feature rows through the FeatureStore (beta accounting);
   3. the batches move to the card, and the step takes each batch's loss and
      gradients in turn (a Python loop in place of the reference's ``vmap``)
@@ -35,8 +36,8 @@ from repro_torch.core.sampler import MiniBatch, NeighborSampler
 from repro_torch.data.graphs import Graph
 from repro_torch.device import resolve_device
 from repro_torch.gnn import models as gnn_models
-from repro_torch.kernels.layout import (EDGE_STREAM_BACKENDS, block_capacities,
-                                        build_layer_layouts)
+from repro_torch.kernels.layout import (BLK, EDGE_STREAM_BACKENDS,
+                                        block_capacities, build_layer_layouts)
 from repro_torch.nn.param import (flatten, init_params, params_from_numpy,
                                   unflatten)
 from repro_torch.optim.adam import AdamW
@@ -49,9 +50,7 @@ ALGORITHMS = {
 }
 
 # reference knobs the port does not run yet -> their ROADMAP.md item
-_UNPORTED_BACKENDS = {"pallas": "queue B, item B.2 (aggregate_blockcsr)",
-                      "pallas_fused": "queue B, items B.3-B.5 "
-                                      "(aggregate_fused and its backwards)"}
+_UNPORTED_BACKENDS = {"pallas": "queue B, item B.2 (aggregate_blockcsr)"}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -193,6 +192,23 @@ class SyncGNNTrainer:
         fn = (sched.two_stage_schedule if self.workload_balancing
               else sched.naive_schedule)
         return fn(counts)
+
+    def aggregate_intermediate_bytes(self) -> int:
+        """Device-memory bytes per batch of the layer aggregates that the
+        unfused kernel path (``"pallas_edges"``) writes as (n_dstb*128,
+        f_in) f32 and reads back for the update matmul (autograd keeps them
+        for the backward). 0 under ``"pallas_fused"``, whose kernels keep
+        each aggregate on chip, forward and backward, and under
+        ``"reference"``, which has no layout."""
+        if (not self._blk_caps
+                or self.model_cfg.aggregate_backend == "pallas_fused"):
+            return 0
+        f_in = self.graph.features.shape[1]
+        total = 0
+        for (_, n_dst, _, _, _) in self._blk_caps:
+            total += -(-n_dst // BLK) * BLK * f_in * 4
+            f_in = self.model_cfg.hidden
+        return total
 
     # -- host stages ------------------------------------------------------------
     def _local_payload(self, partition: int, stage_s: Dict[str, float]

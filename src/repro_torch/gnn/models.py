@@ -1,5 +1,5 @@
 """GNN models in the aggregate-update paradigm (paper Alg. 1, §5.3);
-counterpart of ``repro.gnn.models`` for GraphSAGE and GCN.
+counterpart of ``repro.gnn.models`` for GraphSAGE, GCN and GIN.
 
 Models consume a padded mini-batch as a dict of tensors (see
 ``core/trainer.batch_to_arrays``):
@@ -7,10 +7,13 @@ Models consume a padded mini-batch as a dict of tensors (see
   edge_src[l](E_l,)      local src index into layer l's vertex set
   edge_dst[l](E_l,)      local dst index into layer l+1's vertex set
   edge_mask[l], node_mask[l], self_idx[l], labels
-plus, under ``aggregate_backend="pallas_edges"``, each layer's edge-segment
-layout (``agg_*``), which routes the aggregation through the CUDA kernel
-(``kernels/aggregate.AggregateEdges``). ``"reference"`` aggregates with a
-masked segment sum in plain PyTorch. GIN and GAT wait (ROADMAP.md queue A).
+plus, under the kernel backends, each layer's edge-segment layout
+(``agg_*``). ``"pallas_edges"`` routes the aggregation through the CUDA
+kernel (``kernels/aggregate.AggregateEdges``) and the update matmul runs
+after it; ``"pallas_fused"`` runs aggregate and update matmul in one CUDA
+kernel (``kernels/aggregate.AggregateFused``), so the aggregate never
+reaches device memory. ``"reference"`` aggregates with a masked segment sum
+in plain PyTorch. GAT waits (ROADMAP.md queue A, item A.1).
 """
 from __future__ import annotations
 
@@ -18,13 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.gnn import GNNModelConfig
-from repro_torch.kernels.aggregate import AggregateEdges
-from repro_torch.kernels.layout import BLK
+from repro_torch.kernels.aggregate import AggregateEdges, AggregateFused
+from repro_torch.kernels.layout import BLK, EDGE_STREAM_BACKENDS
 from repro_torch.nn.param import PSpec
 
 # the aggregate_backend values the port runs
-BACKENDS = ("reference", "pallas_edges")
-MODELS = ("graphsage", "gcn")
+BACKENDS = ("reference", "pallas_edges", "pallas_fused")
+MODELS = ("graphsage", "gcn", "gin")
 
 # aggregation semantics per model; "mean" bakes 1/deg into the layout's
 # edge values host-side
@@ -64,10 +67,20 @@ def param_spec(cfg: GNNModelConfig, f_in: int, n_classes: int):
             layers.append({"w_self": PSpec((fi, fo)),
                            "w_neigh": PSpec((fi, fo)),
                            "b": PSpec((fo,), "zeros")})
-        else:
+        elif cfg.name == "gcn":
             layers.append({"w": PSpec((fi, fo)),
                            "b": PSpec((fo,), "zeros")})
+        else:
+            layers.append({"eps": PSpec((), "zeros"),
+                           "w1": PSpec((fi, fo)),
+                           "b1": PSpec((fo,), "zeros"),
+                           "w2": PSpec((fo, fo)),
+                           "b2": PSpec((fo,), "zeros")})
     return {"layers": layers}
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    return F.pad(x, (0, 0, 0, rows - x.shape[0])) if rows != x.shape[0] else x
 
 
 def _kernel_aggregate(batch, l: int, h: torch.Tensor,
@@ -76,10 +89,7 @@ def _kernel_aggregate(batch, l: int, h: torch.Tensor,
     zero-padded to the layout's source blocks here, not in the kernel, and
     the output is cut back to the layer's ``n_dst`` rows."""
     cols_t = batch["agg_cols_t"][l]
-    n_src_pad = cols_t.shape[0] * BLK
-    h32 = h.float()
-    if n_src_pad != h32.shape[0]:
-        h32 = F.pad(h32, (0, 0, 0, n_src_pad - h32.shape[0]))
+    h32 = _pad_rows(h.float(), cols_t.shape[0] * BLK)
     out = AggregateEdges.apply(
         batch["agg_tile_off"][l], batch["agg_val"][l],
         batch["agg_tile_seg"][l], batch["agg_cols"][l],
@@ -88,17 +98,54 @@ def _kernel_aggregate(batch, l: int, h: torch.Tensor,
     return out[:n_dst].to(h.dtype)
 
 
+def _fused_aggregate_update(batch, l: int, h: torch.Tensor, n_dst: int,
+                            w: torch.Tensor,
+                            s: torch.Tensor | None = None) -> torch.Tensor:
+    """Layer-l ``(A @ h [+ s]) @ w`` through the fused kernel, which keeps
+    the (n_dstb*128, F) aggregate out of device memory, forward and
+    backward. ``h`` is padded to the layout's source blocks and ``s`` to
+    its destination blocks (after any scaling, so its gradient covers
+    exactly the unfused rows); bias and activation stay outside the kernel,
+    as in the reference."""
+    cols_t = batch["agg_cols_t"][l]
+    h32 = _pad_rows(h.float(), cols_t.shape[0] * BLK).contiguous()
+    if s is not None:
+        s = _pad_rows(s.float(),
+                      batch["agg_cols"][l].shape[0] * BLK).contiguous()
+    out = AggregateFused.apply(
+        batch["agg_tile_off"][l], batch["agg_val"][l],
+        batch["agg_tile_seg"][l], batch["agg_cols"][l],
+        batch["agg_tile_off_t"][l], batch["agg_val_t"][l],
+        batch["agg_tile_seg_t"][l], cols_t, h32, w.float().contiguous(),
+        None, s, "none")
+    return out[:n_dst].to(h.dtype)
+
+
 def _layer(cfg: GNNModelConfig, p, h, batch, l: int, n_dst: int):
     h_self = h[batch["self_idx"][l]]
-    if cfg.aggregate_backend == "pallas_edges" and "agg_tile_off" in batch:
-        agg = _kernel_aggregate(batch, l, h, n_dst)
-    else:
-        agg = aggregate(h, batch["edge_src"][l], batch["edge_dst"][l],
-                        batch["edge_mask"][l], n_dst, AGG_KIND[cfg.name])
+    use_kernel = (cfg.aggregate_backend in EDGE_STREAM_BACKENDS
+                  and "agg_tile_off" in batch)
+    fused = use_kernel and cfg.aggregate_backend == "pallas_fused"
+
+    def _agg() -> torch.Tensor:
+        if use_kernel:
+            return _kernel_aggregate(batch, l, h, n_dst)
+        return aggregate(h, batch["edge_src"][l], batch["edge_dst"][l],
+                         batch["edge_mask"][l], n_dst, AGG_KIND[cfg.name])
+
+    def _fused(w, s=None):
+        return _fused_aggregate_update(batch, l, h, n_dst, w, s)
+
     if cfg.name == "graphsage":
-        return h_self @ p["w_self"] + agg @ p["w_neigh"] + p["b"]
+        neigh = _fused(p["w_neigh"]) if fused else _agg() @ p["w_neigh"]
+        return h_self @ p["w_self"] + neigh + p["b"]
     if cfg.name == "gcn":
-        return (agg + h_self) @ p["w"] * 0.5 + p["b"]
+        y = _fused(p["w"], h_self) if fused else (_agg() + h_self) @ p["w"]
+        return y * 0.5 + p["b"]
+    if cfg.name == "gin":
+        hs = (1.0 + p["eps"]) * h_self
+        y = _fused(p["w1"], hs) if fused else (hs + _agg()) @ p["w1"]
+        return torch.relu(y + p["b1"]) @ p["w2"] + p["b2"]
     raise NotImplementedError(
         f"model {cfg.name!r} is not ported yet (ROADMAP.md queue A, item "
         f"A.1)")

@@ -1,29 +1,40 @@
-"""Edge-streaming aggregation ``out = A @ h`` (counterpart of
-``repro.kernels.aggregate.aggregate_edges`` and ``aggregate_edges_vjp``).
+"""Edge-streaming aggregation and the fused aggregate->update datapath
+(counterparts of ``repro.kernels.aggregate``'s ``aggregate_edges`` /
+``aggregate_edges_vjp`` and ``aggregate_fused`` / ``aggregate_fused_vjp``).
 
-A arrives as per-tile edge segments (``kernels/layout.py``). On a CUDA
-tensor ``aggregate_edges`` launches the hand-written kernel
-``csrc/aggregate_edges.cu`` — or raises; on a CPU tensor it runs
-``aggregate_edges_plain``, the same function in plain PyTorch, which the
-tests hold against the JAX reference. ``AggregateEdges`` is the autograd
-function of the training path: its backward is the same kernel over the
-transposed segments, ``dh = A^T @ g``.
+A arrives as per-tile edge segments (``kernels/layout.py``). Each wrapper
+below takes a CUDA tensor to its hand-written kernel in ``csrc/`` — or
+raises — and a CPU tensor to its ``*_plain`` twin, the same function in
+plain PyTorch, which the tests hold against the JAX reference:
 
-``launch_counts`` counts kernel launches (incremented where a launch is
-made, nowhere else), so a run can show that its main path went through the
-kernel.
+* ``aggregate_edges`` (``csrc/aggregate_edges.cu``): ``out = A @ h``.
+  ``AggregateEdges`` is its autograd function; the backward is the same
+  kernel over the transposed segments, ``dh = A^T @ g``.
+* ``aggregate_fused`` (``csrc/aggregate_fused.cu``): ``act((A @ h [+ s]) @
+  w [+ b])`` with the aggregate kept on chip, never written to device
+  memory.
+* ``fused_bwd`` and ``fused_bwd_merged`` (``csrc/aggregate_fused_bwd.cu``):
+  its backward, which recomputes the aggregate per destination block.
+  ``AggregateFused`` is the autograd function and picks between them as
+  the reference's ``_fused_bwd`` does.
+
+``launch_counts`` counts wrapper calls that launched their kernel
+(incremented where a launch is made, nowhere else), so a run can show that
+its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.layout import BLK
 
-launch_counts = {"aggregate_edges": 0}
+launch_counts = {"aggregate_edges": 0, "aggregate_fused": 0, "fused_bwd": 0,
+                 "fused_bwd_merged": 0}
 
 # dynamic shared memory a thread block may use on Hopper
 _MAX_SMEM = 232_448
@@ -56,19 +67,23 @@ def aggregate_edges_plain(tile_off: torch.Tensor, val: torch.Tensor,
     return out
 
 
+def _check_tensor(name: str, t: torch.Tensor, dev: torch.device,
+                  dtype: torch.dtype) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, h on {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def _check(tile_off, val, seg, cols, h) -> None:
-    dev = h.device
     for name, t, dtype in (("tile_off", tile_off, torch.int32),
                            ("val", val, torch.float32),
                            ("seg", seg, torch.int32),
                            ("cols", cols, torch.int32),
                            ("h", h, torch.float32)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, h on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_tensor(name, t, h.device, dtype)
     if tile_off.dim() != 1 or val.shape != tile_off.shape:
         raise ValueError(f"tile_off {tuple(tile_off.shape)} and val "
                          f"{tuple(val.shape)} must be equal 1-D shapes")
@@ -84,25 +99,67 @@ def _check(tile_off, val, seg, cols, h) -> None:
                          f"{BLK} (the source blocks)")
 
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each library in csrc/: {C function: (argument types, result type)}
+_SIGNATURES = {
+    "aggregate_edges": {
+        "aggregate_edges_smem_bytes": ([_I], _L),
+        "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I),
+        "aggregate_edges_error_string": ([_I], ctypes.c_char_p)},
+    "aggregate_fused": {
+        "aggregate_fused_smem_bytes": ([_I], _L),
+        "aggregate_fused_launch": ([_P] * 9 + [_I, _I, _L, _I, _I, _I, _P],
+                                   _I),
+        "aggregate_fused_error_string": ([_I], ctypes.c_char_p)},
+    "aggregate_fused_bwd": {
+        "fused_bwd_smem_bytes": ([_I], _L),
+        "fused_bwd_launch": ([_P] * 14 + [_I, _I, _L, _I, _I, _I, _I, _I,
+                                          _P], _I),
+        "fused_bwd_merged_smem_bytes": ([_I, _I], _L),
+        "fused_bwd_merged_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _P],
+                                    _I),
+        "aggregate_fused_bwd_error_string": ([_I], ctypes.c_char_p)},
+}
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("aggregate_edges")
-    lib.aggregate_edges_smem_bytes.argtypes = [ctypes.c_int]
-    lib.aggregate_edges_smem_bytes.restype = ctypes.c_longlong
-    lib.aggregate_edges_launch.argtypes = (
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-           ctypes.c_void_p])
-    lib.aggregate_edges_launch.restype = ctypes.c_int
-    lib.aggregate_edges_error_string.argtypes = [ctypes.c_int]
-    lib.aggregate_edges_error_string.restype = ctypes.c_char_p
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
+
+
+def _raise_on(status: int, lib: str, what: str) -> None:
+    if status != 0:
+        msg = getattr(_lib(lib), f"{lib}_error_string")(status).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (status {status})")
+
+
+def _check_smem(what: str, smem: int) -> None:
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{what} needs {smem} B of shared memory for this "
+                         f"layout; a block has {_MAX_SMEM}")
+
+
+def _on_card(what: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the plain path)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+    return True
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def aggregate_edges_smem_bytes(max_blk: int) -> int:
     """Dynamic shared memory one kernel launch uses for a layout with
     ``max_blk`` tile slots per destination block (builds the kernel)."""
-    return _lib().aggregate_edges_smem_bytes(max_blk)
+    return _lib("aggregate_edges").aggregate_edges_smem_bytes(max_blk)
 
 
 def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,
@@ -116,30 +173,20 @@ def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,
     F) f32. Returns (n_dstb*128, F) f32. A CUDA tensor goes through the
     kernel, a CPU tensor through ``aggregate_edges_plain``."""
     _check(tile_off, val, seg, cols, h)
-    if h.device.type == "cpu":
+    if not _on_card("aggregate_edges", h):
         return aggregate_edges_plain(tile_off, val, seg, cols, h)
-    if h.device.type != "cuda":
-        raise ValueError(f"aggregate_edges runs on cuda or cpu, not "
-                         f"{h.device}")
     n_dstb, max_blk = cols.shape
     F = h.shape[1]
     out = torch.empty((n_dstb * BLK, F), dtype=torch.float32, device=h.device)
     if tile_off.numel() == 0 or F == 0:  # zero-capacity layer: A is empty
         return out.zero_()
-    smem = aggregate_edges_smem_bytes(max_blk)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"aggregate_edges needs {smem} B of shared memory "
-                         f"for max_blk={max_blk}; a block has {_MAX_SMEM}")
+    _check_smem("aggregate_edges", aggregate_edges_smem_bytes(max_blk))
     with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        status = _lib().aggregate_edges_launch(
+        status = _lib("aggregate_edges").aggregate_edges_launch(
             tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
             cols.data_ptr(), h.data_ptr(), out.data_ptr(), n_dstb, max_blk,
-            h.shape[0], F, stream)
-    if status != 0:
-        msg = _lib().aggregate_edges_error_string(status).decode()
-        raise RuntimeError(f"aggregate_edges launch failed: {msg} "
-                           f"(status {status})")
+            h.shape[0], F, _stream(h))
+    _raise_on(status, "aggregate_edges", "aggregate_edges")
     launch_counts["aggregate_edges"] += 1
     return out
 
@@ -163,3 +210,347 @@ class AggregateEdges(torch.autograd.Function):
             dh = aggregate_edges(tile_off_t, val_t, seg_t, cols_t,
                                  g.float().contiguous()).to(g.dtype)
         return None, None, None, None, None, None, None, None, dh
+
+
+# --- the fused aggregate -> update datapath -----------------------------------
+
+# activations the fused kernels apply, by the code the CUDA sources take
+ACTS = {"none": 0, "relu": 1, "gelu": 2}
+# the reference takes the merged backward only up to this feature width
+MERGED_MAX_F = 256
+# feature columns per slice of the aggregate the kernels keep on chip, and
+# output columns per thread block (csrc/edge_walk.cuh: FB, NB)
+_FS, _NB = 64, 128
+# the general backward's grid aims at two waves of one block on each of
+# an H100's 132 SMs, with its dw partials held under this many bytes
+_BWD_TARGET_BLOCKS = 264
+_BWD_PARTIAL_CAP = 8 << 20
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def update_epilogue(y: torch.Tensor, b, act: str) -> torch.Tensor:
+    """Bias + activation tail of the update MLP (copy of
+    ``repro.kernels.update_mlp.update_epilogue``; ``jax.nn.gelu`` is the
+    tanh form)."""
+    if b is not None:
+        y = y + b.float()[None, :]
+    if act == "relu":
+        y = torch.clamp_min(y, 0.0)
+    elif act == "gelu":
+        y = torch.nn.functional.gelu(y, approximate="tanh")
+    elif act != "none":
+        raise ValueError(f"unknown activation: {act!r}")
+    return y
+
+
+def _act_grad(y: torch.Tensor, act: str) -> torch.Tensor:
+    """d act(y) / dy for relu and the tanh-form gelu. With u the tanh's
+    argument, 0.5 (1 + tanh u) = sigmoid(2u) and 1 - tanh(u)^2 = 4
+    sigmoid(2u) sigmoid(-2u); this form keeps its accuracy where tanh
+    saturates, which 1 - tanh^2 does not."""
+    if act == "relu":
+        return (y > 0.0).to(y.dtype)
+    u2 = 2.0 * _SQRT_2_OVER_PI * (y + 0.044715 * y * y * y)
+    sg = torch.sigmoid(u2)
+    return sg + 2.0 * y * sg * torch.sigmoid(-u2) * _SQRT_2_OVER_PI * (
+        1.0 + 3 * 0.044715 * y * y)
+
+
+def _aggregate_z(tile_off, val, seg, cols, h, s):
+    z = aggregate_edges_plain(tile_off, val, seg, cols, h)
+    return z if s is None else z + s
+
+
+def aggregate_fused_plain(tile_off, val, seg, cols, h, w, b=None, s=None,
+                          act: str = "none") -> torch.Tensor:
+    """Plain version of ``aggregate_fused``: ``act((A @ h [+ s]) @ w [+
+    b])`` for every padded destination row, (n_dstb*128, N). With no edges
+    (``E == 0``) the aggregate is zero and the rows are ``act(s @ w +
+    b)``, as the reference's zero-capacity branch gives."""
+    z = _aggregate_z(tile_off, val, seg, cols, h, s)
+    return update_epilogue(z @ w, b, act)
+
+
+def fused_bwd_plain(tile_off, val, seg, cols, h, g, w, b=None, s=None,
+                    act: str = "none"):
+    """Plain version of ``fused_bwd`` (the reference's ``_fused_bwd_call``):
+    with z = A @ h [+ s] and dy = g * act'(z @ w [+ b]) (dy = g for act
+    none), returns ``dw = z^T dy`` (F, N), ``db = sum_rows dy`` (N,) if a
+    bias is given, and ``dy`` (n_dstb*128, N) if act is not none."""
+    z = _aggregate_z(tile_off, val, seg, cols, h, s)
+    if act == "none":
+        dy = g
+    else:
+        dy = g * _act_grad(update_epilogue(z @ w, b, "none"), act)
+    db = dy.sum(0) if b is not None else None
+    return z.T @ dy, db, (dy if act != "none" else None)
+
+
+def fused_bwd_merged_plain(tile_off, val, seg, cols, tile_off_t, val_t,
+                           seg_t, cols_t, h, g, dz, s=None,
+                           has_bias: bool = False):
+    """Plain version of ``fused_bwd_merged`` (the reference's
+    ``_fused_bwd_merged_call``, one destination block, act none): ``dw =
+    z^T g``, ``db = sum_rows g`` if ``has_bias``, and ``dh = A^T @ dz``
+    (n_srcb*128, F) with the source blocks that no slot of ``cols[0]``
+    names set to +0.0."""
+    z = _aggregate_z(tile_off, val, seg, cols, h, s)
+    db = g.sum(0) if has_bias else None
+    dh = aggregate_edges_plain(tile_off_t, val_t, seg_t, cols_t, dz)
+    covered = torch.zeros(h.shape[0] // BLK, dtype=torch.bool,
+                          device=h.device)
+    covered[cols[0].long()] = True
+    dh = torch.where(covered.repeat_interleave(BLK)[:, None], dh, 0.0)
+    return z.T @ g, db, dh
+
+
+def _check_fused(tile_off, val, seg, cols, h, w, b, s, act) -> None:
+    _check(tile_off, val, seg, cols, h)
+    _check_tensor("w", w, h.device, torch.float32)
+    if w.dim() != 2 or w.shape[0] != h.shape[1]:
+        raise ValueError(f"w has shape {tuple(w.shape)}; expected "
+                         f"({h.shape[1]}, N) for h {tuple(h.shape)}")
+    if b is not None:
+        _check_tensor("b", b, h.device, torch.float32)
+        if tuple(b.shape) != (w.shape[1],):
+            raise ValueError(f"b has shape {tuple(b.shape)}; expected "
+                             f"({w.shape[1]},)")
+    if s is not None:
+        _check_tensor("s", s, h.device, torch.float32)
+        want = (cols.shape[0] * BLK, h.shape[1])
+        if tuple(s.shape) != want:
+            raise ValueError(f"s has shape {tuple(s.shape)}; expected "
+                             f"{want}")
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}; expected one of "
+                         f"{tuple(ACTS)}")
+
+
+def _check_z_dtype(z_dtype) -> None:
+    if z_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f"z_dtype={z_dtype} is not ported yet (ROADMAP.md queue A, "
+            f"item A.15: reduced-precision datapaths); the port's fused "
+            f"kernels run in float32")
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def aggregate_fused_smem_bytes(max_blk: int) -> int:
+    """Dynamic shared memory of one ``aggregate_fused`` thread block for a
+    layout with ``max_blk`` slots per destination block (builds it)."""
+    return _lib("aggregate_fused").aggregate_fused_smem_bytes(max_blk)
+
+
+def aggregate_fused(tile_off, val, seg, cols, h, w, b=None, s=None, *,
+                    act: str = "none", z_dtype=None) -> torch.Tensor:
+    """out = act((A @ h [+ s]) @ w [+ b]), the aggregate never written to
+    device memory.
+
+    The layout and h are as for ``aggregate_edges``; w (F, N), b (N,) and
+    s (n_dstb*128, F) are float32 and unpadded; act is none, relu or gelu.
+    Returns (n_dstb*128, N) float32. A CUDA tensor goes through
+    ``csrc/aggregate_fused.cu``, a CPU tensor through
+    ``aggregate_fused_plain``."""
+    _check_z_dtype(z_dtype)
+    _check_fused(tile_off, val, seg, cols, h, w, b, s, act)
+    if not _on_card("aggregate_fused", h):
+        return aggregate_fused_plain(tile_off, val, seg, cols, h, w, b, s,
+                                     act)
+    n_dstb, max_blk = cols.shape
+    F, N = w.shape
+    out = torch.empty((n_dstb * BLK, N), dtype=torch.float32,
+                      device=h.device)
+    if out.numel() == 0:
+        return out
+    _check_smem("aggregate_fused", aggregate_fused_smem_bytes(max_blk))
+    with torch.cuda.device(h.device):
+        status = _lib("aggregate_fused").aggregate_fused_launch(
+            tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
+            cols.data_ptr(), h.data_ptr(), w.data_ptr(), _ptr(b), _ptr(s),
+            out.data_ptr(), n_dstb, max_blk, h.shape[0], F, N, ACTS[act],
+            _stream(h))
+    _raise_on(status, "aggregate_fused", "aggregate_fused")
+    launch_counts["aggregate_fused"] += 1
+    return out
+
+
+def fused_bwd_groups(n_dstb: int, F: int, N: int) -> tuple:
+    """(groups, destination blocks per group) of ``fused_bwd``'s dw
+    reduction: each thread block sums ``z^T dy`` over one contiguous group
+    of destination blocks into its own (F, N) partial, and a second pass
+    adds the partials in group order, so dw has one summation order on
+    every run. The groups give about ``_BWD_TARGET_BLOCKS`` thread blocks
+    and keep the partials under ``_BWD_PARTIAL_CAP`` bytes."""
+    per_group = -(-F // _FS) * -(-N // _NB)
+    want = max(1, -(-_BWD_TARGET_BLOCKS // per_group))
+    cap = max(1, _BWD_PARTIAL_CAP // max(1, 4 * F * N))
+    size = -(-n_dstb // max(1, min(n_dstb, want, cap)))
+    return -(-n_dstb // size), size
+
+
+def fused_bwd_smem_bytes(max_blk: int) -> int:
+    return _lib("aggregate_fused_bwd").fused_bwd_smem_bytes(max_blk)
+
+
+def fused_bwd(tile_off, val, seg, cols, h, g, w, b=None, s=None, *,
+              act: str = "none", z_dtype=None):
+    """The fused datapath's backward recompute pass (the reference's
+    ``_fused_bwd_call``). Recomputes z = A @ h [+ s] per destination block
+    and returns (dw (F, N), db (N,) or None, dy (n_dstb*128, N) or None);
+    dy is returned when act is not none. g is (n_dstb*128, N) float32. A
+    CUDA tensor goes through ``csrc/aggregate_fused_bwd.cu``, a CPU tensor
+    through ``fused_bwd_plain``."""
+    _check_z_dtype(z_dtype)
+    _check_fused(tile_off, val, seg, cols, h, w, b, s, act)
+    n_dstb, max_blk = cols.shape
+    F, N = w.shape
+    _check_tensor("g", g, h.device, torch.float32)
+    if tuple(g.shape) != (n_dstb * BLK, N):
+        raise ValueError(f"g has shape {tuple(g.shape)}; expected "
+                         f"({n_dstb * BLK}, {N})")
+    if not _on_card("fused_bwd", h):
+        return fused_bwd_plain(tile_off, val, seg, cols, h, g, w, b, s, act)
+    dev = h.device
+    dw = torch.empty((F, N), dtype=torch.float32, device=dev)
+    db = (torch.empty((N,), dtype=torch.float32, device=dev)
+          if b is not None else None)
+    dy = (torch.empty((n_dstb * BLK, N), dtype=torch.float32, device=dev)
+          if act != "none" else None)
+    if dw.numel() == 0 or n_dstb == 0:
+        dw.zero_()
+        return dw, (db.zero_() if db is not None else None), dy
+    groups, size = fused_bwd_groups(n_dstb, F, N)
+    part_dw = torch.empty((groups, F, N), dtype=torch.float32, device=dev)
+    part_db = (torch.empty((groups, N), dtype=torch.float32, device=dev)
+               if b is not None else None)
+    _check_smem("fused_bwd", fused_bwd_smem_bytes(max_blk))
+    with torch.cuda.device(dev):
+        status = _lib("aggregate_fused_bwd").fused_bwd_launch(
+            tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
+            cols.data_ptr(), h.data_ptr(), g.data_ptr(), w.data_ptr(),
+            _ptr(b), _ptr(s), dw.data_ptr(), _ptr(db), _ptr(dy),
+            part_dw.data_ptr(), _ptr(part_db), n_dstb, max_blk, h.shape[0],
+            F, N, ACTS[act], size, groups, _stream(h))
+    _raise_on(status, "aggregate_fused_bwd", "fused_bwd")
+    launch_counts["fused_bwd"] += 1
+    return dw, db, dy
+
+
+def fused_bwd_merged_smem_bytes(max_blk: int, max_blk_t: int) -> int:
+    return _lib("aggregate_fused_bwd").fused_bwd_merged_smem_bytes(
+        max_blk, max_blk_t)
+
+
+def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
+                     cols_t, h, g, dz, s=None, *, has_bias: bool = False,
+                     z_dtype=None):
+    """The single-pass backward for one destination block and act none
+    (the reference's ``_fused_bwd_merged_call``): dw and db from the
+    forward segments and ``dh = A^T @ dz`` from the transposed ones, in one
+    launch. g is (128, N), dz (128, F); returns (dw (F, N), db (N,) or
+    None, dh (n_srcb*128, F)), dh +0.0 on source blocks no slot of
+    ``cols[0]`` names. A CUDA tensor goes through
+    ``csrc/aggregate_fused_bwd.cu``, a CPU tensor through
+    ``fused_bwd_merged_plain``."""
+    _check_z_dtype(z_dtype)
+    _check(tile_off, val, seg, cols, h)
+    _check(tile_off_t, val_t, seg_t, cols_t, dz)
+    n_dstb, max_blk = cols.shape
+    n_srcb, max_blk_t = cols_t.shape
+    F = h.shape[1]
+    if n_dstb != 1 or F > MERGED_MAX_F or tile_off_t.numel() == 0:
+        raise ValueError(f"fused_bwd_merged takes one destination block, "
+                         f"F <= {MERGED_MAX_F} and a non-empty A^T; got "
+                         f"n_dstb={n_dstb}, F={F}, "
+                         f"E_t={tile_off_t.numel()}")
+    _check_tensor("g", g, h.device, torch.float32)
+    if g.dim() != 2 or g.shape[0] != BLK:
+        raise ValueError(f"g has shape {tuple(g.shape)}; expected "
+                         f"({BLK}, N)")
+    if tuple(dz.shape) != (BLK, F) or n_srcb * BLK != h.shape[0]:
+        raise ValueError(f"dz {tuple(dz.shape)} and cols_t "
+                         f"{tuple(cols_t.shape)} do not fit h "
+                         f"{tuple(h.shape)}")
+    if s is not None:
+        _check_tensor("s", s, h.device, torch.float32)
+        if tuple(s.shape) != (BLK, F):
+            raise ValueError(f"s has shape {tuple(s.shape)}; expected "
+                             f"({BLK}, {F})")
+    if not _on_card("fused_bwd_merged", h):
+        return fused_bwd_merged_plain(tile_off, val, seg, cols, tile_off_t,
+                                      val_t, seg_t, cols_t, h, g, dz, s,
+                                      has_bias)
+    N = g.shape[1]
+    dev = h.device
+    dw = torch.empty((F, N), dtype=torch.float32, device=dev)
+    db = (torch.empty((N,), dtype=torch.float32, device=dev)
+          if has_bias else None)
+    dh = torch.empty_like(h)
+    _check_smem("fused_bwd_merged",
+                fused_bwd_merged_smem_bytes(max_blk, max_blk_t))
+    with torch.cuda.device(dev):
+        status = _lib("aggregate_fused_bwd").fused_bwd_merged_launch(
+            tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
+            cols.data_ptr(), tile_off_t.data_ptr(), val_t.data_ptr(),
+            seg_t.data_ptr(), cols_t.data_ptr(), h.data_ptr(), g.data_ptr(),
+            dz.data_ptr(), _ptr(s), dw.data_ptr(), _ptr(db), dh.data_ptr(),
+            max_blk, max_blk_t, h.shape[0], F, N, _stream(h))
+    _raise_on(status, "aggregate_fused_bwd", "fused_bwd_merged")
+    launch_counts["fused_bwd_merged"] += 1
+    return dw, db, dh
+
+
+class AggregateFused(torch.autograd.Function):
+    """Differentiable ``act((A @ h [+ s]) @ w [+ b])`` (the reference's
+    ``aggregate_fused_vjp``). The backward takes the reference's branches:
+    one destination block with act none, F <= 256 and a non-empty A^T
+    takes ``fused_bwd_merged``; every other layer takes ``fused_bwd`` and
+    then ``aggregate_edges`` over A^T for ``dh``. A layer with no edges
+    takes the second branch too, where it gives the reference's
+    zero-capacity cotangents (z = s, dh = 0). ``dz = dy @ w^T`` is a plain
+    ``torch.matmul``. The second branch computes ``dh`` only when ``h``
+    needs a gradient (the input features get none); the merged branch
+    forms it in the same launch and drops it then."""
+
+    @staticmethod
+    def forward(ctx, tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
+                cols_t, h, w, b, s, act):
+        ctx.act = act
+        ctx.save_for_backward(tile_off, val, seg, cols, tile_off_t, val_t,
+                              seg_t, cols_t, h, w, b, s)
+        return aggregate_fused(tile_off, val, seg, cols, h, w, b, s, act=act)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tile_off, val, seg, cols, tile_off_t, val_t, seg_t, cols_t, h, w,
+         b, s) = ctx.saved_tensors
+        act = ctx.act
+        need_h, need_w, need_b, need_s = ctx.needs_input_grad[8:12]
+        g = g.float().contiguous()
+        n_dstb = cols.shape[0]
+        F = h.shape[1]
+        dh = dz = None
+        if (n_dstb == 1 and act == "none" and F <= MERGED_MAX_F
+                and tile_off_t.numel() > 0):
+            dy = g
+            dz = (g @ w.T).contiguous()
+            dw, db, dh = fused_bwd_merged(
+                tile_off, val, seg, cols, tile_off_t, val_t, seg_t, cols_t,
+                h, g, dz, s, has_bias=b is not None)
+        else:
+            dw, db, dy = fused_bwd(tile_off, val, seg, cols, h, g, w, b, s,
+                                   act=act)
+            if dy is None:
+                dy = g
+        if dz is None and (need_h or need_s):
+            dz = (dy @ w.T).contiguous()
+        if need_h and dh is None:
+            dh = aggregate_edges(tile_off_t, val_t, seg_t, cols_t, dz)
+        return (None,) * 8 + (dh if need_h else None,
+                              dw if need_w else None,
+                              db if need_b else None,
+                              dz if need_s else None, None)

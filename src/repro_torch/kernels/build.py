@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface under ``build/kernels/`` at the repository
-root, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. The library is bound with
+root, named by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. The library is bound with
 ``ctypes``: no PyTorch headers are compiled, which keeps a build to
 seconds. ``nvcc -Xptxas -v``'s report (registers, shared memory, spills)
 is kept beside the library as ``.log``.
@@ -39,8 +40,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

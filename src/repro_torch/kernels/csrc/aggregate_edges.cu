@@ -31,40 +31,24 @@
 //
 // Design (a simple kernel that is right; tensor cores, TMA and cp.async are
 // later work):
-//   * one thread block per (destination block i, slice of FB feature
-//     columns); the edges of block i are the contiguous range
-//     seg[i*max_blk] .. seg[(i+1)*max_blk];
-//   * the block's seg slice sits in shared memory; the edges are staged in
-//     chunks, each thread resolving one edge's tile slot by binary search
-//     and writing its destination row, source row cols[i,k]*128 + col, and
-//     weight to shared memory;
-//   * an fp32 accumulator of 128 rows x FB columns lives in shared memory.
-//     Warp w owns the rows r with r % WARPS == w and walks the staged edges
-//     in order, so every row is summed by one warp in edge order: no
-//     atomics, and the result is the same on every run. Lanes run over the
-//     feature columns, so each h row load is coalesced; up to 4 edges'
-//     loads are issued before their adds to keep loads in flight;
+//   * one thread block per (destination block i, slice of FB = 64 feature
+//     columns);
+//   * edge_walk.cuh's walk_edges sums the block's edges into an fp32
+//     accumulator of 128 rows x FB columns in shared memory: the edges are
+//     staged in chunks, each row is summed by one warp in segment order (no
+//     atomics, the same result on every run), and the h row loads are
+//     coalesced, several in flight;
 //   * the accumulator is written once; columns past F are masked (no
-//     padding of F), and 64-bit offsets index h and out (row*F reaches
-//     1.8e8 at layer 0).
+//     padding of F).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "edge_walk.cuh"
 
 namespace {
 
-constexpr int BLK = 128;
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int VEC = 2;            // feature columns per lane
-constexpr int FB = 32 * VEC;      // feature columns per thread block
-constexpr int CHUNK = 1024;       // edges staged in shared memory per pass
-constexpr int UNROLL = 4;         // edges whose loads are in flight together
+using namespace edge_walk;
 
 size_t smem_bytes(int max_blk) {
-  return sizeof(float) * (size_t)BLK * FB          // accumulator
-         + sizeof(int) * ((size_t)max_blk + 1)     // seg slice
-         + (sizeof(int) * 2 + sizeof(float)) * CHUNK;  // staged edges
+  return sizeof(float) * (size_t)BLK * FB + staging_bytes(max_blk);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -77,81 +61,19 @@ aggregate_edges_kernel(const int* __restrict__ tile_off,
                        int max_blk, long long n_src, int F) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* acc = reinterpret_cast<float*>(smem_raw);        // BLK * FB
-  int* s_seg = reinterpret_cast<int*>(acc + BLK * FB);    // max_blk + 1
-  int* s_row = s_seg + (max_blk + 1);                     // CHUNK
-  int* s_src = s_row + CHUNK;                             // CHUNK
-  float* s_val = reinterpret_cast<float*>(s_src + CHUNK); // CHUNK
+  const Staging st = carve_staging(
+      reinterpret_cast<unsigned char*>(acc + BLK * FB), max_blk);
 
   const int i = blockIdx.x;
   const int f0 = blockIdx.y * FB;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  for (int x = threadIdx.x; x < BLK * FB; x += THREADS) acc[x] = 0.f;
-  const int* seg_i = seg + (long long)i * max_blk;
-  const int* cols_i = cols + (long long)i * max_blk;
-  for (int x = threadIdx.x; x <= max_blk; x += THREADS) s_seg[x] = seg_i[x];
+  zero(acc, BLK * FB);
+  load_seg(seg, i, max_blk, st);
   __syncthreads();
-
-  const int e_begin = s_seg[0];
-  const int e_end = s_seg[max_blk];
-  for (int c0 = e_begin; c0 < e_end; c0 += CHUNK) {
-    const int n = min(CHUNK, e_end - c0);
-    for (int x = threadIdx.x; x < n; x += THREADS) {
-      const int e = c0 + x;
-      // the edge's slot: the last k in [0, max_blk) with s_seg[k] <= e
-      int lo = 0, hi = max_blk - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (s_seg[mid] <= e) lo = mid; else hi = mid - 1;
-      }
-      const int off = tile_off[e];
-      const long long src = (long long)cols_i[lo] * BLK + (off & (BLK - 1));
-      if (src >= n_src || off < 0 || off >= BLK * BLK) __trap();
-      s_row[x] = off >> 7;
-      s_src[x] = (int)src;
-      s_val[x] = val[e];
-    }
-    __syncthreads();
-    for (int b = 0; b < n; b += 32) {
-      const int x = b + lane;
-      const bool mine = x < n && (s_row[x] % WARPS) == warp;
-      unsigned mask = __ballot_sync(0xffffffffu, mine);
-      while (mask) {
-        int xs[UNROLL];
-        float hv[UNROLL][VEC];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          xs[u] = -1;
-          if (mask) {
-            xs[u] = b + __ffs(mask) - 1;
-            mask &= mask - 1;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          if (xs[u] >= 0) {
-            const float* hrow = h + (long long)s_src[xs[u]] * F;
-#pragma unroll
-            for (int v = 0; v < VEC; ++v) {
-              const int f = f0 + v * 32 + lane;
-              hv[u][v] = f < F ? __ldg(hrow + f) : 0.f;
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          if (xs[u] >= 0) {
-            float* arow = acc + s_row[xs[u]] * FB;
-            const float w = s_val[xs[u]];
-#pragma unroll
-            for (int v = 0; v < VEC; ++v) arow[v * 32 + lane] += w * hv[u][v];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
+  walk_edges(tile_off, val, cols + (long long)i * max_blk, h, acc, max_blk,
+             n_src, F, f0, st);
 
   for (int r = warp; r < BLK; r += WARPS) {
     float* orow = out + ((long long)i * BLK + r) * F;
@@ -180,12 +102,8 @@ int aggregate_edges_launch(const int* tile_off, const float* val,
                            float* out, int n_dstb, int max_blk,
                            long long n_src, int F, void* stream) {
   const size_t smem = smem_bytes(max_blk);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        aggregate_edges_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem(aggregate_edges_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(n_dstb, (F + FB - 1) / FB);
   aggregate_edges_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       tile_off, val, seg, cols, h, out, max_blk, n_src, F);

@@ -1,0 +1,239 @@
+// fused_update.cuh: the block-level pieces of the fused aggregate -> update
+// kernels (aggregate_fused.cu, aggregate_fused_bwd.cu).
+//
+// Both recompute, for one destination block i, z_i = A_i @ h [+ s_i] one
+// slice of FB = 64 feature columns at a time into a 128 x 64 fp32 tile in
+// shared memory (edge_walk.cuh's walk_edges), and consume each slice before
+// the next is formed, so the aggregate never reaches device memory and the
+// tile fits whatever F is (a whole 128-row z tile at F = 602 would be
+// 308 KB, more than the 227 KB of shared memory a block may have):
+//
+//   update_block: y = sum over slices of z[:, fs] @ w[fs, n0:n0+NB], held in
+//     registers, then the epilogue (+ b, act) — the forward — or
+//     dy = g * act'(y) for the backward;
+//   dw_block: dw[fs, n0:n0+NB] = sum over a run of destination blocks of
+//     z_i[:, fs]^T @ dy_i[:, n0:n0+NB], held in registers.
+//
+// The products are plain fp32 FMA loops over register tiles (each thread
+// owns an 8 x 8 or 4 x 8 tile and reads its operands from shared memory);
+// tensor cores (wgmma) are later work. w, b and s come unpadded: rows of w
+// past F and columns past N are staged as zeros, and stores past N are
+// masked.
+
+#pragma once
+
+#include "edge_walk.cuh"
+
+namespace fused {
+
+using namespace edge_walk;
+
+constexpr int NB = 128;             // output columns per thread block
+constexpr int TX = 16, TY = 16;     // threads of a block as a TY x TX grid
+constexpr int TM = BLK / TY;        // update_block: rows per thread (8)
+constexpr int TN = NB / TX;         // columns per thread (8)
+constexpr int TF = FB / TY;         // dw_block: rows of dw per thread (4)
+static_assert(TX * TY == THREADS, "one register tile per thread");
+
+enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
+
+constexpr float SQRT_2_OVER_PI = 0.7978845608028654f;
+constexpr float GELU_C = 0.044715f;
+
+// jax.nn.gelu's default: the tanh form
+__device__ inline float act_apply(float y, int act) {
+  if (act == ACT_RELU) return fmaxf(y, 0.f);
+  if (act == ACT_GELU) {
+    const float u = SQRT_2_OVER_PI * (y + GELU_C * y * y * y);
+    return y * (0.5f * (1.f + tanhf(u)));
+  }
+  return y;
+}
+
+// With u the tanh's argument, 0.5 (1 + tanh u) = sigmoid(2u) and
+// 1 - tanh(u)^2 = 4 sigmoid(2u) sigmoid(-2u); this form keeps its accuracy
+// where tanh saturates, which 1 - tanh^2 does not.
+__device__ inline float act_grad(float y, int act) {
+  if (act == ACT_RELU) return y > 0.f ? 1.f : 0.f;
+  if (act == ACT_GELU) {
+    const float u2 = 2.f * SQRT_2_OVER_PI * (y + GELU_C * y * y * y);
+    const float sg = 1.f / (1.f + expf(-u2));
+    const float sg_neg = 1.f / (1.f + expf(u2));
+    return sg + 2.f * y * sg * sg_neg * SQRT_2_OVER_PI
+           * (1.f + 3.f * GELU_C * y * y);
+  }
+  return 1.f;
+}
+
+__host__ __device__ inline size_t update_smem_bytes(int max_blk) {
+  return sizeof(float) * ((size_t)BLK * FB + (size_t)FB * NB)
+         + staging_bytes(max_blk);
+}
+
+__host__ __device__ inline size_t dw_smem_bytes(int max_blk) {
+  return sizeof(float) * ((size_t)BLK * FB + (size_t)BLK * NB)
+         + staging_bytes(max_blk);
+}
+
+// z tile of destination block i, columns f0 .. f0+FB: zt = A_i @ h [+ s].
+// st.seg must hold block i's seg slice and zt be zeroed, both visible to
+// every thread; zt is complete and visible to every thread on return.
+__device__ inline void form_z(const int* __restrict__ tile_off,
+                              const float* __restrict__ val,
+                              const int* __restrict__ cols,
+                              const float* __restrict__ h,
+                              const float* __restrict__ s, float* zt, int i,
+                              int max_blk, long long n_src, int F, int f0,
+                              const Staging& st) {
+  walk_edges(tile_off, val, cols + (long long)i * max_blk, h, zt, max_blk,
+             n_src, F, f0, st);
+  if (s != nullptr) {
+    const long long row0 = (long long)i * BLK;
+    for (int x = threadIdx.x; x < BLK * FB; x += THREADS) {
+      const int f = f0 + x % FB;
+      if (f < F) zt[x] += s[(row0 + x / FB) * F + f];
+    }
+    __syncthreads();
+  }
+}
+
+// Destination block i, output columns n0 .. n0+NB:
+// y = (A_i @ h [+ s_i]) @ w + b. Writes out = act(y) (kDy false, the
+// forward) or out = g * act'(y) (kDy true, the backward's dy), both
+// (n_dstb*128, N) row-major.
+template <bool kDy>
+__device__ void update_block(const int* __restrict__ tile_off,
+                             const float* __restrict__ val,
+                             const int* __restrict__ seg,
+                             const int* __restrict__ cols,
+                             const float* __restrict__ h,
+                             const float* __restrict__ w,
+                             const float* __restrict__ b,
+                             const float* __restrict__ s,
+                             const float* __restrict__ g,
+                             float* __restrict__ out, int i, int n0,
+                             int max_blk, long long n_src, int F, int N,
+                             int act, unsigned char* smem) {
+  float* zt = reinterpret_cast<float*>(smem);   // BLK x FB
+  float* ws = zt + BLK * FB;                    // FB x NB
+  const Staging st = carve_staging(
+      reinterpret_cast<unsigned char*>(ws + FB * NB), max_blk);
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[m][j] = 0.f;
+
+  load_seg(seg, i, max_blk, st);
+  for (int f0 = 0; f0 < F; f0 += FB) {
+    zero(zt, BLK * FB);
+    for (int x = threadIdx.x; x < FB * NB; x += THREADS) {
+      const int f = f0 + x / NB, n = n0 + x % NB;
+      ws[x] = (f < F && n < N) ? w[(long long)f * N + n] : 0.f;
+    }
+    __syncthreads();
+    form_z(tile_off, val, cols, h, s, zt, i, max_blk, n_src, F, f0, st);
+#pragma unroll 4
+    for (int k = 0; k < FB; ++k) {
+      float a[TM], bv[TN];
+#pragma unroll
+      for (int m = 0; m < TM; ++m) a[m] = zt[(ty + TY * m) * FB + k];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = ws[k * NB + tx + TX * j];
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[m][j] = fmaf(a[m], bv[j], acc[m][j]);
+    }
+    __syncthreads();  // every thread is done with zt and ws
+  }
+
+  const long long row0 = (long long)i * BLK;
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + TX * j;
+      if (n >= N) continue;
+      const float y = acc[m][j] + (b != nullptr ? b[n] : 0.f);
+      const long long o = (row0 + ty + TY * m) * N + n;
+      out[o] = kDy ? g[o] * act_grad(y, act) : act_apply(y, act);
+    }
+  }
+}
+
+// dw_out[f, n] = sum over destination blocks i in [i_begin, i_end), in
+// order, of sum over rows r of z_i[r, f] * dy[i*128 + r, n], for the
+// columns f0 .. f0+FB of z and n0 .. n0+NB of dy (row stride N, masked to
+// f < F, n < N). With db_out, also db_out[n] = the same sum of dy alone.
+__device__ void dw_block(const int* __restrict__ tile_off,
+                         const float* __restrict__ val,
+                         const int* __restrict__ seg,
+                         const int* __restrict__ cols,
+                         const float* __restrict__ h,
+                         const float* __restrict__ s,
+                         const float* __restrict__ dy,
+                         float* __restrict__ dw_out,
+                         float* __restrict__ db_out, int i_begin, int i_end,
+                         int f0, int n0, int max_blk, long long n_src, int F,
+                         int N, unsigned char* smem) {
+  float* zt = reinterpret_cast<float*>(smem);   // BLK x FB
+  float* dys = zt + BLK * FB;                   // BLK x NB
+  const Staging st = carve_staging(
+      reinterpret_cast<unsigned char*>(dys + BLK * NB), max_blk);
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+
+  float acc[TF][TN];
+#pragma unroll
+  for (int t = 0; t < TF; ++t)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[t][j] = 0.f;
+  float db_acc = 0.f;
+
+  for (int i = i_begin; i < i_end; ++i) {
+    zero(zt, BLK * FB);
+    load_seg(seg, i, max_blk, st);
+    const long long row0 = (long long)i * BLK;
+    for (int x = threadIdx.x; x < BLK * NB; x += THREADS) {
+      const int n = n0 + x % NB;
+      dys[x] = n < N ? dy[(row0 + x / NB) * N + n] : 0.f;
+    }
+    __syncthreads();
+    form_z(tile_off, val, cols, h, s, zt, i, max_blk, n_src, F, f0, st);
+#pragma unroll 4
+    for (int r = 0; r < BLK; ++r) {
+      float a[TF], bv[TN];
+#pragma unroll
+      for (int t = 0; t < TF; ++t) a[t] = zt[r * FB + ty + TY * t];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = dys[r * NB + tx + TX * j];
+#pragma unroll
+      for (int t = 0; t < TF; ++t)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[t][j] = fmaf(a[t], bv[j], acc[t][j]);
+    }
+    if (db_out != nullptr && threadIdx.x < NB) {
+      for (int r = 0; r < BLK; ++r) db_acc += dys[r * NB + threadIdx.x];
+    }
+    __syncthreads();  // every thread is done with zt, dys and the seg slice
+  }
+
+#pragma unroll
+  for (int t = 0; t < TF; ++t) {
+    const int f = f0 + ty + TY * t;
+    if (f >= F) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + TX * j;
+      if (n < N) dw_out[(long long)f * N + n] = acc[t][j];
+    }
+  }
+  if (db_out != nullptr && threadIdx.x < NB && n0 + threadIdx.x < N)
+    db_out[n0 + threadIdx.x] = db_acc;
+}
+
+}  // namespace fused

@@ -2,7 +2,8 @@
 reference (counterpart of ``repro.nn.param``).
 
 A model declares its parameters as ``{"layers": [{name: PSpec}]}``. The
-port keeps parameters as the same tree of plain tensors. Leaves are visited
+port keeps parameters as the same tree of plain tensors, scalars (GIN's
+0-d ``eps``) included. Leaves are visited
 in the reference's pytree order (layers in order, names sorted), so
 ``flatten`` lists them as ``jax.tree.leaves`` does.
 
@@ -52,7 +53,8 @@ def unflatten(like, leaves) -> dict:
 def _init_leaf(spec: PSpec, gen: torch.Generator) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=torch.float32)
-    fan_in = spec.shape[0] if len(spec.shape) >= 2 else spec.shape[-1]
+    fan_in = (spec.shape[0] if len(spec.shape) >= 2
+              else spec.shape[-1] if spec.shape else 1)
     std = 1.0 / np.sqrt(max(fan_in, 1))
     return torch.randn(spec.shape, generator=gen, dtype=torch.float32) * std
 

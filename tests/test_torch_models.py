@@ -1,7 +1,9 @@
-"""The port's GraphSAGE and GCN against ``repro.gnn.models``: logits, loss
-and every parameter gradient, on the reference and the ``pallas_edges``
-datapaths, from the same parameters and the same sampled batch, at rtol
-1e-5 / atol 1e-6 (fp32 matrix products and sums taken in another order)."""
+"""The port's GraphSAGE, GCN and GIN against ``repro.gnn.models``: logits,
+loss and every parameter gradient, on the ``reference``, ``pallas_edges``
+and ``pallas_fused`` datapaths, from the same parameters and the same
+sampled batch, at rtol 1e-5 / atol 1e-6 (fp32 matrix products and sums
+taken in another order). The reference's fused datapath and GIN run under
+the test-local ``jax_shims`` (``tests/jax_reference_shims.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,10 +18,12 @@ from repro.gnn import models as jm
 from repro.kernels.layout import block_capacities, build_layer_layouts
 from repro.nn.param import materialize
 
+from jax_reference_shims import jax_shims  # noqa: F401  (a fixture)
 from repro_torch.configs.gnn import GNNModelConfig as TCfg
 from repro_torch.core.trainer import batch_to_arrays
 from repro_torch.gnn import models as tm
 from repro_torch.kernels import aggregate as agg
+from repro_torch.kernels.layout import EDGE_STREAM_BACKENDS
 from repro_torch.nn.param import (flatten, init_params, params_from_numpy,
                                   tree_paths, unflatten)
 
@@ -34,10 +38,10 @@ def _setup(name, backend, seed=0):
     mb = NeighborSampler(G, jcfg, G.train_ids, 0, seed).batch_at(0, 0)
     feats = G.features[mb.nodes[0]] * mb.node_mask[0][:, None]
     layout = None
-    if backend == "pallas_edges":
+    if backend in EDGE_STREAM_BACKENDS:
         layout = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
-                                     block_capacities(jcfg), "mean",
-                                     edge_stream=True)
+                                     block_capacities(jcfg),
+                                     jm.AGG_KIND[name], edge_stream=True)
     jbatch = j_batch_to_arrays(mb, feats)
     jbatch.update(layout or {})
     jbatch = jax.tree.map(jnp.asarray, jbatch)
@@ -48,22 +52,34 @@ def _setup(name, backend, seed=0):
     return jcfg, tcfg, jbatch, tbatch, jparams, tparams
 
 
-@pytest.mark.parametrize("backend", ["reference", "pallas_edges"])
-@pytest.mark.parametrize("name", ["graphsage", "gcn"])
-def test_forward_loss_and_grads_match_reference(name, backend):
+@pytest.mark.parametrize("backend", ["reference", "pallas_edges",
+                                     "pallas_fused"])
+@pytest.mark.parametrize("name", ["graphsage", "gcn", "gin"])
+def test_forward_loss_and_grads_match_reference(name, backend, request):
+    if name == "gin" or backend == "pallas_fused":
+        request.getfixturevalue("jax_shims")  # the reference needs them
     jcfg, tcfg, jbatch, tbatch, jparams, tparams = _setup(name, backend)
+    if name == "gin":  # eps away from 0, so that (1 + eps) is exercised
+        jparams["layers"] = [dict(p, eps=jnp.float32(0.25 * (l + 1)))
+                             for l, p in enumerate(jparams["layers"])]
+        tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                    "cpu")
 
-    logits_j = np.asarray(jm.forward(jcfg, jparams, jbatch))
-    (loss_j, met_j), grads_j = jax.value_and_grad(
-        lambda p: jm.loss_fn(jcfg, p, jbatch), has_aux=True)(jparams)
+    # one compiled program: the reference's interpret-mode kernels run
+    # faster traced once than op by op
+    logits_j, ((loss_j, met_j), grads_j) = jax.jit(lambda p: (
+        jm.forward(jcfg, p, jbatch), jax.value_and_grad(
+            lambda q: jm.loss_fn(jcfg, q, jbatch), has_aux=True)(p)))(
+        jparams)
+    logits_j = np.asarray(logits_j)
 
-    before = agg.launch_counts["aggregate_edges"]
+    before = dict(agg.launch_counts)
     leaves = [p.clone().requires_grad_(True) for p in flatten(tparams)]
     params = unflatten(tparams, leaves)
     logits_t = tm.forward(tcfg, params, tbatch)
     loss_t, met_t = tm.loss_fn(tcfg, params, tbatch)
     grads_t = torch.autograd.grad(loss_t, leaves)
-    assert agg.launch_counts["aggregate_edges"] == before  # CPU: plain path
+    assert agg.launch_counts == before  # CPU: plain path
 
     assert logits_t.shape == logits_j.shape
     np.testing.assert_allclose(logits_t.detach().numpy(), logits_j,
@@ -77,13 +93,14 @@ def test_forward_loss_and_grads_match_reference(name, backend):
                                    atol=ATOL, err_msg=f"layer {l} {k}")
 
 
-@pytest.mark.parametrize("name", ["graphsage", "gcn"])
-def test_kernel_datapath_matches_reference_datapath(name):
-    """Within the port: the pallas_edges layout path and the plain segment
-    sum give the same loss and gradients."""
+@pytest.mark.parametrize("backend", ["pallas_edges", "pallas_fused"])
+@pytest.mark.parametrize("name", ["graphsage", "gcn", "gin"])
+def test_kernel_datapath_matches_reference_datapath(name, backend):
+    """Within the port: each kernel datapath and the plain segment sum give
+    the same loss and gradients."""
     out = []
-    for backend in ("reference", "pallas_edges"):
-        _, tcfg, _, tbatch, _, tparams = _setup(name, backend, seed=1)
+    for be in ("reference", backend):
+        _, tcfg, _, tbatch, _, tparams = _setup(name, be, seed=1)
         leaves = [p.clone().requires_grad_(True) for p in flatten(tparams)]
         loss, _ = tm.loss_fn(tcfg, unflatten(tparams, leaves), tbatch)
         out.append((loss, torch.autograd.grad(loss, leaves)))
@@ -109,7 +126,7 @@ def test_reference_aggregate_matches_segment_sum():
         np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("name", ["graphsage", "gcn"])
+@pytest.mark.parametrize("name", ["graphsage", "gcn", "gin"])
 def test_standalone_init_follows_the_spec(name):
     cfg = TCfg(name, **SMALL)
     spec = tm.param_spec(cfg, 602, 41)
@@ -118,7 +135,7 @@ def test_standalone_init_follows_the_spec(name):
     for (l, k), x, y in zip(tree_paths(spec), flatten(a), flatten(b)):
         assert tuple(x.shape) == spec["layers"][l][k].shape
         assert torch.equal(x, y)  # one seed, one set of weights
-        if k == "b":
+        if k in ("b", "b1", "b2", "eps"):
             assert not x.any()
         else:  # fan-in scaled normal: std 1/sqrt(fan_in)
             assert abs(float(x.std()) * np.sqrt(x.shape[0]) - 1.0) < 0.1

@@ -1,8 +1,11 @@
 """The port's ``SyncGNNTrainer`` against ``repro.core.trainer.SyncGNNTrainer``
-(``pipeline=False``, ``aggregate_backend="pallas_edges"``), both started
-from the reference's initial parameters: three iterations under DistDGL and
-PaGraph with 1 and 2 devices, plus the ``train()`` facade, the device rule
-and the knobs the port does not run yet."""
+(``pipeline=False``), both started from the reference's initial
+parameters: three iterations of GraphSAGE on ``"pallas_edges"`` under
+DistDGL and PaGraph with 1 and 2 devices, and of GraphSAGE, GCN and GIN on
+``"pallas_fused"`` (the reference's fused datapath and GIN under the
+test-local ``jax_shims``), plus the ``train()`` facade, the device rule,
+the aggregate bytes each datapath keeps in device memory and the knobs the
+port does not run yet."""
 import dataclasses
 
 import jax
@@ -17,6 +20,7 @@ from repro.core.trainer import SyncGNNTrainer as JTrainer
 from repro.data.graphs import synthetic_graph
 from repro.gnn import models as jm
 
+from jax_reference_shims import jax_shims  # noqa: F401  (a fixture)
 from repro_torch.configs.gnn import GNNModelConfig as TCfg
 from repro_torch.configs.gnn import (CacheConfig, FaultConfig, HostConfig,
                                      PlatformConfig)
@@ -31,14 +35,13 @@ G = synthetic_graph(scale=11, edge_factor=6, feat_dim=16, num_classes=4)
 RTOL, ATOL = 1e-5, 1e-6
 
 
-def _trainers(algo, p):
-    jt = JTrainer(G, JCfg("graphsage", aggregate_backend="pallas_edges",
-                          **SMALL), num_devices=p, algorithm=algo,
-                  pipeline=False)
+def _trainers(algo, p, name="graphsage", backend="pallas_edges"):
+    jt = JTrainer(G, JCfg(name, aggregate_backend=backend, **SMALL),
+                  num_devices=p, algorithm=algo, pipeline=False)
     params0 = jax.tree.map(np.asarray, jt.params)
-    tt = TTrainer(G, TCfg("graphsage", aggregate_backend="pallas_edges",
-                          **SMALL), num_devices=p, algorithm=algo,
-                  device="cpu", params=params0)
+    tt = TTrainer(G, TCfg(name, aggregate_backend=backend, **SMALL),
+                  num_devices=p, algorithm=algo, device="cpu",
+                  params=params0)
     return jt, tt
 
 
@@ -60,7 +63,15 @@ def _reference_grads(jt, stacked):
 @pytest.mark.parametrize("p", [1, 2])
 @pytest.mark.parametrize("algo", ["distdgl", "pagraph"])
 def test_three_iterations_match_reference(algo, p):
-    jt, tt = _trainers(algo, p)
+    _check_three_iterations(*_trainers(algo, p))
+
+
+@pytest.mark.parametrize("name", ["graphsage", "gcn", "gin"])
+def test_fused_three_iterations_match_reference(name, jax_shims):
+    _check_three_iterations(*_trainers("distdgl", 2, name, "pallas_fused"))
+
+
+def _check_three_iterations(jt, tt):
     jgroups = list(jsched.iterations(jt.epoch_schedule()))
     tgroups = list(tsched.iterations(tt.epoch_schedule()))
     assert len(jgroups) >= 3
@@ -106,6 +117,32 @@ def test_cpu_run_launches_no_kernel():
     assert agg.launch_counts == before
 
 
+@pytest.mark.parametrize("name", ["graphsage", "gin"])
+def test_cpu_fused_run_launches_no_kernel(name):
+    before = dict(agg.launch_counts)
+    t = TTrainer(G, TCfg(name, aggregate_backend="pallas_fused", **SMALL),
+                 num_devices=1, device="cpu")
+    m = t.run_iteration(next(tsched.iterations(t.epoch_schedule())))
+    assert np.isfinite(m["loss"])
+    assert agg.launch_counts == before
+
+
+def test_aggregate_intermediate_bytes_per_datapath():
+    """At the paper's GraphSAGE shape the unfused kernel path keeps each
+    layer's (n_dstb*128, f_in) f32 aggregate in device memory; the fused
+    path keeps none."""
+    g = synthetic_graph(scale=9, edge_factor=4, feat_dim=602,
+                        num_classes=41)
+    paper = dict(num_layers=2, hidden=128, fanouts=(25, 10),
+                 batch_targets=1024)
+    got = {be: TTrainer(g, TCfg("graphsage", aggregate_backend=be, **paper),
+                        num_devices=1, device="cpu"
+                        ).aggregate_intermediate_bytes()
+           for be in ("reference", "pallas_edges", "pallas_fused")}
+    assert got == {"reference": 0, "pallas_edges": 26_624 * 602 * 4
+                   + 1_024 * 128 * 4, "pallas_fused": 0}
+
+
 def test_train_facade_runs_one_epoch():
     cfg = TCfg("graphsage", aggregate_backend="pallas_edges", **SMALL)
     seen = []
@@ -148,10 +185,8 @@ UNPORTED = {
     "checkpointer": dict(checkpointer=object()),
     "sgdm": dict(optimizer_name="sgdm"),
     "p3": dict(algorithm="p3"),
-    "gin": dict(cfg=dict(name="gin")),
     "gat": dict(cfg=dict(name="gat")),
     "pallas": dict(aggregate_backend="pallas"),
-    "pallas_fused": dict(aggregate_backend="pallas_fused"),
 }
 
 

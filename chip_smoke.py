@@ -6,14 +6,18 @@
 Drives the port's main paths — synchronous training at the paper's width
 (2 layers, hidden 128, fanouts (25, 10), 1024 targets per batch) on a
 Reddit-shaped graph of 2^18 vertices (602 features, 41 classes) — through
-their normal entry point, ``SyncGNNTrainer.run_iteration``, and holds
-every CUDA kernel of those paths against its plain PyTorch version. The
-paths: GraphSAGE on ``aggregate_backend="pallas_edges"`` (the
-``aggregate_edges`` kernel, then the update matmul), GraphSAGE on
-``"pallas_fused"`` (``aggregate_fused`` forward, ``fused_bwd`` and
-``aggregate_edges`` backward), and GIN on ``"pallas_fused"`` at 128
-targets, whose last layer has one destination block and so takes
-``fused_bwd_merged``. Phases, each of which exits non-zero on failure:
+their normal entry point, ``SyncGNNTrainer.run_iteration``, and the kernel
+entry points of ``repro_torch.kernels.ops``, and holds every CUDA kernel of
+those paths against its plain PyTorch version. The paths: GraphSAGE on
+``aggregate_backend="pallas_edges"`` (the ``aggregate_edges`` kernel, then
+the update matmul), GraphSAGE on ``"pallas_fused"`` (``aggregate_fused``
+forward, ``fused_bwd`` and ``aggregate_edges`` backward), GIN on
+``"pallas_fused"`` at 128 targets, whose last layer has one destination
+block and so takes ``fused_bwd_merged``, GraphSAGE on ``"pallas"`` (dense
+tiles densified on the card, then ``aggregate_blockcsr``, then the update
+matmul), and ``ops.update`` / ``ops.aggregate`` / ``ops.aggregate_update``
+(``update_mlp``, ``aggregate_blockcsr``, ``aggregate_fused`` and, unfused,
+``aggregate_edges``). Phases, each of which exits non-zero on failure:
 
   1. device report: the card's name, and its name and power limit as
      ``nvidia-smi`` gives them;
@@ -25,17 +29,24 @@ targets, whose last layer has one destination block and so takes
      forward, layer-1 backward over A^T), ``aggregate_fused`` and
      ``fused_bwd`` (layers 0 and 1, no self term), and one 128-target GIN
      batch for ``aggregate_fused`` and ``fused_bwd`` with a self term
-     ``s`` (layers 0 and 1) and ``fused_bwd_merged`` (its layer 1). Each
-     launch is held against its
-     plain version on the card within rtol 1e-5 and atol 1e-6 times the
-     largest magnitude of the plain result (at least 1e-6): fp32 sums are
-     taken in another order, and the fused products contract up to 602
-     features or 26,624 rows, so an element that cancels towards zero
+     ``s`` (layers 0 and 1) and ``fused_bwd_merged`` (its layer 1);
+     ``aggregate_blockcsr`` over the paper batch's dense tiles (layer-0
+     forward, layer-1 forward, layer-1 backward over A^T), with the time
+     of ``densify_tiles`` on its own; and ``update_mlp`` at the update
+     stage's shapes. Each launch is held against its plain version on
+     the card within rtol 1e-5 and atol 1e-6 times the largest magnitude
+     of the plain result (at least 1e-6): fp32 sums are taken in another
+     order, and the products contract up to 602 features, 26,624 rows or
+     1,280 tiles of 128 columns, so an element that cancels towards zero
      keeps an absolute error of about sqrt(K)·eps of its terms' size. Times
      by CUDA events after warm-up, with the launches queued behind a busy
      card so they time the device: the kernel, its plain version, and
      yardsticks the port never calls — ``torch.sparse.mm`` on a CSR of the
-     same edges for ``aggregate_edges``; for the fused kernels, which no
+     same edges for ``aggregate_edges``, on a BSR of the tiles that hold
+     an edge for ``aggregate_blockcsr`` (a CSR of the edges where the
+     installed PyTorch has no fp32 BSR product on CUDA; the line says
+     which), ``torch.addmm`` for ``update_mlp`` without an activation;
+     for the fused kernels, which no
      single PyTorch call computes, the port's unfused composition (the
      ``aggregate_edges`` kernel and ``torch.matmul``) and ``torch.sparse.mm``
      with ``torch.matmul``. Beside them the bound: the larger of the bytes
@@ -44,7 +55,11 @@ targets, whose last layer has one destination block and so takes
      are counted over the destination rows that hold an edge or a self
      term (``flops``), and over all padded rows as ``flops_all_rows``;
      without a bias the backward reads ``g`` over the same rows, since a
-     row whose z is zero adds nothing to dw. The ``kernels`` line sums
+     row whose z is zero adds nothing to dw. ``aggregate_blockcsr``'s
+     flops are 2*128*128*F per slot that holds an edge (``flops``) and
+     over every slot (``flops_all_slots``, the work the kernel does, with
+     its own ``bound_all_slots_ms``); its bytes count every tile, read
+     once. The ``kernels`` line sums
      each kernel's times and bounds over the launches this phase checked;
   4. training, each path with every launch count set to 0 just before it
      and read just after: five iterations of GraphSAGE on
@@ -52,13 +67,23 @@ targets, whose last layer has one destination block and so takes
      ``"pallas_fused"`` (2 ``aggregate_fused``, 2 ``fused_bwd`` and 1
      ``aggregate_edges`` each), two of GIN on ``"pallas_fused"`` at 128
      targets (2 ``aggregate_fused``, 1 ``fused_bwd`` and 1
-     ``fused_bwd_merged`` each); any other count fails. Losses must be
-     finite, and each path's first loss must match
+     ``fused_bwd_merged`` each), three of GraphSAGE on ``"pallas"`` (3
+     ``aggregate_blockcsr`` each: layer 0's input features need no
+     gradient, so layer 0's A^T is never densified); any other count
+     fails. Losses must be finite, and each path's first loss must match
      ``aggregate_backend="reference"`` (plain segment sums on the card)
-     from the same parameters and batch within rtol 1e-4. The peak device
-     memory of each backend's run is printed beside the aggregate bytes
-     the trainer says it keeps in device memory;
-  5. summary: one ``{"kernels": [...]}`` line, then the last line
+     from the same parameters and batch within rtol 1e-4. The reference
+     datapath runs that iteration twice, from the same parameters and
+     batch, and its two losses and updated parameters must be bitwise
+     equal. The peak device memory of each backend's run is printed
+     beside the aggregate and dense-tile bytes the trainer says it keeps
+     in device memory;
+  5. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
+     ``ops.aggregate_update`` (fused, and with ``use_pallas=False``) on
+     the layer-1 operands, with the counts set to 0 just before and read
+     just after (one launch of each of the four kernels), each result
+     held against its plain version;
+  6. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -79,6 +104,7 @@ import torch
 
 SCALE = 18          # 2^18 vertices, Reddit's 602 features and 41 classes
 ITERATIONS = 5
+BLOCKCSR_ITERATIONS = 3
 MERGED_TARGETS = 128    # one destination block at the last layer
 MERGED_ITERATIONS = 2
 SEED = 0
@@ -88,7 +114,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 FWD = ("tile_off", "val", "tile_seg", "cols")
 BWD = ("tile_off_t", "val_t", "tile_seg_t", "cols_t")
+COMPACT = ("tile_id", "tile_off", "val", "cols")
+COMPACT_T = ("tile_id_t", "tile_off_t", "val", "cols_t")
 KERNEL_SOURCES = {
+    "aggregate_blockcsr": (
+        "src/repro_torch/kernels/csrc/aggregate_blockcsr.cu",
+        "src/repro/kernels/aggregate.py:83"),
     "aggregate_edges": ("src/repro_torch/kernels/csrc/aggregate_edges.cu",
                         "src/repro/kernels/aggregate.py:275"),
     "aggregate_fused": ("src/repro_torch/kernels/csrc/aggregate_fused.cu",
@@ -98,6 +129,8 @@ KERNEL_SOURCES = {
     "fused_bwd_merged": (
         "src/repro_torch/kernels/csrc/aggregate_fused_bwd.cu",
         "src/repro/kernels/aggregate.py:818"),
+    "update_mlp": ("src/repro_torch/kernels/csrc/update_mlp.cu",
+                   "src/repro/kernels/update_mlp.py:38"),
 }
 
 
@@ -372,6 +405,97 @@ def check_merged(name, agg, lay, h, w, g, s):
     return report(row)
 
 
+def blockcsr_library(tiles, cols: np.ndarray, slots: np.ndarray,
+                     n_in: int, lay: dict, keys) -> tuple:
+    """(name, A) of the yardstick for one ``aggregate_blockcsr`` launch:
+    a BSR tensor of the tiles that hold an edge (blocksize 128) where the
+    installed PyTorch multiplies fp32 BSR on CUDA, else a CSR of the same
+    edges from the launch's edge segments."""
+    n_dstb, max_blk = cols.shape
+    rows = slots // max_blk
+    crow = np.zeros(n_dstb + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_dstb), out=crow[1:])
+    with warnings.catch_warnings():  # BSR support is marked beta
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_bsr_tensor(
+            torch.from_numpy(crow).cuda(),
+            torch.from_numpy(cols[rows, slots % max_blk].astype(
+                np.int64)).cuda(),
+            tiles.view(-1, 128, 128)[torch.from_numpy(slots).cuda()],
+            size=(n_dstb * 128, n_in))
+        try:
+            sparse_mm(a, torch.zeros((n_in, 1), device="cuda"))
+            return "bsr", a
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"no fp32 BSR product on CUDA here ({e}); the "
+                  f"aggregate_blockcsr yardstick is a CSR", flush=True)
+    return "csr", csr(lay, keys, n_dstb * 128, n_in)
+
+
+def check_blockcsr_launch(name, agg, lay_c, keys, lay_e, keys_e, h,
+                          iters: int = 20):
+    """densify_tiles and aggregate_blockcsr on one launch's compact
+    triples: the kernel vs plain on the card, the times (``densify_ms``
+    on its own), the BSR (or CSR) yardstick and the bound. ``lay_e`` /
+    ``keys_e`` are the same launch's edge segments, for the CSR."""
+    tile_id, tile_off, val, cols = (lay_c[k] for k in keys)
+    dens = on_card(lay_c, keys)
+    tiles = agg.densify_tiles(*dens[:3], *cols.shape)
+    cols_d = dens[3]
+    out = agg.aggregate_blockcsr(tiles, cols_d, h)
+    ref = agg.aggregate_blockcsr_plain(tiles, cols_d, h)
+    torch.cuda.synchronize()
+    n_dstb, max_blk = cols.shape
+    F = h.shape[1]
+    slots = np.unique(tile_id[val != 0]).astype(np.int64)
+    lib_name, a = blockcsr_library(tiles, cols, slots, h.shape[0], lay_e,
+                                   keys_e)
+    row = {"kernel": "aggregate_blockcsr", "launch": name,
+           "dst_blocks": n_dstb, "slots": n_dstb * max_blk,
+           "real_slots": len(slots), "h": list(h.shape),
+           "out": [n_dstb * 128, F], "tile_bytes": tiles.numel() * 4,
+           "max_abs_err": check_close(name, "out", out, ref),
+           "library": lib_name,
+           "library_max_abs_err": float((sparse_mm(a, h) - ref).abs().max())}
+    short = dict(iters=iters, warmup=1 if iters < 5 else 3)
+    row.update(
+        densify_ms=time_ms(lambda: agg.densify_tiles(*dens[:3],
+                                                     *cols.shape), **short),
+        ms=time_ms(lambda: agg.aggregate_blockcsr(tiles, cols_d, h),
+                   **short),
+        plain_ms=time_ms(lambda: agg.aggregate_blockcsr_plain(
+            tiles, cols_d, h), **short),
+        library_ms=time_ms(lambda: sparse_mm(a, h), **short))
+    src_blocks = len(np.unique(cols))
+    bytes_moved = (4 * n_dstb * max_blk * (128 * 128 + 1)
+                   + 4 * 128 * F * (src_blocks + n_dstb))
+    per_slot = 2 * 128 * 128 * F
+    row["flops_all_slots"] = per_slot * n_dstb * max_blk
+    row["bound_all_slots_ms"] = bound(bytes_moved,
+                                      row["flops_all_slots"])["bound_ms"]
+    row.update(bound(bytes_moved, per_slot * len(slots)))
+    del tiles, a
+    return report(row)
+
+
+def check_update_launch(name, um, x, w, b, act):
+    """update_mlp vs plain on the card, its times, the ``torch.addmm``
+    yardstick (without an activation) and the bound."""
+    out = um.update_mlp(x, w, b, act)
+    ref = um.update_mlp_plain(x, w, b, act)
+    torch.cuda.synchronize()
+    (M, K), N = x.shape, w.shape[1]
+    lib = None if act != "none" else time_ms(lambda: torch.addmm(b, x, w))
+    row = {"kernel": "update_mlp", "launch": name, "x": [M, K],
+           "w": [K, N], "act": act,
+           "max_abs_err": check_close(name, "out", out, ref),
+           "ms": time_ms(lambda: um.update_mlp(x, w, b, act)),
+           "plain_ms": time_ms(lambda: um.update_mlp_plain(x, w, b, act)),
+           "library_ms": lib}
+    row.update(bound(4 * (M * K + K * N + N + M * N), 2 * M * K * N))
+    return report(row)
+
+
 def run_path(label, trainer, groups, expected, agg) -> dict:
     """Drive one path through ``run_iteration`` with every launch count set
     to 0 just before and read just after; fails on any other count per
@@ -399,20 +523,40 @@ def run_path(label, trainer, groups, expected, agg) -> dict:
     return {"steps": steps, "launches": dict(agg.launch_counts),
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "aggregate_intermediate_bytes":
-                trainer.aggregate_intermediate_bytes()}
+                trainer.aggregate_intermediate_bytes(),
+            "densified_hbm_bytes": trainer.densified_hbm_bytes()}
 
 
-def reference_loss(trainer_cls, graph, cfg, params, group) -> tuple:
+def reference_loss(trainer_cls, graph, cfg, params, group,
+                   flatten=None) -> tuple:
     """First loss of ``aggregate_backend="reference"`` from the same
-    parameters and batch, and the peak device memory of that iteration."""
-    ref = trainer_cls(graph, dataclasses.replace(
-        cfg, aggregate_backend="reference"), num_devices=1,
-        algorithm="distdgl", seed=SEED, device="cuda", params=params)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    loss = ref.run_iteration(group)["loss"]
-    torch.cuda.synchronize()
-    return loss, torch.cuda.max_memory_allocated()
+    parameters and batch, and the peak device memory of that iteration.
+    Given ``flatten`` (``repro_torch.nn.param.flatten``) the iteration
+    runs twice, in two trainers, and must give bitwise the same loss and
+    updated parameters."""
+    repeat = flatten is not None
+    runs = []
+    for _ in range(2 if repeat else 1):
+        ref = trainer_cls(graph, dataclasses.replace(
+            cfg, aggregate_backend="reference"), num_devices=1,
+            algorithm="distdgl", seed=SEED, device="cuda", params=params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = ref.run_iteration(group)["loss"]
+        torch.cuda.synchronize()
+        runs.append((loss, torch.cuda.max_memory_allocated(),
+                     [p.detach().cpu() for p in flatten(ref.params)]
+                     if repeat else None))
+        del ref
+    if repeat:
+        (l0, _, p0), (l1, _, p1) = runs
+        same = l0 == l1 and all(torch.equal(a, b) for a, b in zip(p0, p1))
+        print(f"reference datapath twice from the same parameters and "
+              f"batch: losses {l0!r} and {l1!r}, parameters "
+              f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            fail("the reference datapath does not repeat its bits")
+    return runs[0][0], runs[0][1]
 
 
 def check_first_loss(label, run, ref_loss) -> None:
@@ -464,7 +608,9 @@ def main() -> None:
         from repro_torch.kernels import build
         from repro_torch.kernels.layout import (block_capacities,
                                                 build_layer_layouts)
-        from repro_torch.nn.param import params_to_numpy
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import update_mlp as um
+        from repro_torch.nn.param import flatten, params_to_numpy
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -507,7 +653,7 @@ def main() -> None:
                          aggregate_backend="pallas_edges")
     mb = NeighborSampler(graph, cfg, graph.train_ids, 0, SEED).batch_at(0, 0)
     lay = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
-                              block_capacities(cfg), "mean")
+                              block_capacities(cfg), "mean", edge_stream=True)
     layers = [{k[4:]: v[l] for k, v in lay.items()} for l in range(2)]
     pad = [layers[l]["cols_t"].shape[0] * 128 for l in range(2)]
     out_rows = [layers[l]["cols"].shape[0] * 128 for l in range(2)]
@@ -543,7 +689,7 @@ def main() -> None:
                            SEED).batch_at(0, 0)
     lay_m = build_layer_layouts(mb_m.edge_src, mb_m.edge_dst,
                                 mb_m.edge_mask, block_capacities(cfg_m),
-                                AGG_KIND["gin"])
+                                AGG_KIND["gin"], edge_stream=True)
     lay_m0, lay_m1 = ({k[4:]: v[l] for k, v in lay_m.items()}
                       for l in range(2))
     if lay_m1["cols"].shape[0] != 1:
@@ -570,7 +716,27 @@ def main() -> None:
         randn(lay_m1["cols_t"].shape[0] * 128, hid),
         randn(hid, n_cls, scale=hid ** -0.5), randn(128, n_cls),
         randn(128, hid))]
-    del h0, h1, g1, w0, w1, hm0, hm1
+    del hm0, hm1
+    lay_c = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
+                                block_capacities(cfg), "mean")
+    compact = [{k[4:]: v[l] for k, v in lay_c.items()} for l in range(2)]
+    torch.cuda.empty_cache()
+    rows["aggregate_blockcsr"] = [
+        check_blockcsr_launch("layer0_blockcsr_fwd", agg, compact[0],
+                              COMPACT, layers[0], FWD, h0, iters=2),
+        check_blockcsr_launch("layer1_blockcsr_fwd", agg, compact[1],
+                              COMPACT, layers[1], FWD, h1),
+        check_blockcsr_launch("layer1_blockcsr_bwd", agg, compact[1],
+                              COMPACT_T, layers[1], BWD, g1)]
+    torch.cuda.empty_cache()
+    b0, b1 = randn(hid), randn(n_cls)
+    x0 = randn(out_rows[0], f0)
+    rows["update_mlp"] = [
+        check_update_launch("layer0_update_relu", um, x0, w0, b0, "relu"),
+        check_update_launch("layer0_update", um, x0, w0, b0, "none"),
+        check_update_launch("layer1_update", um, randn(out_rows[1], hid),
+                            w1, b1, "none")]
+    del h0, g1, w0, x0
     torch.cuda.empty_cache()
 
     # 4. the main paths: training steps through the trainer's entry point
@@ -581,7 +747,7 @@ def main() -> None:
     params0 = params_to_numpy(edges_tr.params)
     groups = list(sched.iterations(edges_tr.epoch_schedule()))[:ITERATIONS]
     ref_loss, peaks["reference"] = reference_loss(
-        SyncGNNTrainer, graph, cfg, params0, groups[0])
+        SyncGNNTrainer, graph, cfg, params0, groups[0], flatten)
     print(f"trainers built in {time.perf_counter() - t0:.1f} s", flush=True)
     none = {k: 0 for k in agg.launch_counts}
     runs["pallas_edges"] = run_path(
@@ -601,12 +767,22 @@ def main() -> None:
     check_first_loss("graphsage/pallas_fused", runs["pallas_fused"],
                      ref_loss)
     del fused_tr
+    blockcsr_tr = SyncGNNTrainer(
+        graph, dataclasses.replace(cfg, aggregate_backend="pallas"),
+        num_devices=1, algorithm="distdgl", seed=SEED, device="cuda",
+        params=params0)
+    runs["pallas"] = run_path(
+        "graphsage/pallas", blockcsr_tr, groups[:BLOCKCSR_ITERATIONS],
+        {**none, "aggregate_blockcsr": 3}, agg)
+    check_first_loss("graphsage/pallas", runs["pallas"], ref_loss)
+    del blockcsr_tr
     memory = {be: {"peak_bytes": runs[be]["peak_bytes"] if be in runs
-                   else peaks[be],
-                   "aggregate_intermediate_bytes":
-                       runs[be]["aggregate_intermediate_bytes"]
-                       if be in runs else 0}
-              for be in ("reference", "pallas_edges", "pallas_fused")}
+                   else peaks[be]}
+              | {key: runs[be][key] if be in runs else 0
+                 for key in ("aggregate_intermediate_bytes",
+                             "densified_hbm_bytes")}
+              for be in ("reference", "pallas", "pallas_edges",
+                         "pallas_fused")}
     print("peak_memory " + json.dumps(memory), flush=True)
 
     merged_tr = SyncGNNTrainer(graph, cfg_m, num_devices=1,
@@ -623,7 +799,36 @@ def main() -> None:
     check_first_loss(f"gin/pallas_fused/{MERGED_TARGETS}_targets",
                      runs["merged"], ref_loss_m)
 
-    # 5. summary
+    # 5. the kernel entry points, on the layer-1 operands
+    seg1 = on_card(layers[1], FWD)
+    cols1 = torch.from_numpy(compact[1]["cols"]).cuda()
+    blocks1 = agg.densify_tiles(*on_card(compact[1], COMPACT)[:3],
+                                *compact[1]["cols"].shape)
+    x1 = randn(out_rows[1], hid)
+    torch.cuda.synchronize()
+    agg.reset_launch_counts()
+    got = {"update": ops.update(x1, w1, b1, act="relu"),
+           "aggregate": ops.aggregate(blocks1, cols1, h1),
+           "aggregate_update": ops.aggregate_update(*seg1, h1, w1),
+           "aggregate_update_unfused": ops.aggregate_update(
+               *seg1, h1, w1, use_pallas=False)}
+    torch.cuda.synchronize()
+    runs["ops"] = {"launches": dict(agg.launch_counts)}
+    want_counts = {**none, "update_mlp": 1, "aggregate_blockcsr": 1,
+                   "aggregate_fused": 1, "aggregate_edges": 1}
+    if runs["ops"]["launches"] != want_counts:
+        fail(f"ops launched {runs['ops']['launches']}, expected "
+             f"{want_counts}")
+    fused_plain = agg.aggregate_fused_plain(*seg1, h1, w1)
+    want = {"update": um.update_mlp_plain(x1, w1, b1, "relu"),
+            "aggregate": agg.aggregate_blockcsr_plain(blocks1, cols1, h1),
+            "aggregate_update": fused_plain,
+            "aggregate_update_unfused": fused_plain}
+    errs = {k: check_close(f"ops.{k}", "out", got[k], want[k]) for k in got}
+    print("ops " + json.dumps({"launches": runs["ops"]["launches"],
+                               "max_abs_err": errs}), flush=True)
+
+    # 6. summary
     kernels = [kernel_entry(name, rows[name], {
         path: run["launches"][name] for path, run in runs.items()})
         for name in KERNEL_SOURCES]

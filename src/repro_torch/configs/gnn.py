@@ -11,9 +11,9 @@ the feature cache). The reference's deprecated flat-kwarg spellings
 (``cache_capacity=...`` on the config) are not copied: pass the nested
 groups.
 
-The port runs ``aggregate_backend`` "reference", "pallas_edges" and
-"pallas_fused" (the backend names are kept: they name a layout and
-datapath, not Pallas).
+The port runs every ``aggregate_backend`` of the reference: "reference",
+"pallas", "pallas_edges" and "pallas_fused" (the backend names are kept:
+they name a layout and datapath, not Pallas).
 """
 from __future__ import annotations
 
@@ -78,10 +78,13 @@ class GNNModelConfig:
     ``name`` is "gcn" | "graphsage" | "gin" | "gat"; ``num_layers``,
     ``hidden``, ``fanouts`` and ``batch_targets`` are the paper's Table 5
     shapes. ``aggregate_backend`` picks the aggregation datapath:
-    "reference" (masked segment sum in plain PyTorch), "pallas_edges"
-    (per-tile edge segments through the hand-written CUDA aggregation
-    kernel, then the update matmul) or "pallas_fused" (aggregation and
-    update matmul in one hand-written CUDA kernel, forward and backward).
+    "reference" (masked segment sum in plain PyTorch), "pallas" (compact
+    per-edge triples densified into 128x128 tiles on the card, through the
+    hand-written CUDA block-CSR kernel, then the update matmul),
+    "pallas_edges" (per-tile edge segments through the hand-written CUDA
+    aggregation kernel, then the update matmul) or "pallas_fused"
+    (aggregation and update matmul in one hand-written CUDA kernel,
+    forward and backward).
     The reference's ``kernel_interpret`` (Pallas execution mode) has no
     counterpart here.
     """

@@ -3,10 +3,11 @@
 
 Per synchronous iteration (paper Fig. 2 / Alg. 2 + gradient sync):
   1. the two-stage scheduler picks p mini-batches, one per simulated device;
-  2. the host samples each batch in-process, builds each layer's
-     edge-segment layout (``aggregate_backend`` "pallas_edges" or
-     "pallas_fused") and gathers
-     its feature rows through the FeatureStore (beta accounting);
+  2. the host samples each batch in-process, builds each layer's layout
+     under a kernel ``aggregate_backend`` (the compact triples for
+     "pallas", the edge segments for "pallas_edges" and "pallas_fused")
+     and gathers its feature rows through the FeatureStore (beta
+     accounting);
   3. the batches move to the card, and the step takes each batch's loss and
      gradients in turn (a Python loop in place of the reference's ``vmap``)
      and combines them as ``sum_b w_b g_b / max(sum_b w_b, 1)``: idle-device
@@ -37,7 +38,11 @@ from repro_torch.data.graphs import Graph
 from repro_torch.device import resolve_device
 from repro_torch.gnn import models as gnn_models
 from repro_torch.kernels.layout import (BLK, EDGE_STREAM_BACKENDS,
-                                        block_capacities, build_layer_layouts)
+                                        block_capacities, build_layer_layouts,
+                                        compact_layout_bytes,
+                                        dense_layout_bytes,
+                                        densified_tile_bytes,
+                                        edge_stream_layout_bytes)
 from repro_torch.nn.param import (flatten, init_params, params_from_numpy,
                                   unflatten)
 from repro_torch.optim.adam import AdamW
@@ -48,10 +53,6 @@ ALGORITHMS = {
     "distdgl": ("metis_like", "distdgl"),
     "pagraph": ("pagraph", "pagraph"),
 }
-
-# reference knobs the port does not run yet -> their ROADMAP.md item
-_UNPORTED_BACKENDS = {"pallas": "queue B, item B.2 (aggregate_blockcsr)"}
-
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
@@ -135,7 +136,7 @@ class SyncGNNTrainer:
         # static per-layer layout capacities: one shape per config
         self._blk_caps = (block_capacities(self.model_cfg)
                           if self.model_cfg.aggregate_backend
-                          in EDGE_STREAM_BACKENDS else [])
+                          in gnn_models.KERNEL_BACKENDS else [])
         self._balancer = sched.LoadBalancer(self.num_devices)
 
     def _check_ported(self) -> None:
@@ -148,9 +149,6 @@ class SyncGNNTrainer:
         if cfg.name not in gnn_models.MODELS:
             raise _unported(f"model {cfg.name!r}", "queue A, item A.1")
         backend = cfg.aggregate_backend
-        if backend in _UNPORTED_BACKENDS:
-            raise _unported(f"aggregate_backend {backend!r}",
-                            _UNPORTED_BACKENDS[backend])
         if backend not in gnn_models.BACKENDS:
             raise ValueError(f"unknown aggregate_backend {backend!r}; "
                              f"expected one of {gnn_models.BACKENDS}")
@@ -193,13 +191,43 @@ class SyncGNNTrainer:
               else sched.naive_schedule)
         return fn(counts)
 
+    def _edge_stream(self) -> bool:
+        return self.model_cfg.aggregate_backend in EDGE_STREAM_BACKENDS
+
+    def densified_hbm_bytes(self) -> int:
+        """Device bytes per batch of the dense (Nd, max_blk, 128, 128)
+        tiles of A and A^T that ``"pallas"`` densifies from the compact
+        triples (the reference's formula; the port never forms layer 0's
+        A^T, whose input features need no gradient). 0 under the
+        edge-segment backends, whose kernels never form a tile in device
+        memory, and under ``"reference"``."""
+        if not self._blk_caps or self._edge_stream():
+            return 0
+        return densified_tile_bytes(self._blk_caps)
+
+    def aggregate_h2d_bytes(self, layout: str = "compact") -> int:
+        """Host->device bytes per batch of the aggregate path's layout:
+        ``"compact"`` is what ``"pallas"`` ships (per-edge triples and the
+        cols tables), ``"edges"`` the edge segments of ``"pallas_edges"``
+        and ``"pallas_fused"``, ``"dense"`` full 64 KB tiles."""
+        fn = {"compact": compact_layout_bytes,
+              "edges": edge_stream_layout_bytes,
+              "dense": dense_layout_bytes}[layout]
+        total = 0
+        for n_src, n_dst, max_blk, max_blk_t, e_cap in self._blk_caps:
+            n_srcb = (n_src + BLK - 1) // BLK
+            n_dstb = (n_dst + BLK - 1) // BLK
+            total += fn(e_cap, n_dstb, max_blk, n_srcb, max_blk_t)
+        return total
+
     def aggregate_intermediate_bytes(self) -> int:
         """Device-memory bytes per batch of the layer aggregates that the
-        unfused kernel path (``"pallas_edges"``) writes as (n_dstb*128,
-        f_in) f32 and reads back for the update matmul (autograd keeps them
-        for the backward). 0 under ``"pallas_fused"``, whose kernels keep
-        each aggregate on chip, forward and backward, and under
-        ``"reference"``, which has no layout."""
+        unfused kernel paths (``"pallas"``, ``"pallas_edges"``) write as
+        (n_dstb*128, f_in) f32 and read back for the update matmul
+        (autograd keeps them for the backward). 0 under
+        ``"pallas_fused"``, whose kernels keep each aggregate on chip,
+        forward and backward, and under ``"reference"``, which has no
+        layout."""
         if (not self._blk_caps
                 or self.model_cfg.aggregate_backend == "pallas_fused"):
             return 0
@@ -214,13 +242,14 @@ class SyncGNNTrainer:
     def _local_payload(self, partition: int, stage_s: Dict[str, float]
                        ) -> dict:
         """Stage 1 (sample, through the partition's cursor) + stage 2b (the
-        edge-segment layout build) for one scheduled batch."""
+        layout build) for one scheduled batch."""
         t0 = time.perf_counter()
         mb = self.samplers[partition].next_batch()
         t1 = time.perf_counter()
         layout = (build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
                                       self._blk_caps,
-                                      gnn_models.AGG_KIND[self.model_cfg.name])
+                                      gnn_models.AGG_KIND[self.model_cfg.name],
+                                      edge_stream=self._edge_stream())
                   if self._blk_caps else None)
         stage_s["sample_s"] += t1 - t0
         stage_s["layout_s"] += time.perf_counter() - t1

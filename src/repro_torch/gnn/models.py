@@ -7,13 +7,17 @@ Models consume a padded mini-batch as a dict of tensors (see
   edge_src[l](E_l,)      local src index into layer l's vertex set
   edge_dst[l](E_l,)      local dst index into layer l+1's vertex set
   edge_mask[l], node_mask[l], self_idx[l], labels
-plus, under the kernel backends, each layer's edge-segment layout
-(``agg_*``). ``"pallas_edges"`` routes the aggregation through the CUDA
-kernel (``kernels/aggregate.AggregateEdges``) and the update matmul runs
-after it; ``"pallas_fused"`` runs aggregate and update matmul in one CUDA
+plus, under the kernel backends, each layer's layout (``agg_*``).
+``"pallas"`` densifies the compact triples into 128x128 tiles and
+aggregates through the CUDA block-CSR kernel
+(``kernels/aggregate.AggregateCompact``); ``"pallas_edges"`` routes the
+aggregation through the CUDA edge-segment kernel
+(``kernels/aggregate.AggregateEdges``); in both the update matmul runs
+after it. ``"pallas_fused"`` runs aggregate and update matmul in one CUDA
 kernel (``kernels/aggregate.AggregateFused``), so the aggregate never
 reaches device memory. ``"reference"`` aggregates with a masked segment sum
-in plain PyTorch. GAT waits (ROADMAP.md queue A, item A.1).
+in plain PyTorch, whose sums run in one order on every run (no atomics),
+forward and backward. GAT waits (ROADMAP.md queue A, item A.1).
 """
 from __future__ import annotations
 
@@ -21,12 +25,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.gnn import GNNModelConfig
-from repro_torch.kernels.aggregate import AggregateEdges, AggregateFused
-from repro_torch.kernels.layout import BLK, EDGE_STREAM_BACKENDS
+from repro_torch.kernels.aggregate import (AggregateCompact, AggregateEdges,
+                                           AggregateFused)
+from repro_torch.kernels.layout import BLK
 from repro_torch.nn.param import PSpec
 
-# the aggregate_backend values the port runs
-BACKENDS = ("reference", "pallas_edges", "pallas_fused")
+# the aggregate_backend values the port runs, and those that route through
+# a kernel (and so need the layout arrays in the batch)
+KERNEL_BACKENDS = ("pallas", "pallas_edges", "pallas_fused")
+BACKENDS = ("reference",) + KERNEL_BACKENDS
 MODELS = ("graphsage", "gcn", "gin")
 
 # aggregation semantics per model; "mean" bakes 1/deg into the layout's
@@ -34,19 +41,73 @@ MODELS = ("graphsage", "gcn", "gin")
 AGG_KIND = {"graphsage": "mean", "gcn": "mean", "gin": "sum", "gat": None}
 
 
+def _segments(index: torch.Tensor, n: int):
+    """(stable order of ``index``, length of each of its n segments)."""
+    return (torch.argsort(index, stable=True),
+            torch.bincount(index, minlength=n))
+
+
+def _segment_sum(x: torch.Tensor, order, lengths) -> torch.Tensor:
+    """Rows of ``x`` summed per segment, each segment in ``order``: one
+    summation order on every run (``index_add`` uses atomics on CUDA)."""
+    return torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """out[d] = sum of x[e] over the e with index[e] == d, in edge order;
+    the backward gathers, ``dx = g[index]``."""
+
+    @staticmethod
+    def forward(ctx, x, index, order, lengths):
+        ctx.save_for_backward(index)
+        return _segment_sum(x, order, lengths)
+
+    @staticmethod
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        return g[index], None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """h[index], whose backward adds the rows of g that gather from one row
+    of h by a sorted segment sum in edge order, not by an atomic
+    scatter-add."""
+
+    @staticmethod
+    def forward(ctx, h, index, order, lengths):
+        ctx.save_for_backward(order, lengths)
+        return h[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        order, lengths = ctx.saved_tensors
+        return _segment_sum(g, order, lengths), None, None, None
+
+
+def gather_rows(h: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``h[index]`` with a backward that gives the same bits on every
+    run."""
+    index = index.long()
+    return _GatherRows.apply(h, index, *_segments(index, h.shape[0]))
+
+
 def aggregate(h_src: torch.Tensor, edge_src: torch.Tensor,
               edge_dst: torch.Tensor, edge_mask: torch.Tensor, n_dst: int,
               kind: str = "mean") -> torch.Tensor:
-    """Masked segment aggregation of messages h_src[edge_src] into dst rows."""
-    msg = h_src[edge_src] * edge_mask[:, None].to(h_src.dtype)
-    zeros = h_src.new_zeros((n_dst, h_src.shape[1]))
-    agg = zeros.index_add(0, edge_dst, msg)
+    """Masked segment aggregation of messages h_src[edge_src] into dst
+    rows. Every sum, forward and backward, is a sorted segment sum in edge
+    order, so a run repeats its bits on the card."""
+    mask = edge_mask.to(h_src.dtype)
+    msg = gather_rows(h_src, edge_src) * mask[:, None]
+    dst = edge_dst.long()
+    segs = _segments(dst, n_dst)
+    agg = _SegmentSum.apply(msg, dst, *segs)
     if kind == "sum":
         return agg
-    deg = h_src.new_zeros(n_dst).index_add(0, edge_dst,
-                                           edge_mask.to(h_src.dtype))
     if kind == "mean":
-        return agg / deg.clamp_min(1.0)[:, None]
+        deg = _segment_sum(mask[:, None], *segs)
+        return agg / deg.clamp_min(1.0)
     raise ValueError(kind)
 
 
@@ -98,6 +159,23 @@ def _kernel_aggregate(batch, l: int, h: torch.Tensor,
     return out[:n_dst].to(h.dtype)
 
 
+def _blockcsr_aggregate(batch, l: int, h: torch.Tensor,
+                        n_dst: int) -> torch.Tensor:
+    """Layer-l aggregation through the block-CSR kernel: the compact
+    triples are densified into 128x128 tiles on the card, A's in the
+    forward and, only when ``h`` needs a gradient, A^T's in the backward.
+    ``h`` is zero-padded to the layout's source blocks and the output cut
+    back to ``n_dst`` rows."""
+    cols_t = batch["agg_cols_t"][l]
+    h32 = _pad_rows(h.float(), cols_t.shape[0] * BLK)
+    out = AggregateCompact.apply(
+        batch["agg_tile_id"][l], batch["agg_tile_off"][l],
+        batch["agg_val"][l], batch["agg_cols"][l],
+        batch["agg_tile_id_t"][l], batch["agg_tile_off_t"][l], cols_t,
+        h32.contiguous())
+    return out[:n_dst].to(h.dtype)
+
+
 def _fused_aggregate_update(batch, l: int, h: torch.Tensor, n_dst: int,
                             w: torch.Tensor,
                             s: torch.Tensor | None = None) -> torch.Tensor:
@@ -122,12 +200,14 @@ def _fused_aggregate_update(batch, l: int, h: torch.Tensor, n_dst: int,
 
 
 def _layer(cfg: GNNModelConfig, p, h, batch, l: int, n_dst: int):
-    h_self = h[batch["self_idx"][l]]
-    use_kernel = (cfg.aggregate_backend in EDGE_STREAM_BACKENDS
+    h_self = gather_rows(h, batch["self_idx"][l])
+    use_kernel = (cfg.aggregate_backend in KERNEL_BACKENDS
                   and "agg_tile_off" in batch)
     fused = use_kernel and cfg.aggregate_backend == "pallas_fused"
 
     def _agg() -> torch.Tensor:
+        if use_kernel and cfg.aggregate_backend == "pallas":
+            return _blockcsr_aggregate(batch, l, h, n_dst)
         if use_kernel:
             return _kernel_aggregate(batch, l, h, n_dst)
         return aggregate(h, batch["edge_src"][l], batch["edge_dst"][l],

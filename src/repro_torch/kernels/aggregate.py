@@ -1,12 +1,21 @@
-"""Edge-streaming aggregation and the fused aggregate->update datapath
-(counterparts of ``repro.kernels.aggregate``'s ``aggregate_edges`` /
-``aggregate_edges_vjp`` and ``aggregate_fused`` / ``aggregate_fused_vjp``).
+"""Block-CSR and edge-streaming aggregation and the fused aggregate->update
+datapath (counterparts of ``repro.kernels.aggregate``'s
+``aggregate_blockcsr`` / ``aggregate_blockcsr_vjp`` /
+``aggregate_compact_vjp``, ``aggregate_edges`` / ``aggregate_edges_vjp``
+and ``aggregate_fused`` / ``aggregate_fused_vjp``).
 
-A arrives as per-tile edge segments (``kernels/layout.py``). Each wrapper
-below takes a CUDA tensor to its hand-written kernel in ``csrc/`` — or
-raises — and a CPU tensor to its ``*_plain`` twin, the same function in
-plain PyTorch, which the tests hold against the JAX reference:
+A arrives as compact per-edge triples or as per-tile edge segments
+(``kernels/layout.py``). Each wrapper below takes a CUDA tensor to its
+hand-written kernel in ``csrc/`` — or raises — and a CPU tensor to its
+``*_plain`` twin, the same function in plain PyTorch, which the tests hold
+against the JAX reference:
 
+* ``aggregate_blockcsr`` (``csrc/aggregate_blockcsr.cu``): ``out = A @ h``
+  over dense 128x128 tiles. ``densify_tiles`` scatter-adds the compact
+  triples into those tiles (plain PyTorch, as the reference's is an XLA
+  scatter). ``AggregateCompact`` is the training path's autograd function
+  (tiles densified in the forward and, only when ``h`` needs a gradient,
+  from A^T in the backward); ``AggregateBlockCSR`` takes dense tiles.
 * ``aggregate_edges`` (``csrc/aggregate_edges.cu``): ``out = A @ h``.
   ``AggregateEdges`` is its autograd function; the backward is the same
   kernel over the transposed segments, ``dh = A^T @ g``.
@@ -18,31 +27,29 @@ plain PyTorch, which the tests hold against the JAX reference:
   ``AggregateFused`` is the autograd function and picks between them as
   the reference's ``_fused_bwd`` does.
 
-``launch_counts`` counts wrapper calls that launched their kernel
-(incremented where a launch is made, nowhere else), so a run can show that
-its main path went through the kernels.
+``launch_counts`` (``kernels/build.py``) counts wrapper calls that launched
+their kernel (incremented where a launch is made, nowhere else), so a run
+can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import (  # noqa: F401  (re-exported)
+    check_tensor, launch_counts, on_card, raise_on, reset_launch_counts,
+    stream)
 from repro_torch.kernels.layout import BLK
+from repro_torch.kernels.update_mlp import ACTS, update_epilogue
 
-launch_counts = {"aggregate_edges": 0, "aggregate_fused": 0, "fused_bwd": 0,
-                 "fused_bwd_merged": 0}
+launch_counts.update(aggregate_blockcsr=0, aggregate_edges=0,
+                     aggregate_fused=0, fused_bwd=0, fused_bwd_merged=0)
 
 # dynamic shared memory a thread block may use on Hopper
 _MAX_SMEM = 232_448
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def aggregate_edges_plain(tile_off: torch.Tensor, val: torch.Tensor,
@@ -67,23 +74,13 @@ def aggregate_edges_plain(tile_off: torch.Tensor, val: torch.Tensor,
     return out
 
 
-def _check_tensor(name: str, t: torch.Tensor, dev: torch.device,
-                  dtype: torch.dtype) -> None:
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, h on {dev}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check(tile_off, val, seg, cols, h) -> None:
     for name, t, dtype in (("tile_off", tile_off, torch.int32),
                            ("val", val, torch.float32),
                            ("seg", seg, torch.int32),
                            ("cols", cols, torch.int32),
                            ("h", h, torch.float32)):
-        _check_tensor(name, t, h.device, dtype)
+        check_tensor(name, t, h.device, dtype)
     if tile_off.dim() != 1 or val.shape != tile_off.shape:
         raise ValueError(f"tile_off {tuple(tile_off.shape)} and val "
                          f"{tuple(val.shape)} must be equal 1-D shapes")
@@ -102,39 +99,27 @@ def _check(tile_off, val, seg, cols, h) -> None:
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each library in csrc/: {C function: (argument types, result type)}
 _SIGNATURES = {
+    "aggregate_blockcsr": {
+        "aggregate_blockcsr_launch": ([_P] * 4 + [_I, _I, _L, _I, _P], _I)},
     "aggregate_edges": {
         "aggregate_edges_smem_bytes": ([_I], _L),
-        "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I),
-        "aggregate_edges_error_string": ([_I], ctypes.c_char_p)},
+        "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
     "aggregate_fused": {
         "aggregate_fused_smem_bytes": ([_I], _L),
         "aggregate_fused_launch": ([_P] * 9 + [_I, _I, _L, _I, _I, _I, _P],
-                                   _I),
-        "aggregate_fused_error_string": ([_I], ctypes.c_char_p)},
+                                   _I)},
     "aggregate_fused_bwd": {
         "fused_bwd_smem_bytes": ([_I], _L),
         "fused_bwd_launch": ([_P] * 14 + [_I, _I, _L, _I, _I, _I, _I, _I,
                                           _P], _I),
         "fused_bwd_merged_smem_bytes": ([_I, _I], _L),
         "fused_bwd_merged_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _P],
-                                    _I),
-        "aggregate_fused_bwd_error_string": ([_I], ctypes.c_char_p)},
+                                    _I)},
 }
 
 
-@functools.cache
 def _lib(name: str) -> ctypes.CDLL:
-    lib = build.load(name)
-    for fn, (argtypes, restype) in _SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
-
-
-def _raise_on(status: int, lib: str, what: str) -> None:
-    if status != 0:
-        msg = getattr(_lib(lib), f"{lib}_error_string")(status).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} (status {status})")
+    return build.bind(name, _SIGNATURES[name])
 
 
 def _check_smem(what: str, smem: int) -> None:
@@ -143,18 +128,135 @@ def _check_smem(what: str, smem: int) -> None:
                          f"layout; a block has {_MAX_SMEM}")
 
 
-def _on_card(what: str, t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one (the plain path)."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
-    return True
+# --- block-CSR aggregation over dense tiles ---------------------------------
+
+def densify_tiles(tile_id: torch.Tensor, tile_off: torch.Tensor,
+                  val: torch.Tensor, n_tile_rows: int,
+                  max_blk: int) -> torch.Tensor:
+    """Scatter-add the compact per-edge triples into dense (n_tile_rows,
+    max_blk, BLK, BLK) f32 tiles on ``val``'s device (the reference's
+    ``densify_tiles``, an XLA scatter there, so plain PyTorch here). The
+    index is 2-D ``(tile_id, tile_off)``: the flat ``tile_id * BLK*BLK +
+    tile_off`` would pass 2**31 at 131,072 tile slots, and layer 0 of the
+    paper's batch has 266,240. Masked edges add 0.0 at cell (0, 0)."""
+    tiles = torch.zeros((n_tile_rows * max_blk, BLK * BLK),
+                        dtype=torch.float32, device=val.device)
+    tiles.index_put_((tile_id.long(), tile_off.long()), val.float(),
+                     accumulate=True)
+    return tiles.view(n_tile_rows, max_blk, BLK, BLK)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def aggregate_blockcsr_plain(blocks: torch.Tensor, cols: torch.Tensor,
+                             h: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``aggregate_blockcsr``: for each slot k in order,
+    one batched ``(Nd, 128, 128) @ (Nd, 128, F)`` product of the slot's
+    tiles and the source blocks ``cols[:, k]`` names, added into the fp32
+    result. Returns (Nd*128, F)."""
+    n_dstb, max_blk = cols.shape
+    F = h.shape[1]
+    hb = h.view(-1, BLK, F)
+    out = torch.zeros((n_dstb, BLK, F), dtype=torch.float32,
+                      device=h.device)
+    for k in range(max_blk):
+        out += torch.bmm(blocks[:, k], hb[cols[:, k].long()])
+    return out.view(n_dstb * BLK, F)
 
+
+def _check_blockcsr(blocks, cols, h) -> None:
+    for name, t, dtype in (("blocks", blocks, torch.float32),
+                           ("cols", cols, torch.int32),
+                           ("h", h, torch.float32)):
+        check_tensor(name, t, h.device, dtype)
+    if cols.dim() != 2 or tuple(blocks.shape) != (*cols.shape, BLK, BLK):
+        raise ValueError(f"blocks {tuple(blocks.shape)} and cols "
+                         f"{tuple(cols.shape)} must be (Nd, max_blk, {BLK}, "
+                         f"{BLK}) and (Nd, max_blk)")
+    if h.dim() != 2 or h.shape[0] % BLK:
+        raise ValueError(f"h has shape {tuple(h.shape)}; pad its rows to a "
+                         f"multiple of {BLK} (the source blocks)")
+
+
+def aggregate_blockcsr(blocks: torch.Tensor, cols: torch.Tensor,
+                       h: torch.Tensor) -> torch.Tensor:
+    """out = A @ h with A in padded block-CSR form: blocks (Nd, max_blk,
+    128, 128) f32 dense tiles, cols (Nd, max_blk) i32 their source blocks,
+    h (n_srcb*128, F) f32. Returns (Nd*128, F) f32. Any F is taken (the
+    kernel masks the ragged columns; the reference pads F to its
+    ``feat_block``). A CUDA tensor goes through
+    ``csrc/aggregate_blockcsr.cu``, a CPU tensor through
+    ``aggregate_blockcsr_plain``."""
+    _check_blockcsr(blocks, cols, h)
+    if not on_card("aggregate_blockcsr", h):
+        return aggregate_blockcsr_plain(blocks, cols, h)
+    n_dstb, max_blk = cols.shape
+    F = h.shape[1]
+    out = torch.empty((n_dstb * BLK, F), dtype=torch.float32,
+                      device=h.device)
+    if out.numel() == 0:
+        return out
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks must start on a 16-byte boundary (the "
+                         "kernel loads its tiles as float4)")
+    with torch.cuda.device(h.device):
+        status = _lib("aggregate_blockcsr").aggregate_blockcsr_launch(
+            blocks.data_ptr(), cols.data_ptr(), h.data_ptr(), out.data_ptr(),
+            n_dstb, max_blk, h.shape[0], F, stream(h))
+    raise_on(status, "aggregate_blockcsr", "aggregate_blockcsr")
+    launch_counts["aggregate_blockcsr"] += 1
+    return out
+
+
+class AggregateBlockCSR(torch.autograd.Function):
+    """Differentiable ``A @ h`` over dense tiles (the reference's
+    ``aggregate_blockcsr_vjp``): the backward is the same kernel over the
+    tiles of A^T, ``dh = A^T @ g``, run only when ``h`` needs a gradient;
+    the tiles are sampled data and get none."""
+
+    @staticmethod
+    def forward(ctx, blocks, cols, blocks_t, cols_t, h):
+        ctx.save_for_backward(blocks_t, cols_t)
+        return aggregate_blockcsr(blocks, cols, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        dh = None
+        if ctx.needs_input_grad[4]:
+            blocks_t, cols_t = ctx.saved_tensors
+            dh = aggregate_blockcsr(blocks_t, cols_t,
+                                    g.float().contiguous()).to(g.dtype)
+        return None, None, None, None, dh
+
+
+class AggregateCompact(torch.autograd.Function):
+    """Differentiable ``A @ h`` fed by the compact triples (the reference's
+    ``aggregate_compact_vjp``, the ``"pallas"`` training path). The forward
+    densifies A's tiles, launches the kernel and lets the tiles go; only
+    the triples are saved. The backward densifies A^T's tiles (the values
+    are shared with A) and runs the same kernel on ``g``, but only when
+    ``h`` needs a gradient: layer 0's ``h`` is the input features, and its
+    A^T would take 2,288 x 208 slots x 64 KB = 31.2 GB at the paper's
+    batch for nothing."""
+
+    @staticmethod
+    def forward(ctx, tile_id, tile_off, val, cols, tile_id_t, tile_off_t,
+                cols_t, h):
+        ctx.save_for_backward(tile_id_t, tile_off_t, val, cols_t)
+        blocks = densify_tiles(tile_id, tile_off, val, *cols.shape)
+        return aggregate_blockcsr(blocks, cols, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        dh = None
+        if ctx.needs_input_grad[7]:
+            tile_id_t, tile_off_t, val, cols_t = ctx.saved_tensors
+            blocks_t = densify_tiles(tile_id_t, tile_off_t, val,
+                                     *cols_t.shape)
+            dh = aggregate_blockcsr(blocks_t, cols_t,
+                                    g.float().contiguous()).to(g.dtype)
+        return (None,) * 7 + (dh,)
+
+
+# --- edge-streaming aggregation ---------------------------------------------
 
 def aggregate_edges_smem_bytes(max_blk: int) -> int:
     """Dynamic shared memory one kernel launch uses for a layout with
@@ -173,7 +275,7 @@ def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,
     F) f32. Returns (n_dstb*128, F) f32. A CUDA tensor goes through the
     kernel, a CPU tensor through ``aggregate_edges_plain``."""
     _check(tile_off, val, seg, cols, h)
-    if not _on_card("aggregate_edges", h):
+    if not on_card("aggregate_edges", h):
         return aggregate_edges_plain(tile_off, val, seg, cols, h)
     n_dstb, max_blk = cols.shape
     F = h.shape[1]
@@ -185,8 +287,8 @@ def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,
         status = _lib("aggregate_edges").aggregate_edges_launch(
             tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
             cols.data_ptr(), h.data_ptr(), out.data_ptr(), n_dstb, max_blk,
-            h.shape[0], F, _stream(h))
-    _raise_on(status, "aggregate_edges", "aggregate_edges")
+            h.shape[0], F, stream(h))
+    raise_on(status, "aggregate_edges", "aggregate_edges")
     launch_counts["aggregate_edges"] += 1
     return out
 
@@ -214,8 +316,6 @@ class AggregateEdges(torch.autograd.Function):
 
 # --- the fused aggregate -> update datapath -----------------------------------
 
-# activations the fused kernels apply, by the code the CUDA sources take
-ACTS = {"none": 0, "relu": 1, "gelu": 2}
 # the reference takes the merged backward only up to this feature width
 MERGED_MAX_F = 256
 # feature columns per slice of the aggregate the kernels keep on chip, and
@@ -227,21 +327,6 @@ _BWD_TARGET_BLOCKS = 264
 _BWD_PARTIAL_CAP = 8 << 20
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
-
-
-def update_epilogue(y: torch.Tensor, b, act: str) -> torch.Tensor:
-    """Bias + activation tail of the update MLP (copy of
-    ``repro.kernels.update_mlp.update_epilogue``; ``jax.nn.gelu`` is the
-    tanh form)."""
-    if b is not None:
-        y = y + b.float()[None, :]
-    if act == "relu":
-        y = torch.clamp_min(y, 0.0)
-    elif act == "gelu":
-        y = torch.nn.functional.gelu(y, approximate="tanh")
-    elif act != "none":
-        raise ValueError(f"unknown activation: {act!r}")
-    return y
 
 
 def _act_grad(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -307,17 +392,17 @@ def fused_bwd_merged_plain(tile_off, val, seg, cols, tile_off_t, val_t,
 
 def _check_fused(tile_off, val, seg, cols, h, w, b, s, act) -> None:
     _check(tile_off, val, seg, cols, h)
-    _check_tensor("w", w, h.device, torch.float32)
+    check_tensor("w", w, h.device, torch.float32)
     if w.dim() != 2 or w.shape[0] != h.shape[1]:
         raise ValueError(f"w has shape {tuple(w.shape)}; expected "
                          f"({h.shape[1]}, N) for h {tuple(h.shape)}")
     if b is not None:
-        _check_tensor("b", b, h.device, torch.float32)
+        check_tensor("b", b, h.device, torch.float32)
         if tuple(b.shape) != (w.shape[1],):
             raise ValueError(f"b has shape {tuple(b.shape)}; expected "
                              f"({w.shape[1]},)")
     if s is not None:
-        _check_tensor("s", s, h.device, torch.float32)
+        check_tensor("s", s, h.device, torch.float32)
         want = (cols.shape[0] * BLK, h.shape[1])
         if tuple(s.shape) != want:
             raise ValueError(f"s has shape {tuple(s.shape)}; expected "
@@ -357,7 +442,7 @@ def aggregate_fused(tile_off, val, seg, cols, h, w, b=None, s=None, *,
     ``aggregate_fused_plain``."""
     _check_z_dtype(z_dtype)
     _check_fused(tile_off, val, seg, cols, h, w, b, s, act)
-    if not _on_card("aggregate_fused", h):
+    if not on_card("aggregate_fused", h):
         return aggregate_fused_plain(tile_off, val, seg, cols, h, w, b, s,
                                      act)
     n_dstb, max_blk = cols.shape
@@ -372,8 +457,8 @@ def aggregate_fused(tile_off, val, seg, cols, h, w, b=None, s=None, *,
             tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
             cols.data_ptr(), h.data_ptr(), w.data_ptr(), _ptr(b), _ptr(s),
             out.data_ptr(), n_dstb, max_blk, h.shape[0], F, N, ACTS[act],
-            _stream(h))
-    _raise_on(status, "aggregate_fused", "aggregate_fused")
+            stream(h))
+    raise_on(status, "aggregate_fused", "aggregate_fused")
     launch_counts["aggregate_fused"] += 1
     return out
 
@@ -408,11 +493,11 @@ def fused_bwd(tile_off, val, seg, cols, h, g, w, b=None, s=None, *,
     _check_fused(tile_off, val, seg, cols, h, w, b, s, act)
     n_dstb, max_blk = cols.shape
     F, N = w.shape
-    _check_tensor("g", g, h.device, torch.float32)
+    check_tensor("g", g, h.device, torch.float32)
     if tuple(g.shape) != (n_dstb * BLK, N):
         raise ValueError(f"g has shape {tuple(g.shape)}; expected "
                          f"({n_dstb * BLK}, {N})")
-    if not _on_card("fused_bwd", h):
+    if not on_card("fused_bwd", h):
         return fused_bwd_plain(tile_off, val, seg, cols, h, g, w, b, s, act)
     dev = h.device
     dw = torch.empty((F, N), dtype=torch.float32, device=dev)
@@ -434,8 +519,8 @@ def fused_bwd(tile_off, val, seg, cols, h, g, w, b=None, s=None, *,
             cols.data_ptr(), h.data_ptr(), g.data_ptr(), w.data_ptr(),
             _ptr(b), _ptr(s), dw.data_ptr(), _ptr(db), _ptr(dy),
             part_dw.data_ptr(), _ptr(part_db), n_dstb, max_blk, h.shape[0],
-            F, N, ACTS[act], size, groups, _stream(h))
-    _raise_on(status, "aggregate_fused_bwd", "fused_bwd")
+            F, N, ACTS[act], size, groups, stream(h))
+    raise_on(status, "aggregate_fused_bwd", "fused_bwd")
     launch_counts["fused_bwd"] += 1
     return dw, db, dy
 
@@ -467,7 +552,7 @@ def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
                          f"F <= {MERGED_MAX_F} and a non-empty A^T; got "
                          f"n_dstb={n_dstb}, F={F}, "
                          f"E_t={tile_off_t.numel()}")
-    _check_tensor("g", g, h.device, torch.float32)
+    check_tensor("g", g, h.device, torch.float32)
     if g.dim() != 2 or g.shape[0] != BLK:
         raise ValueError(f"g has shape {tuple(g.shape)}; expected "
                          f"({BLK}, N)")
@@ -476,11 +561,11 @@ def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
                          f"{tuple(cols_t.shape)} do not fit h "
                          f"{tuple(h.shape)}")
     if s is not None:
-        _check_tensor("s", s, h.device, torch.float32)
+        check_tensor("s", s, h.device, torch.float32)
         if tuple(s.shape) != (BLK, F):
             raise ValueError(f"s has shape {tuple(s.shape)}; expected "
                              f"({BLK}, {F})")
-    if not _on_card("fused_bwd_merged", h):
+    if not on_card("fused_bwd_merged", h):
         return fused_bwd_merged_plain(tile_off, val, seg, cols, tile_off_t,
                                       val_t, seg_t, cols_t, h, g, dz, s,
                                       has_bias)
@@ -498,8 +583,8 @@ def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
             cols.data_ptr(), tile_off_t.data_ptr(), val_t.data_ptr(),
             seg_t.data_ptr(), cols_t.data_ptr(), h.data_ptr(), g.data_ptr(),
             dz.data_ptr(), _ptr(s), dw.data_ptr(), _ptr(db), dh.data_ptr(),
-            max_blk, max_blk_t, h.shape[0], F, N, _stream(h))
-    _raise_on(status, "aggregate_fused_bwd", "fused_bwd_merged")
+            max_blk, max_blk_t, h.shape[0], F, N, stream(h))
+    raise_on(status, "aggregate_fused_bwd", "fused_bwd_merged")
     launch_counts["fused_bwd_merged"] += 1
     return dw, db, dh
 

@@ -1,12 +1,21 @@
-"""Host-side edge-segment layout builders (copy of the edge-streaming half
-of ``repro.kernels.layout``; pure numpy).
+"""Host-side block-CSR layout builders (copy of ``repro.kernels.layout``;
+pure numpy).
 
-The ``aggregate_edges`` kernel consumes the sampled adjacency of one layer
-as per-tile edge segments over 128x128 tiles: ``tile_off`` (cell offset
-``row*128 + col`` within the tile), ``val`` (edge weight, 1/deg for a mean)
-and CSR-style ``tile_seg`` offsets over the tile slots, plus the ``cols``
-table naming each slot's source block — for A and, independently sorted,
-for A^T (the backward). Bitwise copies of the reference builders.
+The sampled adjacency of one layer is cut into 128x128 tiles, and each
+destination block keeps ``max_blk`` tile slots whose source blocks the
+``cols`` table names. Two forms feed the kernels:
+
+* the compact triples (``aggregate_backend="pallas"``): per edge its slot
+  ``tile_id``, its cell ``tile_off`` (``row*128 + col`` within the tile)
+  and its weight ``val`` (1/deg for a mean), for A and A^T; the card
+  scatter-adds them into dense tiles (``kernels/aggregate.densify_tiles``)
+  for ``aggregate_blockcsr``;
+* the edge segments (``"pallas_edges"``, ``"pallas_fused"``): the same
+  triples sorted per tile, with CSR-style ``tile_seg`` offsets over the
+  slots, for A and, independently sorted, for A^T.
+
+``build_block_csr`` builds the dense tiles on the host. Bitwise copies of
+the reference builders.
 """
 from __future__ import annotations
 
@@ -18,6 +27,45 @@ BLK = 128
 
 # aggregate_backend values that consume the per-tile SEGMENT layout
 EDGE_STREAM_BACKENDS = ("pallas_edges", "pallas_fused")
+
+
+def build_block_csr(edge_src: np.ndarray, edge_dst: np.ndarray,
+                    edge_mask: np.ndarray, n_src: int, n_dst: int,
+                    values: np.ndarray | None = None,
+                    max_blk: int | None = None):
+    """Edge list -> padded block-CSR on the host.
+
+    Returns (blocks (Nd, max_blk, BLK, BLK) f32, cols (Nd, max_blk) i32,
+    padded src row count), A[dst, src] = value (default 1). ``max_blk``
+    pins the slots per destination block; unused slots keep all-zero
+    tiles pointing at source block 0."""
+    n_srcb = (n_src + BLK - 1) // BLK
+    n_dstb = (n_dst + BLK - 1) // BLK
+    src = np.asarray(edge_src)[np.asarray(edge_mask)]
+    dst = np.asarray(edge_dst)[np.asarray(edge_mask)]
+    val = (np.ones(len(src), np.float32) if values is None
+           else np.asarray(values)[np.asarray(edge_mask)].astype(np.float32))
+    bs, bd = src // BLK, dst // BLK
+    keys = bd.astype(np.int64) * n_srcb + bs
+    uniq, inv = np.unique(keys, return_inverse=True)
+    blk_dst = (uniq // n_srcb).astype(np.int32)
+    blk_src = (uniq % n_srcb).astype(np.int32)
+    counts = np.bincount(blk_dst, minlength=n_dstb)
+    need = max(1, int(counts.max()) if len(uniq) else 0)
+    if max_blk is None:
+        max_blk = need
+    elif need > max_blk:
+        raise ValueError(f"max_blk={max_blk} < required {need}")
+    blocks = np.zeros((n_dstb, max_blk, BLK, BLK), np.float32)
+    cols = np.zeros((n_dstb, max_blk), np.int32)
+    # uniq is sorted, so entries are grouped by dst block: the slot of
+    # entry u is its rank within its group
+    group_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot_of = (np.arange(len(uniq)) - group_start[blk_dst]).astype(np.int32)
+    cols[blk_dst, slot_of] = blk_src
+    np.add.at(blocks,
+              (bd.astype(np.int32), slot_of[inv], dst % BLK, src % BLK), val)
+    return blocks, cols, n_srcb * BLK
 
 
 def build_block_coo_pair(edge_src: np.ndarray, edge_dst: np.ndarray,
@@ -140,7 +188,58 @@ def block_capacities(cfg) -> List[Tuple[int, int, int, int, int]]:
     return caps
 
 
-# what the edge-streaming kernel reads, for A and A^T
+def compact_layout_bytes(n_edges: int, n_dstb: int, max_blk: int,
+                         n_srcb: int, max_blk_t: int) -> int:
+    """Host->device bytes per batch for one layer's compact layout: three
+    4-byte per-edge arrays for A (tile_id, tile_off, val), two more for A^T
+    (the values are shared), plus the two cols tables."""
+    return 5 * 4 * n_edges + 4 * (n_dstb * max_blk + n_srcb * max_blk_t)
+
+
+def edge_stream_layout_bytes(n_edges: int, n_dstb: int, max_blk: int,
+                             n_srcb: int, max_blk_t: int) -> int:
+    """Host->device bytes per batch for one layer's edge-segment layout:
+    (tile_off, val) for A and (tile_off_t, val_t) for A^T, the two offsets
+    arrays and the two cols tables."""
+    return (4 * 4 * n_edges
+            + 4 * (n_dstb * max_blk + 1 + n_srcb * max_blk_t + 1)
+            + 4 * (n_dstb * max_blk + n_srcb * max_blk_t))
+
+
+def dense_layout_bytes(n_edges: int, n_dstb: int, max_blk: int,
+                       n_srcb: int, max_blk_t: int) -> int:
+    """Host->device bytes per batch for one layer's dense layout: full
+    64 KB tiles for A and A^T plus the cols tables."""
+    return (4 * (n_dstb * max_blk + n_srcb * max_blk_t) * BLK * BLK
+            + 4 * (n_dstb * max_blk + n_srcb * max_blk_t))
+
+
+def densify_tiles_np(tile_id: np.ndarray, tile_off: np.ndarray,
+                     val: np.ndarray, n_tile_rows: int, max_blk: int
+                     ) -> np.ndarray:
+    """Numpy twin of ``aggregate.densify_tiles``. The scatter indexes 2-D
+    ``(tile, cell)``, never the flat ``tile_id * BLK*BLK + tile_off``,
+    which overflows int32 past 131,072 tile slots."""
+    tiles = np.zeros((n_tile_rows * max_blk, BLK * BLK), np.float32)
+    np.add.at(tiles, (tile_id, tile_off), val)
+    return tiles.reshape(n_tile_rows, max_blk, BLK, BLK)
+
+
+def densified_tile_bytes(caps: List[Tuple[int, int, int, int, int]]) -> int:
+    """Device bytes per batch of the dense (Nd, max_blk, BLK, BLK) tiles
+    of A and A^T that the compact triples densify into."""
+    total = 0
+    for n_src, n_dst, max_blk, max_blk_t, _ in caps:
+        n_srcb = (n_src + BLK - 1) // BLK
+        n_dstb = (n_dst + BLK - 1) // BLK
+        total += (n_dstb * max_blk + n_srcb * max_blk_t) * BLK * BLK * 4
+    return total
+
+
+# what the block-CSR path reads (the compact triples), for A and A^T
+LAYOUT_KEYS = ("tile_id", "tile_off", "val", "cols",
+               "tile_id_t", "tile_off_t", "cols_t")
+# what the edge-streaming kernels read, for A and A^T
 EDGE_STREAM_KEYS = ("tile_off", "val", "cols", "tile_off_t", "cols_t",
                     "val_t", "tile_seg", "tile_seg_t")
 
@@ -149,12 +248,16 @@ def build_layer_layouts(edge_src: List[np.ndarray],
                         edge_dst: List[np.ndarray],
                         edge_mask: List[np.ndarray],
                         caps: List[Tuple[int, int, int, int, int]],
-                        kind: Optional[str]) -> dict:
-    """Per-layer edge-segment layout for one mini-batch (A + A^T from one
-    sort). ``kind="mean"`` bakes 1/deg into the edge values; "sum" ships raw
-    1.0 weights. Shapes are pinned by ``caps``. Returns ``{"agg_<key>":
-    [per-layer array]}`` for every key in ``EDGE_STREAM_KEYS``."""
-    out: dict = {f"agg_{k}": [] for k in EDGE_STREAM_KEYS}
+                        kind: Optional[str],
+                        edge_stream: bool = False) -> dict:
+    """Per-layer layout for one mini-batch (A + A^T from one sort).
+    ``kind="mean"`` bakes 1/deg into the edge values; "sum" ships raw 1.0
+    weights. Shapes are pinned by ``caps``. Returns ``{"agg_<key>":
+    [per-layer array]}`` for every key in ``LAYOUT_KEYS`` (the compact
+    triples), or in ``EDGE_STREAM_KEYS`` with ``edge_stream`` (the edge
+    segments)."""
+    keys = EDGE_STREAM_KEYS if edge_stream else LAYOUT_KEYS
+    out: dict = {f"agg_{k}": [] for k in keys}
     for l, (n_src, n_dst, max_blk, max_blk_t, _) in enumerate(caps):
         src, dst, mask = edge_src[l], edge_dst[l], edge_mask[l]
         vals = None
@@ -163,7 +266,7 @@ def build_layer_layouts(edge_src: List[np.ndarray],
             vals = 1.0 / np.maximum(deg[dst], 1.0)
         coo = build_block_coo_pair(src, dst, mask, n_src, n_dst, vals,
                                    max_blk=max_blk, max_blk_t=max_blk_t,
-                                   edge_stream=True)
-        for k in EDGE_STREAM_KEYS:
+                                   edge_stream=edge_stream)
+        for k in keys:
             out[f"agg_{k}"].append(coo[k])
     return out

@@ -112,7 +112,7 @@ def _batch_layouts():
     mb = NeighborSampler(g, cfg, g.train_ids).batch_at(0, 0)
     caps = block_capacities(cfg)
     lay = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask, caps,
-                              "mean")
+                              "mean", edge_stream=True)
     return [{k[4:]: v[l] for k, v in lay.items()}
             | {"n_src_pad": caps[l][0] + (-caps[l][0]) % 128}
             for l in range(len(caps))]

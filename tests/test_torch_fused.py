@@ -523,8 +523,8 @@ def test_fused_trainer_on_card_matches_cpu(name):
         m_card = card.run_iteration(group)
         got = {k: agg.launch_counts[k] - before[k] for k in before}
         # 2 devices' batches x (2 forwards, 1 general and 1 merged backward)
-        assert got == {"aggregate_edges": 0, "aggregate_fused": 4,
-                       "fused_bwd": 2, "fused_bwd_merged": 2}
+        assert {k: v for k, v in got.items() if v} == {
+            "aggregate_fused": 4, "fused_bwd": 2, "fused_bwd_merged": 2}
         m_cpu = cpu.run_iteration(group)
         np.testing.assert_allclose(m_card["loss"], m_cpu["loss"], rtol=RTOL)
         lrs.append(m_cpu["lr"])

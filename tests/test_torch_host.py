@@ -117,12 +117,80 @@ def test_block_capacities_and_layouts_bitwise(fanouts, batch):
                                         mb.edge_mask, caps, kind,
                                         edge_stream=True)
         b = tlayout.build_layer_layouts(mb.edge_src, mb.edge_dst,
-                                        mb.edge_mask, caps, kind)
+                                        mb.edge_mask, caps, kind,
+                                        edge_stream=True)
         assert set(a) == set(b)
         for k in a:
             for x, y in zip(a[k], b[k]):
                 assert x.dtype == y.dtype, k
                 np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+@pytest.mark.parametrize("fanouts,batch", [((4, 3), 32), ((25, 10), 64)])
+def test_compact_layouts_bitwise(fanouts, batch):
+    """The ``"pallas"`` layout (``edge_stream=False``): the compact
+    triples of ``LAYOUT_KEYS``."""
+    js, ts = _samplers(fanouts, batch)
+    caps = jlayout.block_capacities(js.cfg)
+    mb = js.batch_at(1, 0)
+    assert tlayout.LAYOUT_KEYS == jlayout.LAYOUT_KEYS
+    for kind in ("mean", "sum"):
+        a = jlayout.build_layer_layouts(mb.edge_src, mb.edge_dst,
+                                        mb.edge_mask, caps, kind)
+        b = tlayout.build_layer_layouts(mb.edge_src, mb.edge_dst,
+                                        mb.edge_mask, caps, kind)
+        assert set(a) == set(b) == {f"agg_{k}" for k in tlayout.LAYOUT_KEYS}
+        for k in a:
+            for x, y in zip(a[k], b[k]):
+                assert x.dtype == y.dtype, k
+                np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+def _edges(seed, n_src, n_dst, E, mask_p):
+    rng = np.random.default_rng(seed)
+    es = rng.integers(0, n_src, E).astype(np.int32)
+    ed = rng.integers(0, n_dst, E).astype(np.int32)
+    em = rng.random(E) < mask_p
+    vals = rng.standard_normal(E).astype(np.float32)
+    return es, ed, em, vals
+
+
+@pytest.mark.parametrize("seed,mask_p,max_blk", [(0, 0.8, None),
+                                                 (1, 0.0, None),
+                                                 (2, 1.0, 4)])
+def test_block_csr_and_densify_bitwise(seed, mask_p, max_blk):
+    """``build_block_csr`` (dense tiles on the host) and
+    ``densify_tiles_np`` (the compact triples densified), with repeated
+    (src, dst) pairs, so that several edges share a cell."""
+    es, ed, em, vals = _edges(seed, 300, 200, 900, mask_p)
+    for v in (None, vals):
+        a = jlayout.build_block_csr(es, ed, em, 300, 200, v, max_blk)
+        b = tlayout.build_block_csr(es, ed, em, 300, 200, v, max_blk)
+        for x, y in zip(a, b):
+            assert np.asarray(x).dtype == np.asarray(y).dtype
+            np.testing.assert_array_equal(x, y)
+    coo = jlayout.build_block_coo_pair(es, ed, em, 300, 200, vals)
+    for s in ("", "_t"):
+        args = (coo[f"tile_id{s}"], coo[f"tile_off{s}"], coo["val"],
+                *coo[f"cols{s}"].shape)
+        np.testing.assert_array_equal(tlayout.densify_tiles_np(*args),
+                                      jlayout.densify_tiles_np(*args))
+
+
+@pytest.mark.parametrize("fanouts,batch", [((4, 3), 32), ((25, 10), 1024)])
+def test_layout_byte_helpers_match(fanouts, batch):
+    cfg = JCfg("graphsage", **dict(SMALL, fanouts=fanouts,
+                                   batch_targets=batch))
+    caps = jlayout.block_capacities(cfg)
+    assert tlayout.densified_tile_bytes(caps) == \
+        jlayout.densified_tile_bytes(caps)
+    for n_src, n_dst, max_blk, max_blk_t, e_cap in caps:
+        args = (e_cap, -(-n_dst // 128), max_blk, -(-n_src // 128),
+                max_blk_t)
+        for fn in ("compact_layout_bytes", "edge_stream_layout_bytes",
+                   "dense_layout_bytes"):
+            assert getattr(tlayout, fn)(*args) == \
+                getattr(jlayout, fn)(*args), fn
 
 
 @pytest.mark.parametrize("seed,mask_p", [(0, 0.8), (1, 0.0), (2, 1.0)])

@@ -1,6 +1,6 @@
 """The port's GraphSAGE, GCN and GIN against ``repro.gnn.models``: logits,
-loss and every parameter gradient, on the ``reference``, ``pallas_edges``
-and ``pallas_fused`` datapaths, from the same parameters and the same
+loss and every parameter gradient, on the ``reference``, ``pallas``,
+``pallas_edges`` and ``pallas_fused`` datapaths, from the same parameters and the same
 sampled batch, at rtol 1e-5 / atol 1e-6 (fp32 matrix products and sums
 taken in another order). The reference's fused datapath and GIN run under
 the test-local ``jax_shims`` (``tests/jax_reference_shims.py``)."""
@@ -38,10 +38,10 @@ def _setup(name, backend, seed=0):
     mb = NeighborSampler(G, jcfg, G.train_ids, 0, seed).batch_at(0, 0)
     feats = G.features[mb.nodes[0]] * mb.node_mask[0][:, None]
     layout = None
-    if backend in EDGE_STREAM_BACKENDS:
-        layout = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
-                                     block_capacities(jcfg),
-                                     jm.AGG_KIND[name], edge_stream=True)
+    if backend in jm.KERNEL_BACKENDS:
+        layout = build_layer_layouts(
+            mb.edge_src, mb.edge_dst, mb.edge_mask, block_capacities(jcfg),
+            jm.AGG_KIND[name], edge_stream=backend in EDGE_STREAM_BACKENDS)
     jbatch = j_batch_to_arrays(mb, feats)
     jbatch.update(layout or {})
     jbatch = jax.tree.map(jnp.asarray, jbatch)
@@ -53,7 +53,7 @@ def _setup(name, backend, seed=0):
 
 
 @pytest.mark.parametrize("backend", ["reference", "pallas_edges",
-                                     "pallas_fused"])
+                                     "pallas_fused", "pallas"])
 @pytest.mark.parametrize("name", ["graphsage", "gcn", "gin"])
 def test_forward_loss_and_grads_match_reference(name, backend, request):
     if name == "gin" or backend == "pallas_fused":
@@ -93,7 +93,8 @@ def test_forward_loss_and_grads_match_reference(name, backend, request):
                                    atol=ATOL, err_msg=f"layer {l} {k}")
 
 
-@pytest.mark.parametrize("backend", ["pallas_edges", "pallas_fused"])
+@pytest.mark.parametrize("backend", ["pallas_edges", "pallas_fused",
+                                     "pallas"])
 @pytest.mark.parametrize("name", ["graphsage", "gcn", "gin"])
 def test_kernel_datapath_matches_reference_datapath(name, backend):
     """Within the port: each kernel datapath and the plain segment sum give
@@ -124,6 +125,24 @@ def test_reference_aggregate_matches_segment_sum():
                            torch.from_numpy(dst), torch.from_numpy(mask),
                            30, kind)
         np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
+def test_gather_rows_backward_matches_reference():
+    """``gather_rows``' backward adds the cotangents of repeated indices
+    by a sorted segment sum (one order on every run) to what JAX's
+    gather gives."""
+    rng = np.random.default_rng(1)
+    h = rng.standard_normal((40, 6)).astype(np.float32)
+    idx = rng.integers(0, 25, 300).astype(np.int32)  # repeats; rows 25+ none
+    g = rng.standard_normal((300, 6)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: x[jnp.asarray(idx)], jnp.asarray(h))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    ht = torch.from_numpy(h).requires_grad_(True)
+    out = tm.gather_rows(ht, torch.from_numpy(idx))
+    assert torch.equal(out.detach(), torch.from_numpy(h[idx]))
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(ht.grad.numpy(), ref, rtol=RTOL, atol=ATOL)
+    assert not ht.grad[25:].any()
 
 
 @pytest.mark.parametrize("name", ["graphsage", "gcn", "gin"])

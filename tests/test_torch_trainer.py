@@ -2,10 +2,10 @@
 (``pipeline=False``), both started from the reference's initial
 parameters: three iterations of GraphSAGE on ``"pallas_edges"`` under
 DistDGL and PaGraph with 1 and 2 devices, and of GraphSAGE, GCN and GIN on
-``"pallas_fused"`` (the reference's fused datapath and GIN under the
-test-local ``jax_shims``), plus the ``train()`` facade, the device rule,
-the aggregate bytes each datapath keeps in device memory and the knobs the
-port does not run yet."""
+``"pallas_fused"`` and on ``"pallas"`` (the reference's fused datapath and
+GIN under the test-local ``jax_shims``), plus the ``train()`` facade, the
+device rule, the layout and aggregate bytes of each datapath, and the knobs
+the port does not run yet."""
 import dataclasses
 
 import jax
@@ -71,6 +71,13 @@ def test_fused_three_iterations_match_reference(name, jax_shims):
     _check_three_iterations(*_trainers("distdgl", 2, name, "pallas_fused"))
 
 
+@pytest.mark.parametrize("name", ["graphsage", "gcn", "gin"])
+def test_blockcsr_three_iterations_match_reference(name, request):
+    if name == "gin":
+        request.getfixturevalue("jax_shims")  # the reference's GIN needs it
+    _check_three_iterations(*_trainers("distdgl", 2, name, "pallas"))
+
+
 def _check_three_iterations(jt, tt):
     jgroups = list(jsched.iterations(jt.epoch_schedule()))
     tgroups = list(tsched.iterations(tt.epoch_schedule()))
@@ -127,6 +134,35 @@ def test_cpu_fused_run_launches_no_kernel(name):
     assert agg.launch_counts == before
 
 
+def test_cpu_blockcsr_run_launches_no_kernel():
+    before = dict(agg.launch_counts)
+    t = TTrainer(G, TCfg("gin", aggregate_backend="pallas", **SMALL),
+                 num_devices=1, device="cpu")
+    m = t.run_iteration(next(tsched.iterations(t.epoch_schedule())))
+    assert np.isfinite(m["loss"])
+    assert agg.launch_counts == before
+
+
+@pytest.mark.parametrize("backend", ["reference", "pallas", "pallas_edges",
+                                     "pallas_fused"])
+@pytest.mark.parametrize("name", ["graphsage", "gin"])
+def test_layout_and_aggregate_bytes_match_reference(name, backend):
+    kw = dict(num_layers=2, hidden=16, fanouts=(5, 4), batch_targets=200)
+    jt = JTrainer(G, JCfg(name, aggregate_backend=backend, **kw),
+                  num_devices=1, pipeline=False)
+    tt = TTrainer(G, TCfg(name, aggregate_backend=backend, **kw),
+                  num_devices=1, device="cpu")
+    assert tt._blk_caps == jt._blk_caps
+    assert tt.densified_hbm_bytes() == jt.densified_hbm_bytes()
+    assert (tt.aggregate_intermediate_bytes()
+            == jt.aggregate_intermediate_bytes())
+    for layout in ("compact", "edges", "dense"):
+        assert (tt.aggregate_h2d_bytes(layout)
+                == jt.aggregate_h2d_bytes(layout)), layout
+    if backend == "pallas":
+        assert tt.densified_hbm_bytes() > 0
+
+
 def test_aggregate_intermediate_bytes_per_datapath():
     """At the paper's GraphSAGE shape the unfused kernel path keeps each
     layer's (n_dstb*128, f_in) f32 aggregate in device memory; the fused
@@ -138,9 +174,11 @@ def test_aggregate_intermediate_bytes_per_datapath():
     got = {be: TTrainer(g, TCfg("graphsage", aggregate_backend=be, **paper),
                         num_devices=1, device="cpu"
                         ).aggregate_intermediate_bytes()
-           for be in ("reference", "pallas_edges", "pallas_fused")}
-    assert got == {"reference": 0, "pallas_edges": 26_624 * 602 * 4
-                   + 1_024 * 128 * 4, "pallas_fused": 0}
+           for be in ("reference", "pallas", "pallas_edges",
+                      "pallas_fused")}
+    unfused = 26_624 * 602 * 4 + 1_024 * 128 * 4
+    assert got == {"reference": 0, "pallas": unfused,
+                   "pallas_edges": unfused, "pallas_fused": 0}
 
 
 def test_train_facade_runs_one_epoch():
@@ -186,7 +224,6 @@ UNPORTED = {
     "sgdm": dict(optimizer_name="sgdm"),
     "p3": dict(algorithm="p3"),
     "gat": dict(cfg=dict(name="gat")),
-    "pallas": dict(aggregate_backend="pallas"),
 }
 
 
@@ -196,3 +233,4 @@ def test_unported_knobs_raise(knob):
     cfg = TCfg(**{"name": "graphsage", **SMALL, **kw.pop("cfg", {})})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TTrainer(G, cfg, num_devices=1, device="cpu", **kw)
+

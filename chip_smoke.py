@@ -17,7 +17,12 @@ block and so takes ``fused_bwd_merged``, GraphSAGE on ``"pallas"`` (dense
 tiles densified on the card, then ``aggregate_blockcsr``, then the update
 matmul), and ``ops.update`` / ``ops.aggregate`` / ``ops.aggregate_update``
 (``update_mlp``, ``aggregate_blockcsr``, ``aggregate_fused`` and, unfused,
-``aggregate_edges``). Phases, each of which exits non-zero on failure:
+``aggregate_edges``). It then serves the LM zoo's two ported models at
+their published widths and depths through ``models.registry.build``,
+``ModelBundle.init_params`` and ``launch.steps.make_prefill_step`` /
+``make_decode_step``: Llama-3-8B (prefill through ``flash_attention_fwd``)
+and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16 from a seeded
+init. Phases, each of which exits non-zero on failure:
 
   1. device report: the card's name, and its name and power limit as
      ``nvidia-smi`` gives them;
@@ -83,7 +88,47 @@ matmul), and ``ops.update`` / ``ops.aggregate`` / ``ops.aggregate_update``
      the layer-1 operands, with the counts set to 0 just before and read
      just after (one launch of each of the four kernels), each result
      held against its plain version;
-  6. summary: one ``{"kernels": [...]}`` line, then the last line
+  6. the LM kernels vs their plain versions, at the models' shapes:
+     ``flash_attention_fwd`` at Llama-3-8B's prefill (4 x 4,096 tokens,
+     32 query and 8 kv heads of 128, bf16, causal), in fp32 at 1 x 1,024,
+     and non-causal with Sq 1,000 != Sk 1,537 (bf16); ``wkv6_chunk`` at
+     RWKV-6-3B's prefill (4 x 4,096 tokens, 40 heads of 64, bf16 r/k/v and
+     fp32 log-decays, y and the final state), in fp32 at 1 x 512, and at a
+     ragged 1,007 tokens from a given state. fp32 launches are held at the
+     reference's own kernel-test tolerances (flash rtol 1e-4 / atol 2e-4,
+     wkv6 1e-4 / 1e-4, each atol times the plain result's largest
+     magnitude, at least 1). bf16 launches get rtol 1e-2, which covers one
+     bf16 rounding of the output on each side (2 x 2^-8 of its value), and
+     an absolute term for what else the kernel does: flash rounds each p
+     to bf16 before the PV product as the TPU kernel does (the plain
+     version keeps fp32 p), which moves an output by at most 2^-8 (P|v|)
+     for that element, so its atol is 4e-3 x (P|v|), element by element,
+     with P|v| the plain version run on |v|; wkv6 rounds nothing inside,
+     so its atol stays the fp32 one. The state is held at 1e-4. Each
+     launch line gives the plain result's largest and mean magnitude and
+     the largest share of its allowance an element used (``tol_used``).
+     Yardstick: ``scaled_dot_product_attention`` for flash (k
+     and v repeated to 32 heads outside the timing); none computes wkv6.
+     Bounds: flash's bytes (q, k, v, out once; k and v unrepeated) and its
+     flops over the unmasked pairs (4 D per pair) at the bf16 tensor-core
+     rate (989 TFLOP/s) for bf16 launches and 67 TFLOP/s for fp32; wkv6's
+     bytes and its flops per chunk (``wkv6_flops``) at 67 TFLOP/s. Only
+     the main-path launches enter the ``kernels`` line's times;
+  7. serving, each model with every launch count set to 0 just before and
+     read just after each prefill and each decode step: a 256-token
+     warm-up prefill, the prefill of 4 prompts of 4,096 numpy-seeded
+     tokens, the KV cache grown by 16 slots (``examples/lm_serve.py``),
+     16 greedy decode steps, then the last step once more under
+     ``torch.profiler`` (device busy time and kernel count). Exactly 32
+     launches of the model's kernel per prefill and none per decode step;
+     finite logits. Printed: init, prefill and decode times, tokens/s,
+     the peak device memory of the init and of serving;
+  8. prefill/decode consistency in fp32 (TF32 off) at full width and 2
+     layers: the last logits of a 1,024-token prefill against a
+     1,023-token prefill and one decode step, within rtol 1e-4 and atol
+     1e-4 times the largest logit (fp32 sums over 4,096 features and 1,024
+     positions taken in another order by the two paths);
+  9. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -112,6 +157,22 @@ RTOL, ATOL = 1e-5, 1e-6
 LOSS_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+# the LM zoo's serving paths: 4 prompts of 4,096 tokens, the cache grown by
+# 16 slots, 16 greedy decode steps; a 256-token prefill first warms cuBLAS
+# and the allocator; prefill/decode consistency in fp32 at 2 layers
+LM_ARCHS = ("llama3-8b", "rwkv6-3b")
+LM_BATCH, LM_PROMPT, LM_WARM_PROMPT, LM_DECODE = 4, 4096, 256, 16
+CONSIST_LAYERS, CONSIST_BATCH, CONSIST_PROMPT = 2, 2, 1024
+CONSIST_TOL = 1e-4
+# kernel vs plain on the card: fp32 at the reference's own kernel-test
+# tolerances; bf16 at rtol 1e-2 (one bf16 rounding of the output on each
+# side) with flash's atol 4e-3 x (P|v|) element-wise (each p rounded to
+# bf16 once: 2^-8, plus fp32 sums) and wkv6's the fp32 one
+FLASH_TOL = dict(rtol=1e-4, atol=2e-4)
+WKV_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_RTOL = 1e-2
+FLASH_BF16_P_ATOL = 4e-3
 FWD = ("tile_off", "val", "tile_seg", "cols")
 BWD = ("tile_off_t", "val_t", "tile_seg_t", "cols_t")
 COMPACT = ("tile_id", "tile_off", "val", "cols")
@@ -131,6 +192,11 @@ KERNEL_SOURCES = {
         "src/repro/kernels/aggregate.py:818"),
     "update_mlp": ("src/repro_torch/kernels/csrc/update_mlp.cu",
                    "src/repro/kernels/update_mlp.py:38"),
+    "flash_attention_fwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+        "src/repro/kernels/flash_attention.py:22"),
+    "wkv6_chunk": ("src/repro_torch/kernels/csrc/wkv6_chunk.cu",
+                   "src/repro/kernels/wkv6.py:20"),
 }
 
 
@@ -159,25 +225,50 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_close(name: str, what: str, out, ref) -> float:
-    """Fails unless ``out`` matches ``ref`` (see the module docstring for
-    the tolerance); returns the max abs error."""
+def check_close(name: str, what: str, out, ref, rtol: float = RTOL,
+                atol: float = ATOL) -> float:
+    """Fails unless ``out`` matches ``ref`` within ``rtol`` and ``atol``
+    times the largest magnitude of ``ref`` (at least 1; see the module
+    docstring for the tolerances); returns the max abs error."""
     if out is None or ref is None:
         if out is not None or ref is not None:
             fail(f"{name}: {what} is {out} on the kernel, {ref} plain")
         return 0.0
+    scale = max(1.0, float(ref.abs().max())) if ref.numel() else 1.0
+    return check_within(name, what, out, ref, rtol,
+                        atol * scale)["max_abs_err"]
+
+
+def check_within(name: str, what: str, out, ref, rtol: float,
+                 atol) -> dict:
+    """Fails unless ``out`` is finite, of ``ref``'s shape and within
+    ``rtol`` |ref| + ``atol`` of ``ref`` element by element (``atol`` a
+    number or a tensor of ``ref``'s shape). Returns the max abs error,
+    the largest share of its allowance an element used, and the largest
+    and mean magnitude of ``ref``, so the margin shows on the line."""
     if out.shape != ref.shape:
         fail(f"{name}: {what} has shape {tuple(out.shape)}, plain "
              f"{tuple(ref.shape)}")
+    out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         fail(f"{name}: non-finite {what}")
-    scale = max(1.0, float(ref.abs().max())) if ref.numel() else 1.0
-    try:
-        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL * scale)
-    except AssertionError as e:
+    if not out.numel():
+        return {"max_abs_err": 0.0, "tol_used": 0.0}
+    err = (out - ref).abs()
+    allowed = rtol * ref.abs() + atol
+    used = err / allowed.clamp_min(torch.finfo(torch.float32).tiny)
+    worst = int(used.argmax())
+    row = {"max_abs_err": float(err.max()), "tol_used": float(used.max()),
+           "ref_max_abs": float(ref.abs().max()),
+           "ref_mean_abs": float(ref.abs().mean())}
+    if not bool((err <= allowed).all()):
         fail(f"{name}: {what} of the kernel disagrees with the plain "
-             f"version: {e}")
-    return float((out - ref).abs().max()) if out.numel() else 0.0
+             f"version: {int((err > allowed).sum())} of {err.numel()} "
+             f"elements past their allowance; worst at flat index {worst}: "
+             f"kernel {float(out.flatten()[worst])}, plain "
+             f"{float(ref.flatten()[worst])}, allowed "
+             f"{float(allowed.flatten()[worst])} ({row})")
+    return row
 
 
 def edge_coords(lay: dict, keys) -> tuple:
@@ -217,11 +308,14 @@ def segment_bytes(lay: dict, keys) -> int:
             + 4 * (len(lay[keys[2]]) + lay[keys[3]].size))
 
 
-def bound(bytes_moved: int, flops: int) -> dict:
+def bound(bytes_moved: int, flops: int, rate: float = FP32_FLOPS) -> dict:
+    """The least time of a launch: its bytes over the memory rate or its
+    flops over ``rate`` (the fp32 rate unless the launch's type has
+    another), whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return {"bytes": bytes_moved, "flops": flops,
-            "bound_ms": max(t_bytes, t_ops),
+    t_ops = flops / rate * 1e3
+    return {"bytes": bytes_moved, "flops": flops, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -568,12 +662,16 @@ def check_first_loss(label, run, ref_loss) -> None:
 
 
 def kernel_entry(name, rows, launches_by_path) -> dict:
+    """One kernel's entry of the ``kernels`` line: times and bounds summed
+    over the checked launches at the main paths' shapes (``main_path``,
+    default true), the largest error over every checked launch."""
     src, replaces = KERNEL_SOURCES[name]
-    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
-    t_ops = sum(r["flops"] for r in rows) / FP32_FLOPS
+    main = [r for r in rows if r.get("main_path", True)]
+    t_bytes = sum(r["bytes_ms"] for r in main)
+    t_ops = sum(r["ops_ms"] for r in main)
 
     def total(key):
-        vals = [r[key] for r in rows]
+        vals = [r[key] for r in main]
         return None if None in vals else sum(vals)
 
     entry = {"name": name, "route": "cuda", "source": src,
@@ -590,6 +688,279 @@ def kernel_entry(name, rows, launches_by_path) -> dict:
                      sparse_ms=total("sparse_ms"))
     entry["per_launch"] = rows
     return entry
+
+# ---------------------------------------------------------------------------
+# the LM zoo: flash_attention_fwd and wkv6_chunk, and serving
+# ---------------------------------------------------------------------------
+
+def check_flash_launch(name, fa, B, Sq, Sk, H, KH, D, dtype, causal,
+                       main_path, iters=5):
+    """flash_attention_fwd vs its plain version on the card at (B, S, H, D)
+    with KH kv heads, its times, the SDPA yardstick (k and v repeated to H
+    heads beforehand, outside the timing) and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((B, S, h, D), device="cuda", generator=gen
+                           ).to(dtype)
+               for S, h in ((Sq, H), (Sk, KH), (Sk, KH)))
+    out = fa.flash_attention_fwd(q, k, v, causal)
+    ref = fa.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        tol = check_within(name, "out", out, ref, FLASH_TOL["rtol"],
+                           FLASH_TOL["atol"] * max(1.0, float(
+                               ref.abs().max())))
+    else:
+        # the kernel rounds each p to bf16 (relative 2^-8) before PV: an
+        # output moves by at most 2^-8 (P|v|), P|v| from the plain version
+        p_abs_v = fa.flash_attention_plain(q.float(), k.float(),
+                                           v.float().abs(), causal)
+        tol = check_within(name, "out", out, ref, BF16_RTOL,
+                           FLASH_BF16_P_ATOL * p_abs_v)
+        tol["p_abs_v_mean"] = float(p_abs_v.mean())
+        del p_abs_v
+    del ref
+    G = H // KH
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+    lib_err = float((sdpa().transpose(1, 2).float() - out.float())
+                    .abs().max())
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    elt = q.element_size()
+    row = {"kernel": "flash_attention_fwd", "launch": name,
+           "main_path": main_path, "q": [B, Sq, H, D], "kv": [B, Sk, KH, D],
+           "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+           "smem_bytes": fa.flash_attention_fwd_smem_bytes(D), **tol,
+           "library": "scaled_dot_product_attention",
+           "library_vs_kernel_max_abs": lib_err,
+           "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal),
+                         iters=iters, warmup=1),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+               q, k, v, causal), iters=2, warmup=1),
+           "library_ms": time_ms(sdpa, iters=10)}
+    row.update(bound(elt * (2 * B * Sq * H * D + 2 * B * Sk * KH * D),
+                     4 * D * pairs * B * H,
+                     FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
+    del q, k, v, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return report(row)
+
+
+def wkv6_flops(S: int, K: int, chunk: int = 16) -> tuple:
+    """(flops, exponentials) of the chunked WKV6 recurrence over S tokens
+    of one head (K = V): per chunk of L tokens the inter-chunk product, the
+    L(L-1)/2 decay pairs, the intra-chunk and bonus terms and the state
+    update."""
+    flops = exps = 0
+    for t0 in range(0, S, chunk):
+        L = min(chunk, S - t0)
+        pairs = L * (L - 1) // 2
+        flops += (2 * L * K * K + 4 * pairs * K + 2 * pairs * K
+                  + 3 * L * K + 2 * L * K + 2 * L * K * K + 2 * K * K
+                  + L * K)
+        exps += pairs * K + 2 * L * K + K
+    return flops, exps
+
+
+def check_wkv6_launch(name, wk, B, S, H, K, dtype, with_state, main_path,
+                      iters=10):
+    """wkv6_chunk vs its plain version on the card (y and the final state),
+    its times and the bound; no single PyTorch call computes it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * scale
+    r, k, v = (randn(B, S, H, K, scale=0.5).to(dtype) for _ in range(3))
+    lw = -randn(B, S, H, K).exp()
+    u = randn(H, K, scale=0.5).to(dtype)
+    s0 = randn(B, H, K, K) if with_state else None
+    y, st = wk.wkv6_chunk(r, k, v, lw, u, s0)
+    y_p, st_p = wk.wkv6_chunk_plain(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(y_p.abs().max()))
+    tol = check_within(name, "y", y, y_p, WKV_TOL["rtol"]
+                       if dtype == torch.float32 else BF16_RTOL,
+                       WKV_TOL["atol"] * scale)
+    tol_s = check_within(name, "state", st, st_p, WKV_TOL["rtol"],
+                         WKV_TOL["atol"] * max(1.0, float(
+                             st_p.abs().max())))
+    tol.update(max_abs_err=max(tol["max_abs_err"], tol_s["max_abs_err"]),
+               state_tol_used=tol_s["tol_used"])
+    flops, exps = wkv6_flops(S, K)
+    elt = r.element_size()
+    row = {"kernel": "wkv6_chunk", "launch": name, "main_path": main_path,
+           "r": [B, S, H, K], "dtype": str(dtype).replace("torch.", ""),
+           "initial_state": with_state, **tol,
+           "exponentials": exps * B * H,
+           "ms": time_ms(lambda: wk.wkv6_chunk(r, k, v, lw, u, s0),
+                         iters=iters),
+           "plain_ms": time_ms(lambda: wk.wkv6_chunk_plain(
+               r, k, v, lw, u, s0), iters=2, warmup=1),
+           "library_ms": None}
+    row.update(bound(elt * (4 * B * S * H * K + H * K) + 4 * B * S * H * K
+                     + 4 * B * H * K * K * (2 if with_state else 1),
+                     flops * B * H))
+    del r, k, v, lw, y, y_p
+    torch.cuda.empty_cache()
+    return report(row)
+
+
+def traced(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time (to a
+    synchronize), the device kernels it ran and their summed time, and the
+    device's idle share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_kernels": len(kernels),
+            "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if kernels
+            else None}
+
+
+def serve(arch) -> dict:
+    """One model at its published width and depth through the serving
+    entry points, in bf16 from a seeded init: a warm-up prefill, the
+    prefill of LM_BATCH prompts of LM_PROMPT numpy-seeded tokens, the cache
+    grown by LM_DECODE slots (``examples/lm_serve.py``), then LM_DECODE
+    greedy decode steps. Launch counts are zeroed before and read after
+    each prefill and each decode step: exactly one launch of the model's
+    kernel per layer and prefill, none per decode step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build as build_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build
+    from repro_torch.nn.param import flatten
+    cfg = get_config(arch)
+    kernel = {"dense": "flash_attention_fwd", "ssm": "wkv6_chunk"}[cfg.family]
+    bundle = build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = bundle.init_params(SEED, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    weight_bytes = sum(t.numel() * t.element_size() for t in flatten(params))
+    prefill = steps.make_prefill_step(bundle)
+    decode = steps.make_decode_step(bundle)
+    rng = np.random.default_rng(SEED)
+    launches = {kernel: 0}
+    none = {k: 0 for k in build_mod.launch_counts}
+    for label, S in (("warmup", LM_WARM_PROMPT), ("prefill", LM_PROMPT)):
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_BATCH, S)).astype(np.int32)).cuda()
+        torch.cuda.synchronize()
+        build_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(build_mod.launch_counts)
+        if got != {**none, kernel: cfg.n_layers}:
+            fail(f"{arch}: {label} launched {got}, expected "
+                 f"{cfg.n_layers} {kernel} and nothing else")
+        launches[kernel] += got[kernel]
+        if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) \
+                or not torch.isfinite(logits).all():
+            fail(f"{arch}: {label} logits {tuple(logits.shape)} are not "
+                 f"finite of shape ({LM_BATCH}, 1, {cfg.vocab_size})")
+    if cfg.family == "dense":  # grow the KV capacity as lm_serve does
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, LM_DECODE))
+                 for k, v in cache.items()}
+    tok = logits[:, -1].argmax(-1, keepdim=True).int()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        build_mod.reset_launch_counts()
+        logits, cache = decode(params, cache, {"tokens": tok,
+                                               "pos": LM_PROMPT + i})
+        if dict(build_mod.launch_counts) != none:
+            fail(f"{arch}: decode step {i} launched "
+                 f"{dict(build_mod.launch_counts)}, expected no kernel")
+        tok = logits[:, -1].argmax(-1, keepdim=True).int()
+        if i == 0:  # the first step meets new shapes; time it apart
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not torch.isfinite(logits).all():
+        fail(f"{arch}: decode logits are not finite")
+    # the last step once more under the profiler: device busy time and
+    # kernel count of one decode step (the result is dropped)
+    profile = traced(lambda: decode(params, cache, {
+        "tokens": tok, "pos": LM_PROMPT + LM_DECODE - 1}))
+    run = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "dtype": "bfloat16",
+           "weight_bytes": weight_bytes, "allocated_before_bytes": before,
+           "init_s": init_s, "init_peak_bytes": init_peak,
+           "prefill_s": wall, "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
+           / wall, "decode_steps": LM_DECODE, "decode_s": decode_s,
+           "decode_first_step_s": first_s,
+           "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
+           "decode_steady_tokens_per_s": LM_BATCH * (LM_DECODE - 1)
+           / (decode_s - first_s),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "decode_step_profile": profile, "kernel": kernel,
+           "launches_per_prefill": cfg.n_layers,
+           "launches_per_decode_step": 0, "launches": launches}
+    print("serve " + json.dumps(run), flush=True)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return run
+
+
+def consistency(arch) -> dict:
+    """Prefilling all CONSIST_PROMPT tokens and taking the last logits
+    must match prefilling all but the last token and decoding it: the
+    kernel path (flash or wkv6) against the plain decode path
+    (``decode_attention``, ``wkv6_recurrent``), in fp32 with TF32 off, at
+    full width and CONSIST_LAYERS layers, within rtol CONSIST_TOL and atol
+    CONSIST_TOL times the largest logit (at least 1)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build
+    cfg = get_config(arch).replace(n_layers=CONSIST_LAYERS)
+    bundle = build(cfg)
+    params = bundle.init_params(SEED + 1, torch.float32, "cuda")
+    prefill = steps.make_prefill_step(bundle)
+    decode = steps.make_decode_step(bundle)
+    S = CONSIST_PROMPT
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (CONSIST_BATCH, S)).astype(np.int32)).cuda()
+    full, _ = prefill(params, {"tokens": tokens})
+    _, cache = prefill(params, {"tokens": tokens[:, :-1]})
+    if cfg.family == "dense":
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
+                 for k, v in cache.items()}
+    last, _ = decode(params, cache, {"tokens": tokens[:, -1:], "pos": S - 1})
+    torch.cuda.synchronize()
+    err = check_close(f"{arch}/consistency", "last logits", last, full,
+                      rtol=CONSIST_TOL, atol=CONSIST_TOL)
+    row = {"arch": arch, "layers": CONSIST_LAYERS, "batch": CONSIST_BATCH,
+           "prompt": S, "dtype": "float32", "max_abs_err": err,
+           "max_abs_logit": float(full.abs().max()),
+           "same_argmax": bool(torch.equal(full.argmax(-1),
+                                           last.argmax(-1)))}
+    print("consistency " + json.dumps(row), flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> None:
@@ -608,8 +979,10 @@ def main() -> None:
         from repro_torch.kernels import build
         from repro_torch.kernels.layout import (block_capacities,
                                                 build_layer_layouts)
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ops
         from repro_torch.kernels import update_mlp as um
+        from repro_torch.kernels import wkv6 as wk
         from repro_torch.nn.param import flatten, params_to_numpy
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script: {e}")
@@ -828,9 +1201,36 @@ def main() -> None:
     print("ops " + json.dumps({"launches": runs["ops"]["launches"],
                                "max_abs_err": errs}), flush=True)
 
-    # 6. summary
+    # 6. the LM zoo's kernels vs plain, at the models' shapes
+    del seg1, cols1, blocks1, x1, got, want, fused_plain, h1, w1, b0, b1
+    del merged_tr
+    torch.cuda.empty_cache()
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows["flash_attention_fwd"] = [
+        check_flash_launch("llama3_8b_prefill", fa, LM_BATCH, LM_PROMPT,
+                           LM_PROMPT, 32, 8, 128, bf16, True, True),
+        check_flash_launch("fp32_causal", fa, 1, 1024, 1024, 32, 8, 128,
+                           f32, True, False),
+        check_flash_launch("noncausal_ragged", fa, 2, 1000, 1537, 8, 2, 128,
+                           bf16, False, False)]
+    rows["wkv6_chunk"] = [
+        check_wkv6_launch("rwkv6_3b_prefill", wk, LM_BATCH, LM_PROMPT, 40, 64,
+                          bf16, False, True),
+        check_wkv6_launch("fp32", wk, 1, 512, 40, 64, f32, False, False),
+        check_wkv6_launch("ragged_with_state", wk, 2, 1007, 40, 64, bf16,
+                          True, False)]
+
+    # 7. serving at the published widths and depths
+    for arch in LM_ARCHS:
+        runs[arch] = serve(arch)
+
+    # 8. prefill/decode consistency in fp32 (TF32 is off since the start)
+    for arch in LM_ARCHS:
+        consistency(arch)
+
+    # 9. summary
     kernels = [kernel_entry(name, rows[name], {
-        path: run["launches"][name] for path, run in runs.items()})
+        path: run["launches"].get(name, 0) for path, run in runs.items()})
         for name in KERNEL_SOURCES]
     for k in kernels:
         if k["launches"] == 0:

@@ -127,16 +127,16 @@ def param_spec(cfg: GNNModelConfig, f_in: int, n_classes: int):
         if cfg.name == "graphsage":
             layers.append({"w_self": PSpec((fi, fo)),
                            "w_neigh": PSpec((fi, fo)),
-                           "b": PSpec((fo,), "zeros")})
+                           "b": PSpec((fo,), init="zeros")})
         elif cfg.name == "gcn":
             layers.append({"w": PSpec((fi, fo)),
-                           "b": PSpec((fo,), "zeros")})
+                           "b": PSpec((fo,), init="zeros")})
         else:
-            layers.append({"eps": PSpec((), "zeros"),
+            layers.append({"eps": PSpec((), init="zeros"),
                            "w1": PSpec((fi, fo)),
-                           "b1": PSpec((fo,), "zeros"),
+                           "b1": PSpec((fo,), init="zeros"),
                            "w2": PSpec((fo, fo)),
-                           "b2": PSpec((fo,), "zeros")})
+                           "b2": PSpec((fo,), init="zeros")})
     return {"layers": layers}
 
 

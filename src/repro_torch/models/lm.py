@@ -1,0 +1,124 @@
+"""Decoder-only LM for serving, the dense family (Llama-3-8B): counterpart
+of ``repro.models.lm``.
+
+The parameters stay stacked with the layers on dim 0, as the reference
+keeps them and the weight bridge carries them; ``forward`` loops over the
+layers where the reference ``lax.scan``s. The reference's MoE FFN
+(``cfg.moe``), VLM prefix (``embeds_prefix``) and ``loss_fn`` raise here,
+naming their ROADMAP.md items.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn import layers as L
+from repro_torch.nn.attention import attend, attention_spec
+from repro_torch.nn.param import PSpec, stack_layers
+
+
+def _norm_kind(cfg: ArchConfig) -> str:
+    return "layernorm" if cfg.act == "gelu" else "rmsnorm"
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP.md queue A, "
+            f"item A.14.2)")
+
+
+def layer_spec(cfg: ArchConfig):
+    _dense_only(cfg)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "ln1": L.norm_spec(d, _norm_kind(cfg)),
+        "attn": attention_spec(d, cfg.n_heads, cfg.n_kv_heads, hd),
+        "ln2": L.norm_spec(d, _norm_kind(cfg)),
+        "mlp": L.mlp_spec(d, cfg.d_ff, cfg.act),
+    }
+
+
+def param_spec(cfg: ArchConfig):
+    vp = L.pad_vocab(cfg.vocab_size)
+    return {
+        "embed": L.embedding_spec(vp, cfg.d_model, cfg.tie_embeddings),
+        "layers": stack_layers(layer_spec(cfg), cfg.n_layers),
+        "ln_f": L.norm_spec(cfg.d_model, _norm_kind(cfg)),
+    }
+
+
+def cache_spec(cfg: ArchConfig, batch: int, seq: int):
+    """KV cache spec tree, layers stacked on dim 0."""
+    kv = PSpec((cfg.n_layers, batch, seq, cfg.n_kv_heads,
+                cfg.resolved_head_dim),
+               ("layers", "batch", "seq_kv", "kv_heads", None), "zeros")
+    return {"k": kv, "v": kv}
+
+
+def layer_params(tree, l: int):
+    """Layer ``l``'s slice of a stacked tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            embeds_prefix=None, mode: str = "prefill", cache=None, pos0=None):
+    """Returns (hidden (B, S, d), cache). ``"prefill"`` builds a new
+    stacked cache at capacity S; ``"decode"`` writes one position (``pos0``)
+    of ``cache`` in place and returns it."""
+    _dense_only(cfg)
+    if embeds_prefix is not None:
+        raise NotImplementedError(
+            "the VLM prefix is not ported yet (ROADMAP.md queue A, item "
+            "A.14.3)")
+    x = L.embed_tokens(params["embed"], tokens)
+    B, S, _ = x.shape
+    if mode == "decode":
+        positions = torch.as_tensor(pos0, device=x.device).reshape(
+            -1, 1).expand(B, 1)
+    else:
+        positions = torch.arange(S, device=x.device)[None, :]
+    new_k, new_v = [], []
+    for l in range(cfg.n_layers):
+        p = layer_params(params["layers"], l)
+        cache_l = (None if cache is None
+                   else {"k": cache["k"][l], "v": cache["v"][l]})
+        h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
+        a, c = attend(p["attn"], h, n_heads=cfg.n_heads,
+                      n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                      rope_theta=cfg.rope_theta, positions=positions,
+                      mode=mode, cache=cache_l)
+        x = x + a
+        h = L.apply_norm(p["ln2"], x, cfg.norm_eps)
+        x = x + L.apply_mlp(p["mlp"], h, cfg.act)
+        if mode == "prefill":
+            new_k.append(c["k"])
+            new_v.append(c["v"])
+    x = L.apply_norm(params["ln_f"], x, cfg.norm_eps)
+    if mode == "prefill":
+        cache = {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+    return x, cache
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    raise NotImplementedError(
+        "the LM training step (loss_fn, the flash backward) is not ported "
+        "yet (ROADMAP.md queue A, item A.14.1)")
+
+
+def prefill(params, cfg: ArchConfig, batch):
+    """Returns (last-token logits (B, 1, V) fp32, cache)."""
+    x, cache = forward(params, cfg, batch["tokens"],
+                       embeds_prefix=batch.get("patch_embeds"),
+                       mode="prefill")
+    return L.logits_fn(params["embed"], x[:, -1:], cfg.vocab_size), cache
+
+
+def decode_step(params, cfg: ArchConfig, cache, batch):
+    """batch: {"tokens": (B, 1), "pos": scalar}. Returns (logits (B, 1, V)
+    fp32, the cache, updated in place)."""
+    x, cache = forward(params, cfg, batch["tokens"], mode="decode",
+                       cache=cache, pos0=batch["pos"])
+    return L.logits_fn(params["embed"], x, cfg.vocab_size), cache

@@ -32,7 +32,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.trainer" in res["modules"]
-    for mod in ("aggregate", "update_mlp", "ops", "layout", "build"):
+    for mod in ("aggregate", "update_mlp", "ops", "layout", "build",
+                "flash_attention", "wkv6"):
         assert f"repro_torch.kernels.{mod}" in res["modules"]
     assert res["bad"] == []
 

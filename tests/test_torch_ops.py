@@ -1,13 +1,15 @@
 """``repro_torch.kernels.ops`` against ``repro.kernels.ops``: ``update``
 (the ``update_mlp`` kernel), ``aggregate`` (``aggregate_blockcsr``) and
 ``aggregate_update`` (``aggregate_fused``, or the unfused composition),
-called with the reference's signatures and keyword names on the same numpy
+``flash_attention`` (``flash_attention_fwd``, or the oracle) and ``wkv6``
+(``wkv6_chunk``, or the oracle), called with the reference's signatures and keyword names on the same numpy
 inputs. The reference runs its Pallas kernels in interpret mode; its fused
 branch takes the test-local ``jax_shims``.
 
 Tolerance: rtol 1e-5, and atol 1e-6 times the largest magnitude of the
 reference (at least 1e-6): fp32 products contracting up to 602 terms,
-summed in another order. The tests marked ``gpu`` hold the CUDA
+summed in another order; ``flash_attention`` and ``wkv6`` keep the
+reference's own tolerances, stated at their tests. The tests marked ``gpu`` hold the CUDA
 ``update_mlp`` against its plain version and drive the three entry points
 on the card; they skip here. They need no JAX, so the reference is
 imported only by the tests that use it.
@@ -170,12 +172,43 @@ def test_aggregate_update_matches_reference_fused(jax_shims):
                                    atol=_atol(ref))
 
 
-def test_lm_zoo_kernels_raise_naming_their_items():
-    q = torch.zeros(2, 8, 4)
-    with pytest.raises(NotImplementedError, match="B.7"):
-        ops.flash_attention(q, q, q, causal=True)
-    with pytest.raises(NotImplementedError, match="B.8"):
-        ops.wkv6(q, q, q, q, q[:, :1], chunk=4)
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("causal,sq,sk,d", [(True, 128, 128, 64),
+                                            (False, 64, 192, 128)])
+def test_flash_attention_matches_reference(causal, sq, sk, d, use_pallas):
+    """Tolerance atol 2e-4 / rtol 1e-4, the reference's own
+    (``tests/test_kernels.py``): fp32 softmax over up to 192 keys, in one
+    pass against the kernel's online one."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    q, k, v = (_arr(20 + i, 3, n, d) for i, n in enumerate((sq, sk, sk)))
+    ref = np.asarray(jops.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal, use_pallas=use_pallas))
+    before = dict(agg.launch_counts)
+    out = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal, use_pallas=use_pallas)
+    assert agg.launch_counts == before
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("s,k,chunk", [(80, 32, 16), (48, 64, 8)])
+def test_wkv6_matches_reference(s, k, chunk, use_pallas):
+    """Tolerance atol 1e-4 / rtol 1e-4, the reference's own: fp32
+    recurrences over up to 80 tokens, in chunks against the reference's
+    chunks or token by token."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    args = (_arr(30, 3, s, k, scale=0.5), _arr(31, 3, s, k, scale=0.5),
+            _arr(32, 3, s, k, scale=0.5), -np.exp(_arr(33, 3, s, k)),
+            _arr(34, 3, 1, k, scale=0.5))
+    ref = np.asarray(jops.wkv6(*map(jnp.asarray, args), chunk=chunk,
+                               use_pallas=use_pallas))
+    out = ops.wkv6(*map(torch.from_numpy, args), chunk=chunk,
+                   use_pallas=use_pallas)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
 
 
 def _cuda(*xs):

@@ -28,7 +28,7 @@ init. Phases, each of which exits non-zero on failure:
      ``nvidia-smi`` gives them;
   2. build: every kernel source in ``src/repro_torch/kernels/csrc`` goes
      through ``nvcc`` (one process per source, all started together), and
-     the compiler's register report is printed;
+     the compiler's register and spill report is printed;
   3. kernel vs plain, at the shapes the main paths give each kernel: one
      paper-shape batch for ``aggregate_edges`` (layer-0 forward, layer-1
      forward, layer-1 backward over A^T), ``aggregate_fused`` and
@@ -36,8 +36,10 @@ init. Phases, each of which exits non-zero on failure:
      batch for ``aggregate_fused`` and ``fused_bwd`` with a self term
      ``s`` (layers 0 and 1) and ``fused_bwd_merged`` (its layer 1);
      ``aggregate_blockcsr`` over the paper batch's dense tiles (layer-0
-     forward, layer-1 forward, layer-1 backward over A^T), with the time
-     of ``densify_tiles`` on its own; and ``update_mlp`` at the update
+     forward, layer-1 forward, layer-1 backward over A^T), walking only
+     the real slots that ``real_slot_counts`` finds, as the trainer runs
+     it, with the times of ``densify_tiles`` and of the counts on their
+     own; and ``update_mlp`` at the update
      stage's shapes. Each launch is held against its plain version on
      the card within rtol 1e-5 and atol 1e-6 times the largest magnitude
      of the plain result (at least 1e-6): fp32 sums are taken in another
@@ -61,10 +63,13 @@ init. Phases, each of which exits non-zero on failure:
      term (``flops``), and over all padded rows as ``flops_all_rows``;
      without a bias the backward reads ``g`` over the same rows, since a
      row whose z is zero adds nothing to dw. ``aggregate_blockcsr``'s
-     flops are 2*128*128*F per slot that holds an edge (``flops``) and
-     over every slot (``flops_all_slots``, the work the kernel does, with
-     its own ``bound_all_slots_ms``); its bytes count every tile, read
-     once. The ``kernels`` line sums
+     flops are 2*128*128*F per slot that holds an edge, over the 495
+     TFLOP/s TF32 tensor-core rate, the fastest the card multiplies fp32
+     inputs (its 3xTF32 split does three TF32 products per product); its
+     bytes count the tiles of the slots it walks (``real_slots_walked``),
+     the h rows they name and the output, each once; the line gives the
+     achieved fp32-product rate (``tflops``). Each line names its
+     ``op_rate``. The ``kernels`` line sums
      each kernel's times and bounds over the launches this phase checked;
   4. training, each path with every launch count set to 0 just before it
      and read just after: five iterations of GraphSAGE on
@@ -107,6 +112,9 @@ init. Phases, each of which exits non-zero on failure:
      so its atol stays the fp32 one. The state is held at 1e-4. Each
      launch line gives the plain result's largest and mean magnitude and
      the largest share of its allowance an element used (``tol_used``).
+     Each flash line names its route (``wgmma`` for bf16: both products
+     on the tensor cores on TMA-fed tiles; ``fma`` for fp32) and its
+     achieved rate (``tflops``, the unmasked pairs' 4 D flops per pair).
      Yardstick: ``scaled_dot_product_attention`` for flash (k
      and v repeated to 32 heads outside the timing); none computes wkv6.
      Bounds: flash's bytes (q, k, v, out once; k and v unrepeated) and its
@@ -157,6 +165,7 @@ RTOL, ATOL = 1e-5, 1e-6
 LOSS_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 # the LM zoo's serving paths: 4 prompts of 4,096 tokens, the cache grown by
 # 16 slots, 16 greedy decode steps; a 256-token prefill first warms cuBLAS
@@ -314,8 +323,9 @@ def bound(bytes_moved: int, flops: int, rate: float = FP32_FLOPS) -> dict:
     another), whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
-    return {"bytes": bytes_moved, "flops": flops, "bytes_ms": t_bytes,
-            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+    return {"bytes": bytes_moved, "flops": flops, "op_rate": rate,
+            "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -529,25 +539,33 @@ def blockcsr_library(tiles, cols: np.ndarray, slots: np.ndarray,
 def check_blockcsr_launch(name, agg, lay_c, keys, lay_e, keys_e, h,
                           iters: int = 20):
     """densify_tiles and aggregate_blockcsr on one launch's compact
-    triples: the kernel vs plain on the card, the times (``densify_ms``
-    on its own), the BSR (or CSR) yardstick and the bound. ``lay_e`` /
-    ``keys_e`` are the same launch's edge segments, for the CSR."""
+    triples, as ``AggregateCompact`` runs them: the kernel walking only the
+    real slots (``real_slot_counts``) vs the plain version on the card,
+    the times (``densify_ms`` and ``counts_ms`` on their own), the BSR (or
+    CSR) yardstick and the bound. ``lay_e`` / ``keys_e`` are the same
+    launch's edge segments, for the CSR."""
     tile_id, tile_off, val, cols = (lay_c[k] for k in keys)
     dens = on_card(lay_c, keys)
     tiles = agg.densify_tiles(*dens[:3], *cols.shape)
     cols_d = dens[3]
-    out = agg.aggregate_blockcsr(tiles, cols_d, h)
-    ref = agg.aggregate_blockcsr_plain(tiles, cols_d, h)
+    nblk = agg.real_slot_counts(dens[0], *cols.shape)
+    out = agg.aggregate_blockcsr(tiles, cols_d, h, nblk)
+    ref = agg.aggregate_blockcsr_plain(tiles, cols_d, h, nblk)
     torch.cuda.synchronize()
     n_dstb, max_blk = cols.shape
     F = h.shape[1]
     slots = np.unique(tile_id[val != 0]).astype(np.int64)
+    counts = nblk.cpu().numpy()
+    walked = np.concatenate([i * max_blk + np.arange(c)
+                             for i, c in enumerate(counts)]).astype(np.int64)
     lib_name, a = blockcsr_library(tiles, cols, slots, h.shape[0], lay_e,
                                    keys_e)
     row = {"kernel": "aggregate_blockcsr", "launch": name,
            "dst_blocks": n_dstb, "slots": n_dstb * max_blk,
-           "real_slots": len(slots), "h": list(h.shape),
+           "real_slots": len(slots), "real_slots_walked": len(walked),
+           "max_real_slots": int(counts.max()), "h": list(h.shape),
            "out": [n_dstb * 128, F], "tile_bytes": tiles.numel() * 4,
+           "smem_bytes": agg.aggregate_blockcsr_smem_bytes(),
            "max_abs_err": check_close(name, "out", out, ref),
            "library": lib_name,
            "library_max_abs_err": float((sparse_mm(a, h) - ref).abs().max())}
@@ -555,19 +573,23 @@ def check_blockcsr_launch(name, agg, lay_c, keys, lay_e, keys_e, h,
     row.update(
         densify_ms=time_ms(lambda: agg.densify_tiles(*dens[:3],
                                                      *cols.shape), **short),
-        ms=time_ms(lambda: agg.aggregate_blockcsr(tiles, cols_d, h),
-                   **short),
+        counts_ms=time_ms(lambda: agg.real_slot_counts(dens[0],
+                                                       *cols.shape)),
+        ms=time_ms(lambda: agg.aggregate_blockcsr(tiles, cols_d, h, nblk)),
         plain_ms=time_ms(lambda: agg.aggregate_blockcsr_plain(
-            tiles, cols_d, h), **short),
+            tiles, cols_d, h, nblk), **short),
         library_ms=time_ms(lambda: sparse_mm(a, h), **short))
-    src_blocks = len(np.unique(cols))
-    bytes_moved = (4 * n_dstb * max_blk * (128 * 128 + 1)
+    # the bytes the walk must move: the walked tiles and their cols, the
+    # counts, the h rows of the source blocks they name, the output; the
+    # real slots' flops at the TF32 rate, the fastest the card multiplies
+    # fp32 inputs (the kernel's 3xTF32 split does three TF32 products per
+    # product, so its own ceiling is a third of it)
+    src_blocks = len(np.unique(cols.reshape(-1)[walked]))
+    bytes_moved = (4 * len(walked) * (128 * 128 + 1) + 4 * n_dstb
                    + 4 * 128 * F * (src_blocks + n_dstb))
-    per_slot = 2 * 128 * 128 * F
-    row["flops_all_slots"] = per_slot * n_dstb * max_blk
-    row["bound_all_slots_ms"] = bound(bytes_moved,
-                                      row["flops_all_slots"])["bound_ms"]
-    row.update(bound(bytes_moved, per_slot * len(slots)))
+    row.update(bound(bytes_moved, 2 * 128 * 128 * F * len(slots),
+                     TF32_FLOPS))
+    row["tflops"] = row["flops"] / row["ms"] / 1e9
     del tiles, a
     return report(row)
 
@@ -735,7 +757,8 @@ def check_flash_launch(name, fa, B, Sq, Sk, H, KH, D, dtype, causal,
     row = {"kernel": "flash_attention_fwd", "launch": name,
            "main_path": main_path, "q": [B, Sq, H, D], "kv": [B, Sk, KH, D],
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-           "smem_bytes": fa.flash_attention_fwd_smem_bytes(D), **tol,
+           "route": fa.ROUTES[dtype],
+           "smem_bytes": fa.flash_attention_fwd_smem_bytes(D, dtype), **tol,
            "library": "scaled_dot_product_attention",
            "library_vs_kernel_max_abs": lib_err,
            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal),
@@ -746,6 +769,7 @@ def check_flash_launch(name, fa, B, Sq, Sk, H, KH, D, dtype, causal,
     row.update(bound(elt * (2 * B * Sq * H * D + 2 * B * Sk * KH * D),
                      4 * D * pairs * B * H,
                      FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
+    row["tflops"] = row["flops"] / row["ms"] / 1e9
     del q, k, v, qt, kt, vt, out
     torch.cuda.empty_cache()
     return report(row)
@@ -1011,8 +1035,9 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "ptxas info" in line and ("Used" in line
-                                         or "Compiling" in line):
+            if ("ptxas info" in line and ("Used" in line
+                                          or "Compiling" in line)) \
+                    or "spill" in line or "warning" in line.lower():
                 print(f"  {name}: {line.strip()}", flush=True)
 
     # 3. every launch of the main paths, kernel vs plain

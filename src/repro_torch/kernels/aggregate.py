@@ -11,11 +11,13 @@ hand-written kernel in ``csrc/`` — or raises — and a CPU tensor to its
 against the JAX reference:
 
 * ``aggregate_blockcsr`` (``csrc/aggregate_blockcsr.cu``): ``out = A @ h``
-  over dense 128x128 tiles. ``densify_tiles`` scatter-adds the compact
-  triples into those tiles (plain PyTorch, as the reference's is an XLA
-  scatter). ``AggregateCompact`` is the training path's autograd function
-  (tiles densified in the forward and, only when ``h`` needs a gradient,
-  from A^T in the backward); ``AggregateBlockCSR`` takes dense tiles.
+  over dense 128x128 tiles, walking only each destination block's real
+  slots when given their counts (``real_slot_counts``). ``densify_tiles``
+  scatter-adds the compact triples into those tiles (plain PyTorch, as
+  the reference's is an XLA scatter). ``AggregateCompact`` is the
+  training path's autograd function (tiles densified in the forward and,
+  only when ``h`` needs a gradient, from A^T in the backward);
+  ``AggregateBlockCSR`` takes dense tiles.
 * ``aggregate_edges`` (``csrc/aggregate_edges.cu``): ``out = A @ h``.
   ``AggregateEdges`` is its autograd function; the backward is the same
   kernel over the transposed segments, ``dh = A^T @ g``.
@@ -100,7 +102,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each library in csrc/: {C function: (argument types, result type)}
 _SIGNATURES = {
     "aggregate_blockcsr": {
-        "aggregate_blockcsr_launch": ([_P] * 4 + [_I, _I, _L, _I, _P], _I)},
+        "aggregate_blockcsr_smem_bytes": ([], _I),
+        "aggregate_blockcsr_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
     "aggregate_edges": {
         "aggregate_edges_smem_bytes": ([_I], _L),
         "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
@@ -146,27 +149,56 @@ def densify_tiles(tile_id: torch.Tensor, tile_off: torch.Tensor,
     return tiles.view(n_tile_rows, max_blk, BLK, BLK)
 
 
+def real_slot_counts(tile_id: torch.Tensor, n_tile_rows: int,
+                     max_blk: int) -> torch.Tensor:
+    """Real tile slots of each destination block, (n_tile_rows,) int32 on
+    ``tile_id``'s device: 1 + the largest slot that an edge's ``tile_id``
+    names in that row, by an amax scatter (order-free, so the same on
+    every run). The layouts pack a block's real slots first
+    (``kernels/layout.py``), so every slot at or past the count holds a
+    zero tile. A masked edge keeps tile_id 0, which can only raise row 0's
+    count to 1: slot 0 is then a zero tile, an exact zero term."""
+    counts = torch.zeros(n_tile_rows, dtype=torch.int64,
+                         device=tile_id.device)
+    if tile_id.numel():
+        t = tile_id.long()
+        counts.scatter_reduce_(0, t // max_blk, t % max_blk + 1, "amax")
+    return counts.int()
+
+
 def aggregate_blockcsr_plain(blocks: torch.Tensor, cols: torch.Tensor,
-                             h: torch.Tensor) -> torch.Tensor:
+                             h: torch.Tensor,
+                             nblk: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """Plain version of ``aggregate_blockcsr``: for each slot k in order,
     one batched ``(Nd, 128, 128) @ (Nd, 128, F)`` product of the slot's
     tiles and the source blocks ``cols[:, k]`` names, added into the fp32
-    result. Returns (Nd*128, F)."""
+    result. Given the real-slot counts ``nblk`` it stops after the largest:
+    every slot past it holds zero tiles, so the result is bitwise the same.
+    Returns (Nd*128, F)."""
     n_dstb, max_blk = cols.shape
     F = h.shape[1]
     hb = h.view(-1, BLK, F)
     out = torch.zeros((n_dstb, BLK, F), dtype=torch.float32,
                       device=h.device)
+    if nblk is not None:
+        max_blk = min(max_blk, int(nblk.max())) if nblk.numel() else 0
     for k in range(max_blk):
         out += torch.bmm(blocks[:, k], hb[cols[:, k].long()])
     return out.view(n_dstb * BLK, F)
 
 
-def _check_blockcsr(blocks, cols, h) -> None:
+def _check_blockcsr(blocks, cols, h, nblk) -> None:
     for name, t, dtype in (("blocks", blocks, torch.float32),
                            ("cols", cols, torch.int32),
                            ("h", h, torch.float32)):
         check_tensor(name, t, h.device, dtype)
+    if nblk is not None:
+        check_tensor("nblk", nblk, h.device, torch.int32)
+        if tuple(nblk.shape) != (cols.shape[0],):
+            raise ValueError(f"nblk has shape {tuple(nblk.shape)}, expected "
+                             f"({cols.shape[0]},) for cols "
+                             f"{tuple(cols.shape)}")
     if cols.dim() != 2 or tuple(blocks.shape) != (*cols.shape, BLK, BLK):
         raise ValueError(f"blocks {tuple(blocks.shape)} and cols "
                          f"{tuple(cols.shape)} must be (Nd, max_blk, {BLK}, "
@@ -177,17 +209,21 @@ def _check_blockcsr(blocks, cols, h) -> None:
 
 
 def aggregate_blockcsr(blocks: torch.Tensor, cols: torch.Tensor,
-                       h: torch.Tensor) -> torch.Tensor:
+                       h: torch.Tensor,
+                       nblk: torch.Tensor | None = None) -> torch.Tensor:
     """out = A @ h with A in padded block-CSR form: blocks (Nd, max_blk,
     128, 128) f32 dense tiles, cols (Nd, max_blk) i32 their source blocks,
-    h (n_srcb*128, F) f32. Returns (Nd*128, F) f32. Any F is taken (the
-    kernel masks the ragged columns; the reference pads F to its
-    ``feat_block``). A CUDA tensor goes through
-    ``csrc/aggregate_blockcsr.cu``, a CPU tensor through
-    ``aggregate_blockcsr_plain``."""
-    _check_blockcsr(blocks, cols, h)
+    h (n_srcb*128, F) f32; ``nblk`` (Nd,) i32, the real slots of each
+    destination block (``real_slot_counts``), or None to walk every slot.
+    The slots past ``nblk[i]`` must hold zero tiles (the layouts pack the
+    real ones first). Returns (Nd*128, F) f32. Any F is taken (the kernel
+    masks the ragged columns; the reference pads F to its ``feat_block``).
+    A CUDA tensor goes through ``csrc/aggregate_blockcsr.cu``, which walks
+    only the counted slots, heaviest destination blocks first; a CPU tensor
+    through ``aggregate_blockcsr_plain``."""
+    _check_blockcsr(blocks, cols, h, nblk)
     if not on_card("aggregate_blockcsr", h):
-        return aggregate_blockcsr_plain(blocks, cols, h)
+        return aggregate_blockcsr_plain(blocks, cols, h, nblk)
     n_dstb, max_blk = cols.shape
     F = h.shape[1]
     out = torch.empty((n_dstb * BLK, F), dtype=torch.float32,
@@ -196,14 +232,25 @@ def aggregate_blockcsr(blocks: torch.Tensor, cols: torch.Tensor,
         return out
     if blocks.data_ptr() % 16:
         raise ValueError("blocks must start on a 16-byte boundary (the "
-                         "kernel loads its tiles as float4)")
+                         "kernel copies its tiles 16 bytes at a time)")
+    order = None
+    if nblk is not None:  # heaviest destination blocks first
+        order = torch.argsort(nblk, descending=True, stable=True).int()
     with torch.cuda.device(h.device):
         status = _lib("aggregate_blockcsr").aggregate_blockcsr_launch(
-            blocks.data_ptr(), cols.data_ptr(), h.data_ptr(), out.data_ptr(),
-            n_dstb, max_blk, h.shape[0], F, stream(h))
+            blocks.data_ptr(), cols.data_ptr(),
+            None if nblk is None else nblk.data_ptr(),
+            None if order is None else order.data_ptr(), h.data_ptr(),
+            out.data_ptr(), n_dstb, max_blk, h.shape[0], F, stream(h))
     raise_on(status, "aggregate_blockcsr", "aggregate_blockcsr")
     launch_counts["aggregate_blockcsr"] += 1
     return out
+
+
+def aggregate_blockcsr_smem_bytes() -> int:
+    """Dynamic shared memory of one ``aggregate_blockcsr`` thread block,
+    its three-stage copy ring (builds the kernel)."""
+    return _lib("aggregate_blockcsr").aggregate_blockcsr_smem_bytes()
 
 
 class AggregateBlockCSR(torch.autograd.Function):
@@ -230,19 +277,21 @@ class AggregateBlockCSR(torch.autograd.Function):
 class AggregateCompact(torch.autograd.Function):
     """Differentiable ``A @ h`` fed by the compact triples (the reference's
     ``aggregate_compact_vjp``, the ``"pallas"`` training path). The forward
-    densifies A's tiles, launches the kernel and lets the tiles go; only
-    the triples are saved. The backward densifies A^T's tiles (the values
-    are shared with A) and runs the same kernel on ``g``, but only when
-    ``h`` needs a gradient: layer 0's ``h`` is the input features, and its
-    A^T would take 2,288 x 208 slots x 64 KB = 31.2 GB at the paper's
-    batch for nothing."""
+    densifies A's tiles, launches the kernel over A's real slots
+    (``real_slot_counts``) and lets the tiles go; only the triples are
+    saved. The backward densifies A^T's tiles (the values are shared with
+    A) and runs the same kernel over A^T's real slots on ``g``, but only
+    when ``h`` needs a gradient: layer 0's ``h`` is the input features,
+    and its A^T would take 2,288 x 208 slots x 64 KB = 31.2 GB at the
+    paper's batch for nothing."""
 
     @staticmethod
     def forward(ctx, tile_id, tile_off, val, cols, tile_id_t, tile_off_t,
                 cols_t, h):
         ctx.save_for_backward(tile_id_t, tile_off_t, val, cols_t)
         blocks = densify_tiles(tile_id, tile_off, val, *cols.shape)
-        return aggregate_blockcsr(blocks, cols, h)
+        return aggregate_blockcsr(blocks, cols, h,
+                                  real_slot_counts(tile_id, *cols.shape))
 
     @staticmethod
     def backward(ctx, g):
@@ -251,8 +300,9 @@ class AggregateCompact(torch.autograd.Function):
             tile_id_t, tile_off_t, val, cols_t = ctx.saved_tensors
             blocks_t = densify_tiles(tile_id_t, tile_off_t, val,
                                      *cols_t.shape)
-            dh = aggregate_blockcsr(blocks_t, cols_t,
-                                    g.float().contiguous()).to(g.dtype)
+            dh = aggregate_blockcsr(
+                blocks_t, cols_t, g.float().contiguous(),
+                real_slot_counts(tile_id_t, *cols_t.shape)).to(g.dtype)
         return (None,) * 7 + (dh,)
 
 

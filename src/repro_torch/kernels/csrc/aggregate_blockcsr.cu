@@ -9,141 +9,283 @@
 // Inputs, for one layer with n_dstb destination blocks of BLK rows:
 //   blocks (n_dstb, max_blk, 128, 128) f32    dense tiles, unused slots zero
 //   cols   (n_dstb, max_blk)           int32  source block of each slot
+//   nblk   (n_dstb,) int32 or null            slots to walk per block
+//   order  (n_dstb,) int32 or null            destination blocks, heaviest
+//                                             first
 //   h      (n_src, F)                  f32    n_src = n_srcb*128
-// Output: out (n_dstb*128, F) f32, out[i-block] = sum over k of
-// blocks[i, k] @ h[cols[i, k]*128 : +128].
+// Output: out (n_dstb*128, F) f32, out[i-block] = sum over k < nblk[i] of
+// blocks[i, k] @ h[cols[i, k]*128 : +128] (k < max_blk without nblk).
+// The layouts pack a block's real slots first, so the slots past nblk[i]
+// hold zero tiles and the terms they drop are exact zeros.
 //
-// What bounds it on an H100: the kernel multiplies every slot, as the TPU
-// kernel does, 2*128*128*F flops each. At layer 0 of the paper's GraphSAGE
-// batch (208 destination blocks x 1,280 slots, F = 602) that is 5.25 TFLOP,
-// 78 ms at the published 67 TFLOP/s of fp32 outside the tensor cores,
-// against 17.45 GB of tiles read once, 5.2 ms at 3.35 TB/s. Only ~4% of
-// the slots hold an edge, though, so the work the data needs is bound by
-// reading the tiles. chip_smoke.py prints both counts for the batch it
-// runs; PERF.md has the measured times beside them.
+// What bounds it on an H100: only the real slots carry work, 2*128*128*F
+// flops each. At layer 0 of the paper's GraphSAGE batch (208 destination
+// blocks, 10,553 of 266,240 slots real, F = 602) that is 0.208 TFLOP,
+// 0.42 ms at the 495 TFLOP/s of TF32 tensor-core work, against the 0.69
+// GB of real tiles plus the h rows they name, ~0.4 ms at 3.35 TB/s: the
+// two bounds meet. The TPU kernel, and this port's first version, walked
+// all 1,280 slots of every destination block (5.25 TFLOP on fp32 FMA, 181
+// ms on the card).
 //
-// Design (a simple kernel that is right; tensor cores, TMA and skipping the
-// empty slots are later work):
-//   * one thread block per (destination block i, slice of FS = 64 feature
-//     columns), the slice index varying fastest in the 1-D grid, so the
-//     slices of one destination block run together and re-read the same A
-//     tiles from L2;
-//   * 256 threads as a 16 x 16 grid; thread (ty, tx) holds rows ty*8 ..
-//     ty*8+7 and columns tx*4 .. tx*4+3 of the 128 x 64 output tile in
-//     registers;
-//   * the slots run in order k = 0 .. max_blk-1, as the TPU grid's
-//     sequential k axis does; each slot's product runs over K-chunks of
-//     KC = 32: A[:, kc:kc+32] is staged transposed in shared memory (rows
-//     padded to 132 floats, so each thread's 8 rows load as two float4) and
-//     the 32 rows of h that cols[i, k] names, columns f0 .. f0+64, beside
-//     it;
-//   * plain fp32 FMA, so no TF32; every output element adds its terms in
-//     slot order, then tile-column order: one order on every run;
-//   * ragged F is masked on load and store (the reference pads F to its
-//     feature block); 64-bit offsets (the layer-0 tiles take 17.45 GB).
+// Design:
+//   * real slots only: each destination block walks k < nblk[i], the count
+//     of its real slots, which the wrapper derives on the card from the
+//     compact triples; the blocks run heaviest first (`order`), since
+//     their counts vary a lot;
+//   * one thread block of 256 threads per (destination block, slice of
+//     FS = 64 feature columns), the slice index varying fastest in the 1-D
+//     grid, so the slices of one destination block run together and
+//     re-read its A tiles from L2;
+//   * each slot's product runs over K-chunks of KC = 32 tile columns: the
+//     128 x 32 chunk of A and the 32 rows of h that cols[i, k] names
+//     (columns f0 .. f0+63) are staged with cp.async in a ring of three
+//     stages, so the copies of the next two chunks run under the products
+//     of this one; rows are padded (36 and 72 floats) so the fragment
+//     loads below meet no bank conflict;
+//   * the products run on the tensor cores as mma.sync m16n8k8 TF32 with
+//     the 3xTF32 split a = a_hi + a_lo (each rounded to TF32): a_lo*b_hi +
+//     a_hi*b_lo + a_hi*b_hi keeps fp32's accuracy (the dropped a_lo*b_lo
+//     is ~2^-22 of the product). The tensor core truncates the sums it
+//     forms, so a step of 8 tile columns sums its three products from zero
+//     there and joins the accumulator by a rounded fp32 add: accumulating
+//     across steps inside the tensor core erred by 1.2e-5 against fp32's
+//     7e-7 at the paper batch's layer-1 backward (values up to 4.9). Eight
+//     warps as 4 (rows) x 2 (columns), each owning a 32 x 32 piece of the
+//     128 x 64 output tile in registers;
+//   * every output element adds its terms in slot order, then step order,
+//     then the tensor core's own order: one order on every run;
+//   * ragged F is masked on load (zero-filled copies) and on store; h rows
+//     are copied 16, 8 or 4 bytes at a time as F and h's alignment allow;
+//     64-bit offsets (the layer-0 tiles take 17.45 GB).
+
+#include <cuda_runtime.h>
 
 #include <climits>
-#include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
 constexpr int BLK = 128;
-constexpr int FS = 64;            // feature columns per thread block
-constexpr int KC = 32;            // tile columns (h rows) per staged chunk
-constexpr int TX = 16, TY = 16;
-constexpr int THREADS = TX * TY;
-constexpr int TM = BLK / TY;      // rows per thread (8)
-constexpr int TN = FS / TX;       // columns per thread (4)
-constexpr int AS_LD = BLK + 4;    // padded row of the transposed A chunk
+constexpr int FS = 64;          // feature columns per thread block
+constexpr int KC = 32;          // tile columns (h rows) per staged chunk
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;
+constexpr int A_LD = KC + 4;    // padded row of the A chunk
+constexpr int H_LD = FS + 8;    // padded row of the h chunk
+constexpr int STAGE_FLOATS = BLK * A_LD + KC * H_LD;
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
 
-__global__ void __launch_bounds__(THREADS)
-aggregate_blockcsr_kernel(const float* __restrict__ blocks,
-                          const int* __restrict__ cols,
-                          const float* __restrict__ h,
-                          float* __restrict__ out, int n_slices,
-                          int max_blk, long long n_src, int F) {
-  __shared__ __align__(16) float As[KC][AS_LD];   // As[kk][r] = A[r][kc+kk]
-  __shared__ __align__(16) float Hs[KC][FS];      // h rows kc .. kc+KC
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  const long long i = blockIdx.x / n_slices;
+// copies BYTES (4, 8 or 16) from global to shared memory, zero-filling
+// what `src_bytes` leaves out
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int src_bytes) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// x split into TF32 big and small parts, x ~ hi + lo
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// d (16 x 8) += a (16 x 8, row) b (8 x 8, col), TF32 in, fp32 out
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// HV: floats per cp.async of an h row (4, 2 or 1)
+template <int HV>
+__global__ void __launch_bounds__(THREADS, 2)
+    aggregate_blockcsr_kernel(const float* __restrict__ blocks,
+                              const int* __restrict__ cols,
+                              const int* __restrict__ nblk,
+                              const int* __restrict__ order,
+                              const float* __restrict__ h,
+                              float* __restrict__ out, int n_slices,
+                              int max_blk, long long n_src, int F) {
+  extern __shared__ __align__(16) float smem[];
+  const int pos = blockIdx.x / n_slices;
+  const long long i = order != nullptr ? order[pos] : pos;
   const int f0 = (blockIdx.x % n_slices) * FS;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
+  const int n = nblk != nullptr ? min(max(nblk[i], 0), max_blk) : max_blk;
+  const int chunks = n * (BLK / KC);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 4, wn = warp / 4;  // rows 32 wm, columns 32 wn
+  const int g = lane / 4, t = lane % 4;
 
-  float acc[TM][TN];
+  // stage chunk c (slot c / 4, tile columns (c % 4) * KC ..) into `st`
+  auto load_chunk = [&](int c, int st) {
+    float* As = smem + st * STAGE_FLOATS;
+    float* Hs = As + BLK * A_LD;
+    const long long slot = i * max_blk + c / (BLK / KC);
+    const int kc = (c % (BLK / KC)) * KC;
+    const long long col = cols[slot];
+    if (col < 0 || (col + 1) * BLK > n_src) __trap();
+    const float* a = blocks + slot * (BLK * BLK) + kc;
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+    for (int u = 0; u < BLK * KC / 4 / THREADS; ++u) {
+      const int x = tid + u * THREADS;
+      const int r = x / (KC / 4), q = x % (KC / 4);
+      cp_async<16>(As + r * A_LD + 4 * q, a + r * BLK + 4 * q, 16);
+    }
+    const float* hb = h + (col * BLK + kc) * F;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[m][j] = 0.f;
+    for (int u = 0; u < KC * FS / HV / THREADS; ++u) {
+      const int x = tid + u * THREADS;
+      const int r = x / (FS / HV), cv = (x % (FS / HV)) * HV;
+      const bool in = f0 + cv < F;  // F is a multiple of HV
+      cp_async<HV * 4>(Hs + r * H_LD + cv,
+                       in ? hb + (long long)r * F + f0 + cv : h,
+                       in ? HV * 4 : 0);
+    }
+  };
 
-  for (int k = 0; k < max_blk; ++k) {
-    const long long slot = i * max_blk + k;
-    const long long c = cols[slot];
-    if (c < 0 || (c + 1) * BLK > n_src) __trap();
-    const float* a = blocks + slot * (BLK * BLK);
-    const float* hb = h + c * BLK * F;
-    for (int kc = 0; kc < BLK; kc += KC) {
-      for (int x = threadIdx.x; x < BLK * KC / 4; x += THREADS) {
-        const int r = x / (KC / 4), q = x % (KC / 4);
-        const float4 v =
-            *reinterpret_cast<const float4*>(a + r * BLK + kc + 4 * q);
-        As[4 * q + 0][r] = v.x;
-        As[4 * q + 1][r] = v.y;
-        As[4 * q + 2][r] = v.z;
-        As[4 * q + 3][r] = v.w;
-      }
-      for (int x = threadIdx.x; x < KC * FS; x += THREADS) {
-        const int kk = x / FS, f = f0 + x % FS;
-        Hs[kk][x % FS] = f < F ? hb[(long long)(kc + kk) * F + f] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Hs[kk][tx * TN]);
-        const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
+  float acc[2][4][4];
 #pragma unroll
-        for (int m = 0; m < TM; ++m)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[m][j] = fmaf(av[m], bv[j], acc[m][j]);
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) load_chunk(c, c);
+    cp_async_commit();  // an empty group keeps the count uniform
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c landed
+    __syncthreads();  // everyone's landed; everyone is done with chunk c-1
+    if (c + STAGES - 1 < chunks)
+      load_chunk(c + STAGES - 1, (c + STAGES - 1) % STAGES);
+    cp_async_commit();
+
+    const float* As = smem + (c % STAGES) * STAGE_FLOATS;
+    const float* Hs = As + BLK * A_LD;
+#pragma unroll
+    for (int k8 = 0; k8 < KC; k8 += 8) {
+      uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* ar = As + (wm * 32 + mt * 16 + g) * A_LD + k8 + t;
+        split_tf32(ar[0], a_hi[mt][0], a_lo[mt][0]);
+        split_tf32(ar[8 * A_LD], a_hi[mt][1], a_lo[mt][1]);
+        split_tf32(ar[4], a_hi[mt][2], a_lo[mt][2]);
+        split_tf32(ar[8 * A_LD + 4], a_hi[mt][3], a_lo[mt][3]);
       }
-      __syncthreads();  // every thread is done with As and Hs
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* br = Hs + (k8 + t) * H_LD + wn * 32 + nt * 8 + g;
+        split_tf32(br[0], b_hi[nt][0], b_lo[nt][0]);
+        split_tf32(br[4 * H_LD], b_hi[nt][1], b_lo[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          // the step's three products sum inside the tensor core from 0,
+          // small terms first; the step then joins acc by a rounded fp32
+          // add, since the tensor core truncates its sums
+          float step[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(step, a_lo[mt], b_hi[nt]);
+          mma_tf32(step, a_hi[mt], b_lo[nt]);
+          mma_tf32(step, a_hi[mt], b_hi[nt]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += step[e];
+        }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block
 
 #pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    float* orow = out + (i * BLK + ty * TM + m) * F;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int f = f0 + tx * TN + j;
-      if (f < F) orow[f] = acc[m][j];
+    for (int half = 0; half < 2; ++half) {
+      float* orow = out + (i * BLK + wm * 32 + mt * 16 + g + 8 * half) * F;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int f = f0 + wn * 32 + nt * 8 + 2 * t;
+        if (f < F) orow[f] = acc[mt][nt][2 * half];
+        if (f + 1 < F) orow[f + 1] = acc[mt][nt][2 * half + 1];
+      }
     }
-  }
+}
+
+template <int HV>
+int launch(const float* blocks, const int* cols, const int* nblk,
+           const int* order, const float* h, float* out, int n_dstb,
+           int max_blk, long long n_src, int F, cudaStream_t stream) {
+  const int n_slices = (F + FS - 1) / FS;
+  const long long grid = (long long)n_dstb * n_slices;
+  if (grid <= 0 || grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t err = cudaFuncSetAttribute(
+      aggregate_blockcsr_kernel<HV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  aggregate_blockcsr_kernel<HV><<<(unsigned)grid, THREADS, SMEM_BYTES,
+                                  stream>>>(blocks, cols, nblk, order, h, out,
+                                            n_slices, max_blk, n_src, F);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Dynamic shared memory of one thread block (the three-stage ring).
+int aggregate_blockcsr_smem_bytes() { return SMEM_BYTES; }
+
+// nblk and order may be null (every slot, destination blocks in order).
 // Launches on `stream`; returns the CUDA status right after the launch
 // (0 = launched). Does not synchronise and allocates nothing. blocks must
 // be 16-byte aligned.
 int aggregate_blockcsr_launch(const float* blocks, const int* cols,
+                              const int* nblk, const int* order,
                               const float* h, float* out, int n_dstb,
                               int max_blk, long long n_src, int F,
                               void* stream) {
-  const int n_slices = (F + FS - 1) / FS;
-  const long long grid = (long long)n_dstb * n_slices;
-  if (grid <= 0 || grid > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  aggregate_blockcsr_kernel<<<(unsigned)grid, THREADS, 0,
-                              (cudaStream_t)stream>>>(
-      blocks, cols, h, out, n_slices, max_blk, n_src, F);
-  return (int)cudaGetLastError();
+  if ((reinterpret_cast<uintptr_t>(blocks) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uintptr_t hp = reinterpret_cast<uintptr_t>(h);
+  if (F % 4 == 0 && (hp & 15) == 0)
+    return launch<4>(blocks, cols, nblk, order, h, out, n_dstb, max_blk,
+                     n_src, F, st);
+  if (F % 2 == 0 && (hp & 7) == 0)
+    return launch<2>(blocks, cols, nblk, order, h, out, n_dstb, max_blk,
+                     n_src, F, st);
+  return launch<1>(blocks, cols, nblk, order, h, out, n_dstb, max_blk, n_src,
+                   F, st);
 }
 
 const char* aggregate_blockcsr_error_string(int status) {

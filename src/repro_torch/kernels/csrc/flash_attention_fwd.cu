@@ -15,17 +15,54 @@
 // the TPU kernel does; keys past Sk do not exist and take no part. p is
 // rounded to v's type before the PV product (p.astype(v.dtype)); the sum
 // l is taken of the unrounded p, clamped at 1e-30; out = acc / l in q's
-// type. float32 and bfloat16, D <= 128.
+// type. D <= 128. The dtype picks one of two routes.
 //
+// bfloat16, the dtype the models serve in: the wgmma route (namespace wg).
 // What bounds it on an H100: at Llama-3-8B's prefill (B 4, S 4096, H 32,
-// D 128, bf16, causal) the unmasked half is 2*S^2*D flops per (b, h), 550
-// GFLOP in all: 0.556 ms at 989 TFLOP/s of dense bf16 tensor-core work,
-// against 537 MB of q, k, v and out, 0.160 ms at 3.35 TB/s: bound by
-// operations. This kernel multiplies with fp32 FMA outside the tensor
-// cores (67 TFLOP/s at most): it is simple and right first; tensor cores
-// (mma.sync or wgmma), TMA and warp specialisation are later work.
+// D 128, causal) the unmasked half is 2*S^2*D flops per (b, h) for each of
+// the two products, 550 GFLOP in all: 0.556 ms at 989 TFLOP/s of dense
+// bf16 tensor-core work, against 537 MB of q, k, v and out, 0.160 ms at
+// 3.35 TB/s. It is bound by operations, so both products run on the
+// tensor cores and the copies run beside them. Design (FA3's shape):
+//   * one thread block of 384 threads per (128-row q tile, h, b), the
+//     heaviest causal tiles first: two consumer warpgroups of 64 query rows
+//     and a producer warpgroup, one thread of which issues every copy;
+//     setmaxnreg moves registers from the producer (24 a thread) to the
+//     consumers (240), whose scores, output and p take ~180;
+//   * q arrives once by TMA; the k and v tiles of 128 keys flow through a
+//     two-stage ring in shared memory, bf16 in 128-byte swizzled panels of
+//     64 head columns (one panel for D <= 64, two for D <= 128; 160 KB at
+//     D = 128), each copy completing on an mbarrier; a stage goes back to
+//     the producer on an mbarrier the consumer warps arrive at once its
+//     P V product has finished. TMA reads each operand through a 4-d tensor
+//     map over (D, head, sequence, batch) built from the caller's strides
+//     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint), so
+//     GQA is the kv head coordinate h / G, and ragged Sq, Sk and D < 64 or
+//     128 arrive as TMA's zero-filled out-of-bounds rows and columns;
+//   * S = Q K^T runs as wgmma m64n128k16 with both operands in shared
+//     memory (K-major) and the 64 x 128 fp32 scores in registers; after
+//     wgmma.wait_group 0 the online softmax runs in that accumulator
+//     layout, on scores in log2 units (one exp2 of a difference per p): a
+//     row lives in the 4 threads of a quad, its max reduces over them
+//     with two shuffles, and its sum l stays per thread until the end.
+//     The masks apply only on the tiles that reach past the diagonal or
+//     past Sk; tiles past the q tile's last row are skipped, which is
+//     exact (p = 0, corr = 1);
+//   * p is rounded to bf16 in registers, and the score accumulator's layout
+//     is the register A operand of the next wgmma: O += P V runs as wgmma
+//     m64nDk16 with P from registers and V from shared memory as an
+//     MN-major B operand (the transpose bit);
+//   * out = O / max(l, 1e-30) in bf16 pairs straight from the registers,
+//     masked at Sq and D.
+// The two warpgroups overlap each other's softmax and products; overlapping
+// them inside a warpgroup, and storing through shared memory, are later
+// work.
 //
-// Design:
+// float32: the FMA route (namespace fma), the path of the fp32
+// prefill/decode consistency check and of the tests at the reference's
+// tolerances (TF32 would need them restated). Both products are fp32 FMA
+// loops outside the tensor cores (67 TFLOP/s at most) that shared-memory
+// loads limit to about half that rate; that bounds it.
 //   * one thread block of 256 threads per (64-row q tile, h, b); blockIdx.x
 //     walks the q tiles from the last, so the heaviest causal tiles start
 //     first;
@@ -41,14 +78,22 @@
 //     masked (p = exp(-1e30 - m) = 0, corr = 1) and are skipped, which is
 //     exact; a ragged Sq or Sk is masked, not padded.
 
+#include <cuda.h>  // CUtensorMap and its enums only: no libcuda is linked
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
 
 #include "typed_io.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// the float32 route: fp32 FMA
+// ---------------------------------------------------------------------------
+namespace fma {
 
 using namespace typed_io;
 
@@ -230,58 +275,549 @@ int launch(const Args& a, int B, int H, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+}  // namespace fma
+
+// ---------------------------------------------------------------------------
+// the bfloat16 route: TMA, mbarriers and wgmma
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int BQ = 128, BK = 128, STAGES = 2;
+constexpr int CONSUMERS = 2;                    // warpgroups of 64 q rows
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
+constexpr int ROW_BYTES = 128;                  // a swizzled row: 64 bf16
+constexpr int PANEL_BYTES = 128 * ROW_BYTES;    // 128 rows x 64 columns
+constexpr float LOG2E = 1.4426950408889634f;
+// scores are kept in log2 units (x log2(e)), so exp(x - m) is one exp2 of
+// a difference; the causal mask's -1e30 is taken there as -1e30 log2(e)
+constexpr float MASKED = -1e30f * LOG2E;
+
+// NP panels of 64 head columns each; every panel starts on a 1024-byte
+// boundary, the period of the 128-byte swizzle
+template <int NP>
+struct __align__(1024) Smem {
+  uint8_t q[NP][PANEL_BYTES];
+  uint8_t k[STAGES][NP][PANEL_BYTES];
+  uint8_t v[STAGES][NP][PANEL_BYTES];
+  uint64_t q_full, k_full[STAGES], v_full[STAGES], empty[STAGES];
+};
+
+template <int NP>
+constexpr int smem_bytes() {
+  return (int)sizeof(Smem<NP>) + 1024;  // + aligning the base
+}
+
+struct Args {
+  __nv_bfloat16* o;
+  long long os[3];  // (batch, sequence, head) strides of out, elements
+  int Sq, Sk, G, D, causal;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// returns once the phase of parity `parity` has completed; a wait of ~2^26
+// polls (seconds) is a fault of the pipeline and traps, so the launch
+// fails where it hangs instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// the box of tensor map `map` at (c0, c1, c2, c3) into shared memory; the
+// bytes complete on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout type 1
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major q and k: rows 128 bytes apart, 8-row groups 1024 bytes apart
+// (the stride offset); the leading offset is unused under the swizzle. A
+// step of 16 head columns inside a panel adds 32 bytes to the start.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return desc(addr, 16, 8 * ROW_BYTES);
+}
+
+// MN-major v (B of P V, its N = head columns contiguous): 64-column panels
+// PANEL_BYTES apart (the leading offset), 8-key groups 1024 bytes apart
+// (the stride offset)
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return desc(addr, PANEL_BYTES, 8 * ROW_BYTES);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers across the
+// asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define ACC8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+// d (64 x 128 fp32) = [d +] A (64 x 16) B (16 x 128), both bf16 in shared
+// memory, K-major; scale_d = 0 drops d
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) += A (64 x 16, bf16 in registers) B (16 x 64, bf16 in
+// shared memory, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 fp32) += A (64 x 16, bf16 in registers) B (16 x 128, bf16
+// in shared memory, MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
+        ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One consumer warpgroup: query rows row_lo .. row_lo + 63 of the block's q
+// tile. Thread (warp, lane) holds rows r0 = row_lo + 16 warp + lane / 4 and
+// r0 + 8: in wgmma's accumulator layout s[i] is row r0 + 8 ((i % 4) / 2)
+// and column 8 (i / 4) + 2 (lane % 4) + i % 2 of the tile, and o likewise
+// over head columns.
+template <int NP>
+__device__ __forceinline__ void consume(Smem<NP>& sm, const Args& a, int q0,
+                                        int n_tiles, int wgi, int b, int h) {
+  constexpr int DP = 64 * NP;  // head columns the panels hold
+  constexpr int NO = DP / 2;   // o registers of a thread
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int row_lo = q0 + 64 * wgi;
+  const int r0 = row_lo + 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  float s[64], o[NO];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+  const float scale = a.scale * LOG2E;
+
+  const uint32_t q_base = smem_u32(sm.q[0]) + wgi * 64 * ROW_BYTES;
+  mbar_wait(&sm.q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % STAGES;
+    const uint32_t ph = (j / STAGES) & 1;
+    const int k0 = j * BK;
+
+    // S = Q K^T in DP / 16 steps of 16 head columns
+    mbar_wait(&sm.k_full[st], ph);
+    const uint32_t k_base = smem_u32(sm.k[st][0]);
+    fence_operands(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const uint32_t off = (ks / 4) * PANEL_BYTES + (ks % 4) * 32;
+      wgmma_ss_n128(s, kmajor_desc(q_base + off), kmajor_desc(k_base + off),
+                    ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(s);
+
+    // scale, mask and the online softmax of this tile's 128 keys; the
+    // masks apply only where the tile reaches past the diagonal or Sk
+    const bool edge = (a.causal && k0 + BK - 1 > row_lo) || k0 + BK > a.Sk;
+    float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = s[i] * scale;
+      if (edge) {
+        const int kj = k0 + 8 * (i / 4) + cq + i % 2;
+        const int qi = r0 + 8 * ((i % 4) / 2);
+        if (a.causal && qi < kj) x = MASKED;
+        if (kj >= a.Sk) x = -INFINITY;  // no such key
+      }
+      s[i] = x;
+      if (i % 4 < 2)
+        mt0 = fmaxf(mt0, x);
+      else
+        mt1 = fmaxf(mt1, x);
+    }
+    const float mn0 = fmaxf(m0, quad_max(mt0));
+    const float mn1 = fmaxf(m1, quad_max(mt1));
+    const float c0 = exp2f(m0 - mn0);
+    const float c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // p, rounded to bf16, straight into the register A operand of P V: keys
+    // 16 kk .. 16 kk + 15 are accumulator groups 2 kk (A registers 0, 1)
+    // and 2 kk + 1 (A registers 2, 3), rows r0 (0, 2) and r0 + 8 (1, 3)
+    uint32_t pa[BK / 16][4];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const float p0 = exp2f(s[4 * jj + 0] - mn0);
+      const float p1 = exp2f(s[4 * jj + 1] - mn0);
+      const float p2 = exp2f(s[4 * jj + 2] - mn1);
+      const float p3 = exp2f(s[4 * jj + 3] - mn1);
+      ps0 += p0 + p1;
+      ps1 += p2 + p3;
+      pa[jj / 2][(jj % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pa[jj / 2][(jj % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * c0 + ps0;  // this thread's share; the quad sums at the end
+    l1 = l1 * c1 + ps1;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= (i % 4 < 2) ? c0 : c1;
+
+    // O += P V in BK / 16 steps of 16 keys
+    mbar_wait(&sm.v_full[st], ph);
+    const uint32_t v_base = smem_u32(sm.v[st][0]);
+    fence_operands(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = mnmajor_desc(v_base + kk * 16 * ROW_BYTES);
+      if constexpr (NP == 1)
+        wgmma_rs_n64(o, pa[kk], dv);
+      else
+        wgmma_rs_n128(o, pa[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(o);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);  // this warp is done with st
+  }
+
+  l0 = fmaxf(quad_sum(l0), 1e-30f);
+  l1 = fmaxf(quad_sum(l1), 1e-30f);
+  __nv_bfloat16* ob = a.o + b * a.os[0] + h * a.os[2];
+#pragma unroll
+  for (int jj = 0; jj < NO / 4; ++jj) {
+    const int d = 8 * jj + cq;  // D is a multiple of 8, so d + 1 < D too
+    if (d >= a.D) continue;
+    if (r0 < a.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * a.os[1] + d) =
+          __floats2bfloat162_rn(o[4 * jj] / l0, o[4 * jj + 1] / l0);
+    if (r0 + 8 < a.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + (long long)(r0 + 8) * a.os[1] + d) =
+          __floats2bfloat162_rn(o[4 * jj + 2] / l1, o[4 * jj + 3] / l1);
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  Smem<NP>& sm = *reinterpret_cast<Smem<NP>*>(smem_raw + pad);
+
+  const int n_qt = (a.Sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  // under a causal mask, key tiles past the last query row are all masked
+  const int k_end = a.causal ? min(a.Sk, q0 + BQ) : a.Sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&sm.k_full[st], 1);
+      mbar_init(&sm.v_full[st], 1);
+      mbar_init(&sm.empty[st], CONSUMERS * 4);  // lane 0 of each warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // one if-else for the two roles, never reconverging (setmaxnreg needs it)
+  if (wgi == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == CONSUMERS * 128) {
+      const int hk = h / a.G;
+      mbar_expect_tx(&sm.q_full, NP * PANEL_BYTES);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        tma_load(sm.q[p], &tq, &sm.q_full, 64 * p, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % STAGES;
+        mbar_wait(&sm.empty[st], ((j / STAGES) & 1) ^ 1);  // round 0 passes
+        mbar_expect_tx(&sm.k_full[st], NP * PANEL_BYTES);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          tma_load(sm.k[st][p], &tk, &sm.k_full[st], 64 * p, hk, j * BK, b);
+        mbar_expect_tx(&sm.v_full[st], NP * PANEL_BYTES);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          tma_load(sm.v[st][p], &tv, &sm.v_full[st], 64 * p, hk, j * BK, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    consume<NP>(sm, a, q0, n_tiles, wgi, b, h);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// statuses of this route past the CUDA runtime's own
+constexpr int NO_ENCODER = 100000;     // cuTensorMapEncodeTiled not found
+constexpr int ENCODE_FAILED = 100001;  // + the CUresult
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of one bf16 operand over (D, head, sequence, batch) from
+// the caller's (batch, sequence, head) strides `st` in elements: a box of
+// 64 head columns x 128 rows of one head and batch, 128-byte swizzled,
+// zeros out of bounds. A dimension of size 1 is never stepped along, so
+// its stride is replaced by one TMA takes.
+int make_map(CUtensorMap* map, const void* base, int D, int heads, int S,
+             int B, const long long* st) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return NO_ENCODER;
+  const cuuint64_t dim[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                             (cuuint64_t)S, (cuuint64_t)B};
+  const long long elems[3] = {st[2], st[1], st[0]};
+  cuuint64_t stride[3];
+  cuuint64_t extent = (cuuint64_t)D * 2;
+  for (int i = 0; i < 3; ++i) {
+    stride[i] = dim[i + 1] == 1 ? extent : (cuuint64_t)elems[i] * 2;
+    extent = stride[i] * dim[i + 1];
+  }
+  const cuuint32_t box[4] = {64, 1, 128, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dim,
+      stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+template <int NP>
+int launch(const void* q, const void* k, const void* v, const Args& a,
+           const long long* strides, int B, int H, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const int KH = H / a.G;
+  int err = make_map(&tq, q, a.D, H, a.Sq, B, strides);
+  if (err == 0) err = make_map(&tk, k, a.D, KH, a.Sk, B, strides + 3);
+  if (err == 0) err = make_map(&tv, v, a.D, KH, a.Sk, B, strides + 6);
+  if (err != 0) return err;
+  const int bytes = smem_bytes<NP>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_wgmma<NP><<<grid, THREADS, bytes, stream>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one thread block for head dim D (0 if D > 128).
-int flash_attention_fwd_smem_bytes(int D) {
-  if (D <= 64) return smem_floats<64>() * (int)sizeof(float);
-  if (D <= 128) return smem_floats<128>() * (int)sizeof(float);
-  return 0;
+// Dynamic shared memory of one thread block for head dim D and dtype (0
+// float32, 1 bfloat16); 0 if D > 128.
+int flash_attention_fwd_smem_bytes(int D, int dtype) {
+  if (D <= 0 || D > 128) return 0;
+  if (dtype == typed_io::BF16)
+    return D <= 64 ? wg::smem_bytes<1>() : wg::smem_bytes<2>();
+  return (D <= 64 ? fma::smem_floats<64>() : fma::smem_floats<128>()) *
+         (int)sizeof(float);
 }
 
 // strides: 12 values, the (batch, sequence, head) strides in elements of
-// q, k, v and out, in that order. dtype: 0 float32, 1 bfloat16 (q, k, v
-// and out all of it). Launches on `stream` and returns the CUDA status
-// right after the launch (0 = launched); does not synchronise and
-// allocates nothing.
+// q, k, v and out, in that order. dtype: 0 float32 (the FMA route), 1
+// bfloat16 (the wgmma route: base addresses 16-byte aligned, D a multiple
+// of 8, the strides of dimensions longer than 1 multiples of 8 elements).
+// Launches on `stream` and returns the status right after the launch (0 =
+// launched); does not synchronise and allocates nothing.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, const long long* strides, int B,
                                int H, int G, int Sq, int Sk, int D,
                                int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || G <= 0 || Sq <= 0 || Sk < 0 || D <= 0 || D > 128 ||
-      H % G != 0 || B > 65535 || H > 65535 ||
-      (Sq + BQ - 1) / BQ > INT_MAX / 2)
+      H % G != 0 || B > 65535 || H > 65535 || (Sq + 63) / 64 > INT_MAX / 2)
     return (int)cudaErrorInvalidValue;
-  Args a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = out;
-  for (int i = 0; i < 3; ++i) {
-    a.qs[i] = strides[i];
-    a.ks[i] = strides[3 + i];
-    a.vs[i] = strides[6 + i];
-    a.os[i] = strides[9 + i];
-  }
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.G = G;
-  a.D = D;
-  a.causal = causal;
-  a.scale = (float)(1.0 / sqrt((double)D));  // the reference's f32(1/sqrt(D))
+  const float scale = (float)(1.0 / sqrt((double)D));  // f32(1/sqrt(D))
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == typed_io::F32)
-    return D <= 64 ? launch<float, 64>(a, B, H, st)
-                   : launch<float, 128>(a, B, H, st);
-  if (dtype == typed_io::BF16)
-    return D <= 64 ? launch<__nv_bfloat16, 64>(a, B, H, st)
-                   : launch<__nv_bfloat16, 128>(a, B, H, st);
+  if (dtype == typed_io::F32) {
+    fma::Args a;
+    a.q = q;
+    a.k = k;
+    a.v = v;
+    a.o = out;
+    for (int i = 0; i < 3; ++i) {
+      a.qs[i] = strides[i];
+      a.ks[i] = strides[3 + i];
+      a.vs[i] = strides[6 + i];
+      a.os[i] = strides[9 + i];
+    }
+    a.Sq = Sq;
+    a.Sk = Sk;
+    a.G = G;
+    a.D = D;
+    a.causal = causal;
+    a.scale = scale;
+    return D <= 64 ? fma::launch<float, 64>(a, B, H, st)
+                   : fma::launch<float, 128>(a, B, H, st);
+  }
+  if (dtype == typed_io::BF16) {
+    if (D % 8 != 0 || (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+      return (int)cudaErrorInvalidValue;
+    wg::Args a;
+    a.o = static_cast<__nv_bfloat16*>(out);
+    for (int i = 0; i < 3; ++i) a.os[i] = strides[9 + i];
+    a.Sq = Sq;
+    a.Sk = Sk;
+    a.G = G;
+    a.D = D;
+    a.causal = causal;
+    a.scale = scale;
+    return D <= 64 ? wg::launch<1>(q, k, v, a, strides, B, H, st)
+                   : wg::launch<2>(q, k, v, a, strides, B, H, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_attention_fwd_error_string(int status) {
+  if (status == wg::NO_ENCODER)
+    return "cuTensorMapEncodeTiled is not available from the driver";
+  if (status >= wg::ENCODE_FAILED)
+    return "cuTensorMapEncodeTiled refused an operand's tensor map";
   return cudaGetErrorString((cudaError_t)status);
 }
 

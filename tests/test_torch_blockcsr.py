@@ -6,7 +6,10 @@ against ``repro.kernels.aggregate.aggregate_blockcsr`` in interpret mode;
 ``densify_tiles`` is held bitwise against the reference's
 ``densify_tiles`` and ``densify_tiles_np``; ``AggregateCompact`` and
 ``AggregateBlockCSR`` against ``jax.vjp`` of ``aggregate_compact_vjp`` and
-``aggregate_blockcsr_vjp``. Tolerance rtol 1e-5, atol 1e-6 times the
+``aggregate_blockcsr_vjp``. ``real_slot_counts`` is held against the
+numpy layout builder, and ``AggregateCompact``, which passes those counts
+(the plain version then stops after the last real slot), bitwise against
+the plain products over every slot. Tolerance rtol 1e-5, atol 1e-6 times the
 largest magnitude of the reference (at least 1e-6): fp32 products that
 contract 128 terms per slot, summed in another order. The tests marked
 ``gpu`` hold the CUDA kernel against its plain version on the card and
@@ -20,7 +23,7 @@ import torch
 from repro_torch.configs.gnn import GNNModelConfig
 from repro_torch.kernels import aggregate as agg
 from repro_torch.kernels.layout import (BLK, build_block_coo_pair,
-                                        densify_tiles_np)
+                                        build_block_csr, densify_tiles_np)
 
 RTOL, ATOL = 1e-5, 1e-6
 FWD = ("tile_id", "tile_off", "val", "cols")
@@ -40,9 +43,10 @@ CASES = {
 }
 
 
-def _coo(case, seed=0):
+def _edges(case, seed=0):
     """Distinct (src, dst) pairs with random weights — the sampler's
-    per-layer contract — in the compact layout, with the operand width."""
+    per-layer contract: (src, dst, mask, values, n_src, n_dst, max_blk,
+    F)."""
     kw = dict(CASES[case])
     F = kw.pop("F")
     mask_p = kw.pop("mask_p", 0.9)
@@ -54,6 +58,13 @@ def _coo(case, seed=0):
     ed = (pairs // n_src).astype(np.int32)
     em = rng.random(n_edges) < mask_p
     vals = rng.standard_normal(n_edges).astype(np.float32)
+    return es, ed, em, vals, n_src, n_dst, max_blk, F
+
+
+def _coo(case, seed=0):
+    """The edges of ``_edges`` in the compact layout, with the operand
+    width."""
+    es, ed, em, vals, n_src, n_dst, max_blk, F = _edges(case, seed)
     return build_block_coo_pair(es, ed, em, n_src, n_dst, vals,
                                 max_blk=max_blk), F
 
@@ -115,9 +126,12 @@ def test_densify_tiles_bitwise(case, transpose):
     np.testing.assert_array_equal(out, ref_j)
 
 
-@pytest.mark.parametrize("case", ["multi_block", "ragged_F70",
-                                  "padding_slots"])
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_compact_autograd_matches_jax_vjp(case):
+    """``AggregateCompact`` walks only the real slots, forward over A and
+    backward over A^T: bitwise the plain products over every slot of the
+    densified tiles, and within tolerance of ``jax.vjp`` of the
+    reference's ``aggregate_compact_vjp``."""
     import jax
     import jax.numpy as jnp
     from repro.kernels import aggregate as jagg
@@ -135,6 +149,11 @@ def test_compact_autograd_matches_jax_vjp(case):
     ht = _t(h).requires_grad_(True)
     out_t = agg.AggregateCompact.apply(*(_t(coo[k]) for k in keys), ht)
     out_t.backward(_t(g))
+    (blocks, cols), (blocks_t, cols_t) = _blocks(coo), _blocks(coo, True)
+    assert torch.equal(out_t.detach(), agg.aggregate_blockcsr_plain(
+        _t(blocks), _t(cols), _t(h)))
+    assert torch.equal(ht.grad, agg.aggregate_blockcsr_plain(
+        _t(blocks_t), _t(cols_t), _t(g)))
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
                                rtol=RTOL, atol=_atol(np.asarray(out_j)))
     np.testing.assert_allclose(ht.grad.numpy(), dh_j, rtol=RTOL,
@@ -164,6 +183,33 @@ def test_blockcsr_autograd_matches_jax_vjp(case):
                                rtol=RTOL, atol=_atol(np.asarray(out_j)))
     np.testing.assert_allclose(ht.grad.numpy(), dh_j, rtol=RTOL,
                                atol=_atol(dh_j))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("transpose", [False, True])
+def test_real_slot_counts_match_numpy_layout(case, transpose):
+    """The counts cover every real slot of the numpy layout and no more:
+    ``build_block_csr`` packs a block's real (nonzero) tiles first, and
+    only row 0 may count one zero tile more, the slot a masked edge's
+    tile_id 0 names."""
+    es, ed, em, vals, n_src, n_dst, _, _ = _edges(case)
+    coo, _ = _coo(case)
+    tid, _, _, cols = (coo[k] for k in (TRANSPOSE if transpose else FWD))
+    if transpose:
+        es, ed, n_src, n_dst = ed, es, n_dst, n_src
+    blocks, _, _ = build_block_csr(es, ed, em, n_src, n_dst, vals,
+                                   max_blk=cols.shape[1])
+    real = np.abs(blocks).sum(axis=(2, 3)) != 0   # (n_dstb, max_blk)
+    want = real.sum(1)
+    for row, n in zip(real, want):   # packed first
+        assert row[:n].all() and not row[n:].any()
+    got = agg.real_slot_counts(_t(tid), *cols.shape)
+    assert got.dtype == torch.int32 and got.shape == (cols.shape[0],)
+    got = got.numpy()
+    masked_edge = bool((~em).any())
+    if masked_edge and want[0] == 0:
+        want[0] = 1
+    np.testing.assert_array_equal(got, want)
 
 
 def _counting_densify(monkeypatch):
@@ -230,11 +276,13 @@ def test_model_step_densifies_three_times(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "cols_dtype", "blocks_shape",
-                                 "rows", "strided"])
+                                 "rows", "strided", "nblk_dtype",
+                                 "nblk_shape"])
 def test_wrapper_rejects_bad_inputs(bad):
     coo, F = _coo("multi_block")
     blocks, cols = (_t(x) for x in _blocks(coo))
     h = _t(_arr(0, coo["n_src_pad"], F))
+    nblk = None
     if bad == "dtype":
         h = h.double()
     elif bad == "cols_dtype":
@@ -243,24 +291,35 @@ def test_wrapper_rejects_bad_inputs(bad):
         blocks = blocks[:, :-1].contiguous()
     elif bad == "rows":
         h = h[:-1]
+    elif bad == "nblk_dtype":
+        nblk = torch.ones(cols.shape[0], dtype=torch.int64)
+    elif bad == "nblk_shape":
+        nblk = torch.ones(cols.shape[0] + 1, dtype=torch.int32)
     else:
         h = _t(_arr(0, coo["n_src_pad"], 2 * F))[:, ::2]
     with pytest.raises((TypeError, ValueError)):
-        agg.aggregate_blockcsr(blocks, cols, h)
+        agg.aggregate_blockcsr(blocks, cols, h, nblk)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("counts", [False, True])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_matches_plain_on_card(case):
+def test_kernel_matches_plain_on_card(case, counts):
+    """Every slot (the ``ops.aggregate`` entry), or only the real slots
+    with the destination blocks heaviest first (the trainer's), against
+    the plain version over every slot."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     coo, F = _coo(case)
     for transpose, rows in ((False, coo["n_src_pad"]),
                             (True, coo["cols"].shape[0] * BLK)):
         blocks, cols = (_t(x).cuda() for x in _blocks(coo, transpose))
+        nblk = (agg.real_slot_counts(
+            _t(coo[(TRANSPOSE if transpose else FWD)[0]]).cuda(),
+            *cols.shape) if counts else None)
         h = _t(_arr(8, rows, F)).cuda()
         before = agg.launch_counts["aggregate_blockcsr"]
-        out = agg.aggregate_blockcsr(blocks, cols, h)
+        out = agg.aggregate_blockcsr(blocks, cols, h, nblk)
         torch.cuda.synchronize()
         assert agg.launch_counts["aggregate_blockcsr"] == before + 1
         want = agg.aggregate_blockcsr_plain(blocks, cols, h)
@@ -289,3 +348,29 @@ def test_compact_autograd_on_card_matches_cpu():
         res.append((out.detach().cpu(), ht.grad.cpu()))
     for a, b in zip(*res):
         torch.testing.assert_close(b, a, rtol=RTOL, atol=_atol(a.numpy()))
+
+
+@pytest.mark.gpu
+def test_pallas_trainer_on_card_matches_cpu():
+    """GraphSAGE on ``"pallas"``: three kernel launches per device batch
+    and iteration (layer-0 forward, layer-1 forward and backward), and the
+    losses of the CPU's plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.core import scheduler as sched
+    from repro_torch.core.trainer import SyncGNNTrainer
+    from repro_torch.data.graphs import synthetic_graph
+    from repro_torch.nn.param import params_to_numpy
+    g = synthetic_graph(scale=11, edge_factor=6, feat_dim=16, num_classes=4)
+    cfg = GNNModelConfig("graphsage", hidden=16, fanouts=(4, 3),
+                         batch_targets=32, aggregate_backend="pallas")
+    cpu = SyncGNNTrainer(g, cfg, num_devices=2, device="cpu")
+    card = SyncGNNTrainer(g, cfg, num_devices=2, device="cuda",
+                          params=params_to_numpy(cpu.params))
+    for group in list(sched.iterations(cpu.epoch_schedule()))[:3]:
+        agg.reset_launch_counts()
+        m_card = card.run_iteration(group)
+        assert {k: v for k, v in agg.launch_counts.items() if v} == {
+            "aggregate_blockcsr": 6}
+        m_cpu = cpu.run_iteration(group)
+        np.testing.assert_allclose(m_card["loss"], m_cpu["loss"], rtol=RTOL)

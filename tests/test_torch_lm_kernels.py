@@ -13,7 +13,8 @@ to 80 tokens, in chunks against one token at a time), for y and the final
 state. The oracles agree to 1e-5.
 
 The tests marked ``gpu`` hold each CUDA kernel against its plain version
-on the card (skipped here): fp32 at the fp32 tolerances above; bf16 flash
+on the card (skipped here): fp32 at the fp32 tolerances above (flash's
+fp32 FMA route); bf16 flash (its wgmma route, on TMA-fed tiles of 128 rows)
 at atol 2e-2 / rtol 2e-2 (p is rounded to bf16 before the PV product, as
 the TPU kernel rounds it, and the output to bf16, against the plain fp32
 softmax); bf16 wkv6 at atol 2e-2 / rtol 2e-2 (y rounded to bf16; the
@@ -26,7 +27,8 @@ import torch
 
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+from repro_torch.kernels.flash_attention import (check_tma_operands,
+                                                 flash_attention_fwd,
                                                  flash_attention_plain)
 from repro_torch.kernels.wkv6 import wkv6_chunk, wkv6_chunk_plain
 
@@ -195,6 +197,45 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                  torch.zeros(1, 1, 16), chunk=0)
 
 
+def _misaligned(bad, device):
+    """A (1, 16, 2, D) bf16 operand that TMA cannot read: D 36 (72-byte
+    rows), a base 2 bytes past a boundary, or heads 136 bytes apart."""
+    bf16 = dict(dtype=torch.bfloat16, device=device)
+    if bad == "head_dim":
+        return torch.zeros(1, 16, 2, 36, **bf16)
+    if bad == "offset":
+        return torch.zeros(16 * 2 * 64 + 1, **bf16)[1:].view(1, 16, 2, 64)
+    return torch.zeros(1, 16, 2, 68, **bf16)[..., :64]
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "offset", "head_stride"])
+def test_tma_operand_check_refuses(bad):
+    with pytest.raises(ValueError, match="TMA"):
+        check_tma_operands(_misaligned(bad, "cpu"))
+
+
+@pytest.mark.parametrize("case", ["model", "fused_qkv", "flat_heads",
+                                  "d40", "one_row"])
+def test_tma_operand_check_takes_what_the_models_pass(case):
+    """The model's (B, S, H, D) projections, the fused-qkv slices, the
+    reference's flattened (BH, S, 1, D) layout, D 40, and a single query
+    row all pass the check the wgmma route makes."""
+    bf16 = dict(dtype=torch.bfloat16)
+    if case == "model":
+        ts = [torch.zeros(2, 64, 32, 128, **bf16),
+              torch.zeros(2, 64, 8, 128, **bf16)]
+    elif case == "fused_qkv":
+        qkv = torch.zeros(2, 130, 12, 64, **bf16)
+        ts = [qkv[:, :, :4], qkv[:, :, 4:8], qkv[:, :, 8:]]
+    elif case == "flat_heads":
+        ts = [torch.zeros(6, 96, 64, **bf16)[:, :, None]]
+    elif case == "d40":
+        ts = [torch.zeros(2, 401, 4, 40, **bf16)]
+    else:
+        ts = [torch.zeros(1, 1, 1, 40, **bf16)]
+    check_tma_operands(*ts)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -213,6 +254,14 @@ def _card():
     (True, 1, 200, 200, 3, 1, 64),    # ragged S, D 64
     (False, 2, 100, 173, 2, 2, 128),  # Sq != Sk, ragged
     (False, 1, 1, 65, 1, 1, 40),      # one query row, D below a tile
+    # bf16's wgmma route takes tiles of 128 query rows and 128 keys: ragged
+    # edges and the causal diagonal inside those tiles
+    (True, 1, 200, 200, 4, 1, 128),         # ragged S, G 4
+    (False, 2, 200, 384 + 17, 8, 2, 64),    # Sq != Sk, both ragged, G 4
+    (True, 2, 384 + 17, 384 + 17, 4, 4, 40),  # D 40: zero-filled columns
+    (True, 1, 100, 384 + 17, 4, 1, 128),    # causal, Sq < Sk
+    (True, 1, 384 + 17, 130, 2, 1, 64),     # causal, Sq > Sk
+    (True, 2, 512, 512, 8, 2, 128),         # the 2-stage ring turns twice
 ])
 def test_flash_kernel_matches_plain_on_card(causal, B, sq, sk, H, KH, D,
                                             dtype):
@@ -232,18 +281,35 @@ def test_flash_kernel_matches_plain_on_card(causal, B, sq, sk, H, KH, D,
 
 
 @pytest.mark.gpu
-def test_flash_kernel_reads_strided_operands_on_card():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_reads_strided_operands_on_card(dtype):
     """q, k, v as column slices of one fused projection (strides, no
-    copy) give the result of their contiguous copies."""
+    copy) give the result of their contiguous copies, on both routes."""
     _card()
     B, S, H, D = 2, 130, 4, 64
-    qkv = torch.from_numpy(_normal(3, B, S, 3 * H, D)).cuda()
+    qkv = torch.from_numpy(_normal(3, B, S, 3 * H, D)).cuda().to(
+        getattr(torch, dtype))
     q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
     out = flash_attention_fwd(q, k, v, True)
     want = flash_attention_fwd(q.contiguous(), k.contiguous(),
                                v.contiguous(), True)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["head_dim", "offset", "head_stride"])
+def test_flash_wgmma_refuses_misaligned_operands_on_card(bad):
+    """TMA needs 16-byte aligned bases and strides: the bf16 route raises
+    rather than copy, before anything is launched."""
+    _card()
+    ok = torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16, device="cuda")
+    q = _misaligned(bad, "cuda")
+    before = build.launch_counts["flash_attention_fwd"]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_fwd(q, ok[..., :q.shape[-1]].contiguous(),
+                            ok[..., :q.shape[-1]].contiguous())
+    assert build.launch_counts["flash_attention_fwd"] == before
 
 
 @pytest.mark.gpu

@@ -24,8 +24,8 @@ their published widths and depths through ``models.registry.build``,
 and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16 from a seeded
 init. Phases, each of which exits non-zero on failure:
 
-  1. device report: the card's name, and its name and power limit as
-     ``nvidia-smi`` gives them;
+  1. device report: the card's name, its name and power limit as
+     ``nvidia-smi`` gives them, and its max SM clock;
   2. build: every kernel source in ``src/repro_torch/kernels/csrc`` goes
      through ``nvcc`` (one process per source, all started together), and
      the compiler's register and spill report is printed;
@@ -52,8 +52,8 @@ init. Phases, each of which exits non-zero on failure:
      same edges for ``aggregate_edges``, on a BSR of the tiles that hold
      an edge for ``aggregate_blockcsr`` (a CSR of the edges where the
      installed PyTorch has no fp32 BSR product on CUDA; the line says
-     which), ``torch.addmm`` for ``update_mlp`` without an activation;
-     for the fused kernels, which no
+     which), ``torch.addmm`` for ``update_mlp`` (``torch.addmm(b, x,
+     w).relu_()`` for its relu launch); for the fused kernels, which no
      single PyTorch call computes, the port's unfused composition (the
      ``aggregate_edges`` kernel and ``torch.matmul``) and ``torch.sparse.mm``
      with ``torch.matmul``. Beside them the bound: the larger of the bytes
@@ -68,8 +68,13 @@ init. Phases, each of which exits non-zero on failure:
      inputs (its 3xTF32 split does three TF32 products per product); its
      bytes count the tiles of the slots it walks (``real_slots_walked``),
      the h rows they name and the output, each once; the line gives the
-     achieved fp32-product rate (``tflops``). Each line names its
-     ``op_rate``. The ``kernels`` line sums
+     achieved fp32-product rate (``tflops``). ``update_mlp``'s products
+     run on the tensor cores too (3xTF32), so its bound takes them at the
+     TF32 rate as well; its lines name the route, the tile plan, the
+     shared memory and the build report's registers and spill bytes, and
+     keep the earlier all-fp32 bound as ``bound_fp32_ms``. Each line names
+     its ``op_rate`` (``op_rates`` where the work runs on several units).
+     The ``kernels`` line sums
      each kernel's times and bounds over the launches this phase checked;
   4. training, each path with every launch count set to 0 just before it
      and read just after: five iterations of GraphSAGE on
@@ -120,7 +125,14 @@ init. Phases, each of which exits non-zero on failure:
      Bounds: flash's bytes (q, k, v, out once; k and v unrepeated) and its
      flops over the unmasked pairs (4 D per pair) at the bf16 tensor-core
      rate (989 TFLOP/s) for bf16 launches and 67 TFLOP/s for fp32; wkv6's
-     bytes and its flops per chunk (``wkv6_flops``) at 67 TFLOP/s. Only
+     bytes, and its work per chunk (``wkv6_flops``) on three units, the
+     largest time counting: the products (r~ S, A v, k~^T v) at the TF32
+     rate (its products run on the tensor cores, 3xTF32), the elementwise
+     and pairwise flops at 67 TFLOP/s, the exponentials at the SFU's 16 a
+     clock per SM on 132 SMs at ``nvidia-smi``'s max SM clock; beside it
+     ``bound_fp32_ms``, every flop at 67 TFLOP/s as before. wkv6 lines
+     name the route, the heads per thread block, the thread blocks, the
+     shared memory and the build report's registers and spill bytes. Only
      the main-path launches enter the ``kernels`` line's times;
   7. serving, each model with every launch count set to 0 just before and
      read just after each prefill and each decode step: a 256-token
@@ -167,6 +179,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+# exponentials (ex2 on the special-function units): 16 a clock per SM on
+# 132 SMs, at the clock ``nvidia-smi --query-gpu=clocks.max.sm`` reports
+# (set in phase 1)
+SFU_EXP_PER_CLOCK_PER_SM, H100_SMS = 16, 132
+SFU_EXP_PER_S = None
 # the LM zoo's serving paths: 4 prompts of 4,096 tokens, the cache grown by
 # 16 slots, 16 greedy decode steps; a 256-token prefill first warms cuBLAS
 # and the allocator; prefill/decode consistency in fp32 at 2 layers
@@ -327,6 +344,55 @@ def bound(bytes_moved: int, flops: int, rate: float = FP32_FLOPS) -> dict:
             "bytes_ms": t_bytes, "ops_ms": t_ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bound_parts(bytes_moved: int, parts: dict, flops_fp32: int) -> dict:
+    """The least time of a launch whose work runs on several units: the
+    largest of its bytes over the memory rate and each part's count over
+    its unit's rate (``parts``: {name: (count, rate)}; products at the TF32
+    rate, elementwise flops at the fp32 rate, exponentials at the SFU's).
+    ``bound_fp32_ms`` keeps the earlier bound, every flop (``flops_fp32``)
+    at the fp32 rate, so rows stay comparable with it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_parts = {name: n / rate * 1e3 for name, (n, rate) in parts.items()}
+    t_ops = max(t_parts.values())
+    return {"bytes": bytes_moved,
+            **{f"{name}": n for name, (n, _) in parts.items()},
+            "op_rates": {name: rate for name, (_, rate) in parts.items()},
+            "bytes_ms": t_bytes, "ops_ms": t_ops,
+            **{f"{name}_ms": t for name, t in t_parts.items()},
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_fp32_ms": bound(bytes_moved, flops_fp32)["bound_ms"]}
+
+
+def ptxas_usage(report: str) -> dict:
+    """{kernel function: {registers, spill_bytes}} from ``nvcc -Xptxas
+    -v``'s report (spill bytes: stores plus loads)."""
+    usage, fn = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            usage[fn] = {"registers": None, "spill_bytes": 0}
+        elif fn and "spill stores" in line:
+            words = line.replace(",", "").split()
+            usage[fn]["spill_bytes"] = (int(words[words.index("spill") - 2])
+                                        + int(words[-4]))
+        elif fn and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            usage[fn]["registers"] = int(words[words.index("registers") - 1])
+    return usage
+
+
+def build_usage(usage: dict, key: str) -> dict:
+    """The largest registers and spill bytes over the functions whose name
+    holds ``key`` (one kernel's instantiations)."""
+    hits = [u for fn, u in usage.items() if key in fn]
+    if not hits:
+        fail(f"no kernel function matching {key!r} in the build report")
+    return {"registers": max(u["registers"] or 0 for u in hits),
+            "spill_bytes": max(u["spill_bytes"] for u in hits),
+            "build_functions": len(hits)}
 
 
 def on_card(lay: dict, keys) -> list:
@@ -594,21 +660,41 @@ def check_blockcsr_launch(name, agg, lay_c, keys, lay_e, keys_e, h,
     return report(row)
 
 
-def check_update_launch(name, um, x, w, b, act):
+def check_update_launch(name, um, x, w, b, act, usage):
     """update_mlp vs plain on the card, its times, the ``torch.addmm``
-    yardstick (without an activation) and the bound."""
+    yardstick (``.relu_()`` after it for the relu launch) and the bound:
+    the products at the TF32 rate, the fastest the card multiplies fp32
+    inputs (the kernel's 3xTF32 split does three TF32 products per
+    product), beside the earlier fp32-rate bound."""
     out = um.update_mlp(x, w, b, act)
     ref = um.update_mlp_plain(x, w, b, act)
     torch.cuda.synchronize()
     (M, K), N = x.shape, w.shape[1]
-    lib = None if act != "none" else time_ms(lambda: torch.addmm(b, x, w))
+    if act == "none":
+        def lib():
+            return torch.addmm(b, x, w)
+    elif act == "relu":
+        def lib():
+            return torch.addmm(b, x, w).relu_()
+    else:
+        fail(f"{name}: no yardstick for act {act!r}")
+    tiles = um.plan(M, N, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    bm, bn = um.TILES[tiles]
     row = {"kernel": "update_mlp", "launch": name, "x": [M, K],
-           "w": [K, N], "act": act,
+           "w": [K, N], "act": act, "route": "mma.sync 3xTF32",
+           "tiles": [bm, bn], "thread_blocks": -(-M // bm) * -(-N // bn),
+           "smem_bytes": um.update_mlp_smem_bytes(tiles),
+           **build_usage(usage, f"TileILi{bm}ELi{bn}E"),
            "max_abs_err": check_close(name, "out", out, ref),
+           "library": "torch.addmm" + (".relu_" if act == "relu" else ""),
            "ms": time_ms(lambda: um.update_mlp(x, w, b, act)),
            "plain_ms": time_ms(lambda: um.update_mlp_plain(x, w, b, act)),
-           "library_ms": lib}
-    row.update(bound(4 * (M * K + K * N + N + M * N), 2 * M * K * N))
+           "library_ms": time_ms(lib)}
+    flops = 2 * M * K * N
+    row.update(bound_parts(4 * (M * K + K * N + N + M * N),
+                           {"products_tf32": (flops, TF32_FLOPS)}, flops))
+    row["tflops"] = flops / row["ms"] / 1e9
     return report(row)
 
 
@@ -776,25 +862,31 @@ def check_flash_launch(name, fa, B, Sq, Sk, H, KH, D, dtype, causal,
 
 
 def wkv6_flops(S: int, K: int, chunk: int = 16) -> tuple:
-    """(flops, exponentials) of the chunked WKV6 recurrence over S tokens
-    of one head (K = V): per chunk of L tokens the inter-chunk product, the
-    L(L-1)/2 decay pairs, the intra-chunk and bonus terms and the state
-    update."""
-    flops = exps = 0
+    """(products, elementwise flops, exponentials) of the chunked WKV6
+    recurrence over S tokens of one head (K = V): per chunk of L tokens the
+    products r~ S (2 L K K), A v over the L(L-1)/2 pairs and the diagonal
+    (2 (pairs + L) K) and k~^T v (2 L K K); the pairwise sums of A (a
+    multiply and a multiply-add per pair and channel, and the difference
+    of exponents), the bonus, the decayed rows, the cumsums and the state's
+    decay (2 K K); the pairs' exponentials and the 2 L K + K of the decayed
+    rows and exp(c_last)."""
+    products = elementwise = exps = 0
     for t0 in range(0, S, chunk):
         L = min(chunk, S - t0)
         pairs = L * (L - 1) // 2
-        flops += (2 * L * K * K + 4 * pairs * K + 2 * pairs * K
-                  + 3 * L * K + 2 * L * K + 2 * L * K * K + 2 * K * K
-                  + L * K)
+        products += 2 * L * K * K + 2 * (pairs + L) * K + 2 * L * K * K
+        elementwise += (6 * pairs * K + 3 * L * K + 2 * L * K + 2 * K * K
+                        + L * K)
         exps += pairs * K + 2 * L * K + K
-    return flops, exps
+    return products, elementwise, exps
 
 
 def check_wkv6_launch(name, wk, B, S, H, K, dtype, with_state, main_path,
-                      iters=10):
+                      usage, iters=10):
     """wkv6_chunk vs its plain version on the card (y and the final state),
-    its times and the bound; no single PyTorch call computes it."""
+    its times and the bound (products at the TF32 rate, elementwise flops
+    at the fp32 rate, exponentials at the SFU's, beside the earlier
+    fp32-rate bound); no single PyTorch call computes it."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*shape, scale=1.0):
@@ -815,20 +907,31 @@ def check_wkv6_launch(name, wk, B, S, H, K, dtype, with_state, main_path,
                              st_p.abs().max())))
     tol.update(max_abs_err=max(tol["max_abs_err"], tol_s["max_abs_err"]),
                state_tol_used=tol_s["tol_used"])
-    flops, exps = wkv6_flops(S, K)
+    products, elementwise, exps = (n * B * H for n in wkv6_flops(S, K))
+    hpb = wk.heads_per_block(B * H, torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
     elt = r.element_size()
     row = {"kernel": "wkv6_chunk", "launch": name, "main_path": main_path,
            "r": [B, S, H, K], "dtype": str(dtype).replace("torch.", ""),
-           "initial_state": with_state, **tol,
-           "exponentials": exps * B * H,
+           "initial_state": with_state, "route": "mma.sync 3xTF32",
+           "heads_per_block": hpb, "thread_blocks": -(-B * H // hpb),
+           "smem_bytes": wk.wkv6_chunk_smem_bytes(K, dtype, hpb),
+           **build_usage(usage, "wkv6_chunk_kernelI" + (
+               "f" if dtype == torch.float32 else "13__nv_bfloat16")
+               + f"Li{K}ELi{hpb}E"), **tol,
            "ms": time_ms(lambda: wk.wkv6_chunk(r, k, v, lw, u, s0),
                          iters=iters),
            "plain_ms": time_ms(lambda: wk.wkv6_chunk_plain(
                r, k, v, lw, u, s0), iters=2, warmup=1),
            "library_ms": None}
-    row.update(bound(elt * (4 * B * S * H * K + H * K) + 4 * B * S * H * K
-                     + 4 * B * H * K * K * (2 if with_state else 1),
-                     flops * B * H))
+    row.update(bound_parts(
+        elt * (4 * B * S * H * K + H * K) + 4 * B * S * H * K
+        + 4 * B * H * K * K * (2 if with_state else 1),
+        {"products_tf32": (products, TF32_FLOPS),
+         "elementwise_fp32": (elementwise, FP32_FLOPS),
+         "exponentials": (exps, SFU_EXP_PER_S)},
+        products + elementwise))
+    row["tflops"] = (products + elementwise) / row["ms"] / 1e9
     del r, k, v, lw, y, y_p
     torch.cuda.empty_cache()
     return report(row)
@@ -1021,9 +1124,21 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
     if not card:
         fail(f"nvidia-smi gave no card: {smi.stderr.strip()}")
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        max_sm_mhz = float(clk.stdout.strip().splitlines()[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no max SM clock: {clk.stdout!r} "
+             f"{clk.stderr.strip()}")
+    global SFU_EXP_PER_S
+    SFU_EXP_PER_S = SFU_EXP_PER_CLOCK_PER_SM * H100_SMS * max_sm_mhz * 1e6
     print(f"device: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     print(f"card: {card}", flush=True)
+    print(f"max SM clock: {max_sm_mhz} MHz; exponential bound rate "
+          f"{SFU_EXP_PER_S:.4g}/s", flush=True)
 
     # 2. build every kernel source, all nvcc processes at once
     t0 = time.perf_counter()
@@ -1031,6 +1146,7 @@ def main() -> None:
         reports = build.build(build.sources())
     except RuntimeError as e:
         fail(f"kernel build: {e}")
+    usage = {name: ptxas_usage(rep) for name, rep in reports.items()}
     print(f"build: {len(reports)} kernel source(s) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
@@ -1130,10 +1246,12 @@ def main() -> None:
     b0, b1 = randn(hid), randn(n_cls)
     x0 = randn(out_rows[0], f0)
     rows["update_mlp"] = [
-        check_update_launch("layer0_update_relu", um, x0, w0, b0, "relu"),
-        check_update_launch("layer0_update", um, x0, w0, b0, "none"),
+        check_update_launch("layer0_update_relu", um, x0, w0, b0, "relu",
+                            usage["update_mlp"]),
+        check_update_launch("layer0_update", um, x0, w0, b0, "none",
+                            usage["update_mlp"]),
         check_update_launch("layer1_update", um, randn(out_rows[1], hid),
-                            w1, b1, "none")]
+                            w1, b1, "none", usage["update_mlp"])]
     del h0, g1, w0, x0
     torch.cuda.empty_cache()
 
@@ -1240,10 +1358,11 @@ def main() -> None:
                            bf16, False, False)]
     rows["wkv6_chunk"] = [
         check_wkv6_launch("rwkv6_3b_prefill", wk, LM_BATCH, LM_PROMPT, 40, 64,
-                          bf16, False, True),
-        check_wkv6_launch("fp32", wk, 1, 512, 40, 64, f32, False, False),
+                          bf16, False, True, usage["wkv6_chunk"]),
+        check_wkv6_launch("fp32", wk, 1, 512, 40, 64, f32, False, False,
+                          usage["wkv6_chunk"]),
         check_wkv6_launch("ragged_with_state", wk, 2, 1007, 40, 64, bf16,
-                          True, False)]
+                          True, False, usage["wkv6_chunk"])]
 
     # 7. serving at the published widths and depths
     for arch in LM_ARCHS:

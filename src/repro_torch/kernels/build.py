@@ -133,6 +133,11 @@ def on_card(what: str, t: torch.Tensor) -> bool:
     return True
 
 
+def sm_count(t: torch.Tensor) -> int:
+    """The number of SMs of the card ``t`` lies on (for launch plans)."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def stream(t: torch.Tensor) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as an int."""
     return torch.cuda.current_stream(t.device).cuda_stream

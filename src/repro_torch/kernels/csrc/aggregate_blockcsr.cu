@@ -63,7 +63,11 @@
 #include <climits>
 #include <cstdint>
 
+#include "mma_tf32.cuh"
+
 namespace {
+
+using namespace mma_tf32;
 
 constexpr int BLK = 128;
 constexpr int FS = 64;          // feature columns per thread block
@@ -74,54 +78,6 @@ constexpr int A_LD = KC + 4;    // padded row of the A chunk
 constexpr int H_LD = FS + 8;    // padded row of the h chunk
 constexpr int STAGE_FLOATS = BLK * A_LD + KC * H_LD;
 constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// copies BYTES (4, 8 or 16) from global to shared memory, zero-filling
-// what `src_bytes` leaves out
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int src_bytes) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "n"(BYTES), "r"(src_bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// x split into TF32 big and small parts, x ~ hi + lo
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-// d (16 x 8) += a (16 x 8, row) b (8 x 8, col), TF32 in, fp32 out
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // HV: floats per cp.async of an h row (4, 2 or 1)
 template <int HV>
@@ -212,17 +168,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          // the step's three products sum inside the tensor core from 0,
-          // small terms first; the step then joins acc by a rounded fp32
-          // add, since the tensor core truncates its sums
-          float step[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(step, a_lo[mt], b_hi[nt]);
-          mma_tf32(step, a_hi[mt], b_lo[nt]);
-          mma_tf32(step, a_hi[mt], b_hi[nt]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += step[e];
-        }
+        for (int nt = 0; nt < 4; ++nt)
+          mma_step(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi[nt], b_lo[nt]);
     }
   }
   cp_async_wait<0>();  // no copy outlives the block

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import (check_tensor, launch_counts, on_card,
-                                       raise_on, stream)
+                                       raise_on, sm_count, stream)
 
 launch_counts.update(update_mlp=0)
 
@@ -26,7 +26,11 @@ launch_counts.update(update_mlp=0)
 ACTS = {"none": 0, "relu": 1, "gelu": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"update_mlp_launch": ([_P] * 4 + [_I] * 4 + [_P], _I)}
+_SIGNATURES = {"update_mlp_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
+               "update_mlp_smem_bytes": ([_I], _I)}
+# the kernel's tile shapes (rows, columns) by plan number
+# (csrc/update_mlp.cu: Big, Small)
+TILES = {0: (64, 128), 1: (16, 64)}
 
 
 def update_epilogue(y: torch.Tensor, b, act: str) -> torch.Tensor:
@@ -49,6 +53,21 @@ def update_mlp_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Plain version of ``update_mlp``: ``update_epilogue(x @ w, b, act)``
     in fp32."""
     return update_epilogue(x.float() @ w.float(), b, act)
+
+
+def plan(M: int, N: int, sms: int) -> int:
+    """The tile plan for an (M, N) output on a card of ``sms`` SMs: the
+    64 x 128 tiles (0) where they give at least two thread blocks per SM,
+    else the 16 x 64 tiles (1), so a small output still spreads over the
+    card (the layer-1 update, 1,024 x 41, runs 64 blocks, not 16)."""
+    bm, bn = TILES[0]
+    return 0 if -(-M // bm) * -(-N // bn) >= 2 * sms else 1
+
+
+def update_mlp_smem_bytes(tiles: int) -> int:
+    """Dynamic shared memory of one thread block of tile plan ``tiles``
+    (builds the kernel)."""
+    return build.bind("update_mlp", _SIGNATURES).update_mlp_smem_bytes(tiles)
 
 
 def _check(x, w, b, act) -> None:
@@ -87,7 +106,7 @@ def update_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(x.device):
         status = build.bind("update_mlp", _SIGNATURES).update_mlp_launch(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, K,
-            N, ACTS[act], stream(x))
+            N, ACTS[act], plan(M, N, sm_count(x)), stream(x))
     raise_on(status, "update_mlp", "update_mlp")
     launch_counts["update_mlp"] += 1
     return out

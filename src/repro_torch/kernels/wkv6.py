@@ -23,13 +23,14 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import (check_tensor, launch_counts, on_card,
-                                       raise_on, stream)
+                                       raise_on, sm_count, stream)
 
 launch_counts.update(wkv6_chunk=0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"wkv6_chunk_launch": ([_P] * 8 + [_I] * 4
-                                     + [ctypes.c_longlong, _I, _P], _I)}
+                                     + [ctypes.c_longlong, _I, _I, _P], _I),
+               "wkv6_chunk_smem_bytes": ([_I, _I, _I], _I)}
 # element types of r, k, v, u and y, by the code csrc/typed_io.cuh uses
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (16, 32, 64)
@@ -73,6 +74,33 @@ def wkv6_chunk_plain(r, k, v, lw, u, state=None, chunk: int = CHUNK
     return y.to(r.dtype), s
 
 
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Raises unless every given tensor starts on a 16-byte boundary: the
+    kernel copies r, k, v and lw rows with 16-byte ``cp.async``. Rows are
+    K elements (K >= 16) apart, so they are aligned once the base is."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"wkv6_chunk: {name} must start on a 16-byte "
+                             f"boundary for the kernel's copies (it starts "
+                             f"at {t.data_ptr() % 16} past one)")
+
+
+def heads_per_block(heads: int, sms: int) -> int:
+    """Heads each thread block of the kernel runs: two when the B x H
+    heads outnumber the card's ``sms`` SMs, so the second head on an SM
+    runs in step with the first inside one block (the same code, 128
+    registers a thread) rather than as a second block; else one, which
+    may take up to 255 registers a thread."""
+    return 2 if heads > sms else 1
+
+
+def wkv6_chunk_smem_bytes(K: int, dtype: torch.dtype, hpb: int) -> int:
+    """Dynamic shared memory of one thread block of ``hpb`` heads (builds
+    the kernel)."""
+    return build.bind("wkv6_chunk", _SIGNATURES).wkv6_chunk_smem_bytes(
+        K, DTYPES[dtype], hpb)
+
+
 def _check(r, k, v, lw, u, state) -> None:
     if r.dim() != 4 or r.shape != k.shape or r.shape != lw.shape \
             or v.shape[:3] != r.shape[:3]:
@@ -94,8 +122,9 @@ def wkv6_chunk(r, k, v, lw, u, state: Optional[torch.Tensor] = None
     H, K), from ``state`` (B, H, K, V) fp32 (None: zeros). Returns (y (B, S,
     H, V) in r's dtype, final state fp32). A CUDA tensor goes through
     ``csrc/wkv6_chunk.cu`` (r, k, v, u float32 or bfloat16 alike, lw and
-    the state float32, K = V in 16, 32, 64, every tensor contiguous), in
-    chunks of 16; a CPU tensor through ``wkv6_chunk_plain``."""
+    the state float32, K = V in 16, 32, 64, every tensor contiguous, r, k,
+    v and lw 16-byte aligned), in chunks of 16; a CPU tensor through
+    ``wkv6_chunk_plain``."""
     _check(r, k, v, lw, u, state)
     if not on_card("wkv6_chunk", r):
         return wkv6_chunk_plain(r, k, v, lw, u, state)
@@ -111,6 +140,7 @@ def wkv6_chunk(r, k, v, lw, u, state: Optional[torch.Tensor] = None
     check_tensor("lw", lw, r.device, torch.float32)
     if state is not None:
         check_tensor("state", state, r.device, torch.float32)
+    check_aligned(r=r, k=k, v=v, lw=lw)
     y = torch.empty_like(v)
     s_out = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
     if S == 0:
@@ -121,7 +151,8 @@ def wkv6_chunk(r, k, v, lw, u, state: Optional[torch.Tensor] = None
             r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
             u.data_ptr(), None if state is None else state.data_ptr(),
             y.data_ptr(), s_out.data_ptr(), B, S, H, K,
-            H * K if u.dim() == 3 else 0, DTYPES[r.dtype], stream(r))
+            H * K if u.dim() == 3 else 0, DTYPES[r.dtype],
+            heads_per_block(B * H, sm_count(r)), stream(r))
     raise_on(status, "wkv6_chunk", "wkv6_chunk")
     launch_counts["wkv6_chunk"] += 1
     return y, s_out

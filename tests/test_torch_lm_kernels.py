@@ -30,7 +30,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (check_tma_operands,
                                                  flash_attention_fwd,
                                                  flash_attention_plain)
-from repro_torch.kernels.wkv6 import wkv6_chunk, wkv6_chunk_plain
+from repro_torch.kernels.wkv6 import (check_aligned, heads_per_block,
+                                      wkv6_chunk, wkv6_chunk_plain)
 
 FLASH_TOL = dict(atol=2e-4, rtol=1e-4)
 WKV_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -173,6 +174,55 @@ def test_wkv6_plain_state_matches_model_chunked(s, with_state):
                        torch.from_numpy(s0) if with_state else None)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **WKV_TOL)
     np.testing.assert_allclose(st.numpy(), np.asarray(st_j), **WKV_TOL)
+
+
+@pytest.mark.parametrize("k", [16, 64])
+def test_wkv6_plain_strong_decays_match_pallas_and_oracle(k):
+    """lw = -exp(3) for every token and channel: a chunk of 16 sums to
+    about -320, far past the -88 where exp of a chunk-wide reference point
+    overflows fp32. The pairwise form keeps every exponent <= 0, so the
+    plain version, the Pallas kernel and the token-by-token oracle stay
+    finite and agree."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.wkv6 import wkv6_chunk as pallas
+    r, kk, v, _, u = _wkv_inputs(7 * k, 2, 40, k)
+    lw = np.full_like(r, -np.exp(3.0))
+    want = np.asarray(pallas(*map(jnp.asarray, (r, kk, v, lw, u)),
+                             chunk=16, interpret=True))
+    oracle = np.asarray(jref.wkv6_ref(*map(jnp.asarray,
+                                           (r, kk, v, lw, u))))
+    y, st = wkv6_chunk(*(t[:, :, None] for t in _t(r, kk, v, lw)),
+                       torch.from_numpy(u))
+    assert np.isfinite(want).all() and np.isfinite(oracle).all()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    np.testing.assert_allclose(y[:, :, 0].numpy(), want, **WKV_TOL)
+    np.testing.assert_allclose(y[:, :, 0].numpy(), oracle, **WKV_TOL)
+
+
+@pytest.mark.parametrize("case", ["fresh", "flat_heads", "offset"])
+def test_wkv6_alignment_check(case):
+    """The kernel copies rows with 16-byte cp.async: fresh tensors and the
+    reference's flattened (BH, S, 1, K) view pass; a base 4 bytes past a
+    boundary is refused."""
+    if case == "fresh":
+        check_aligned(r=torch.zeros(2, 40, 3, 64, dtype=torch.bfloat16),
+                      lw=torch.zeros(2, 40, 3, 64))
+    elif case == "flat_heads":
+        check_aligned(r=torch.zeros(6, 40, 16)[:, :, None])
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            check_aligned(lw=torch.zeros(40 * 16 + 1)[1:].view(1, 40, 1, 16))
+
+
+@pytest.mark.parametrize("heads,sms,want", [
+    (160, 132, 2),   # RWKV-6-3B's prefill: B 4 x H 40 on an H100
+    (132, 132, 1), (40, 132, 1), (1, 132, 1), (150, 132, 2)])
+def test_wkv6_heads_per_block(heads, sms, want):
+    """Two heads per thread block only when the heads outnumber the SMs:
+    then two heads share an SM in one block; else each has a block (and
+    an SM) of its own."""
+    assert heads_per_block(heads, sms) == want
 
 
 def test_wkv6_oracle_matches_reference():
@@ -336,6 +386,67 @@ def test_wkv6_kernel_matches_plain_on_card(B, S, H, K, with_state, dtype):
                                **(WKV_TOL if dt == torch.float32
                                   else BF16_TOL))
     torch.testing.assert_close(st, st_p, **WKV_TOL)
+
+
+def _wkv_card(B, S, H, K, dtype, with_state, strong=False, seed=0,
+              batch_u=False):
+    dt = getattr(torch, dtype)
+    r, k, v = (torch.from_numpy(_normal(seed + i, B, S, H, K, scale=0.5))
+               .cuda().to(dt) for i in range(3))
+    lw = (torch.full((B, S, H, K), -float(np.exp(3.0)), device="cuda")
+          if strong else
+          -torch.from_numpy(_normal(seed + 3, B, S, H, K)).cuda().exp())
+    u = torch.from_numpy(_normal(seed + 4, *((B,) if batch_u else ()), H, K,
+                                 scale=0.5)).cuda().to(dt)
+    s0 = (torch.from_numpy(_normal(seed + 5, B, H, K, K)).cuda()
+          if with_state else None)
+    before = build.launch_counts["wkv6_chunk"]
+    y, st = wkv6_chunk(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert build.launch_counts["wkv6_chunk"] == before + 1
+    y_p, st_p = wkv6_chunk_plain(r, k, v, lw, u, s0)
+    assert y.dtype == dt and st.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y.float(), y_p.float(),
+                               **(WKV_TOL if dt == torch.float32
+                                  else BF16_TOL))
+    torch.testing.assert_close(st, st_p, **WKV_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 1007])
+@pytest.mark.parametrize("K", [16, 32, 64])
+def test_wkv6_kernel_head_sizes_and_lengths_on_card(K, S, dtype,
+                                                    with_state):
+    """Every head size, one token, a chunk less one, one chunk, a chunk
+    and one, and a ragged 1,007 (62 chunks and 15 tokens: the ring and the
+    producer/consumer hand-over turn many times)."""
+    _card()
+    _wkv_card(2, S, 3, K, dtype, with_state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [16, 64])
+def test_wkv6_kernel_strong_decays_on_card(K, dtype):
+    """lw = -exp(3) per token: a chunk's decays sum to about -320, where a
+    factored exp(c_ref - c_j) would overflow; the kernel keeps the
+    pairwise form and stays finite and right."""
+    _card()
+    _wkv_card(2, 75, 3, K, dtype, True, strong=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K", [(3, 50, 64), (7, 19, 16)])
+def test_wkv6_kernel_more_heads_than_sms_on_card(B, H, K):
+    """More heads than the H100's 132 SMs, so two heads per thread block:
+    150 heads, and an odd 133, whose last block's spare half must write
+    nothing; from a per-batch u (the reference's flattened layout) and a
+    given state."""
+    _card()
+    _wkv_card(B, 40, H, K, "bfloat16", True, seed=9, batch_u=True)
 
 
 @pytest.mark.gpu

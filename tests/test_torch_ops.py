@@ -23,7 +23,8 @@ from repro_torch.kernels import aggregate as agg
 from repro_torch.kernels import ops
 from repro_torch.kernels.layout import (BLK, build_block_coo_pair,
                                         densify_tiles_np)
-from repro_torch.kernels.update_mlp import update_mlp, update_mlp_plain
+from repro_torch.kernels.update_mlp import (plan, update_mlp,
+                                            update_mlp_plain)
 
 RTOL, ATOL = 1e-5, 1e-6
 ACTS = ("none", "relu", "gelu")
@@ -32,7 +33,11 @@ ACTS = ("none", "relu", "gelu")
 # the last layer's (1,024 x 128) @ (128 x 41)
 SHAPES = {"paper_layer0": (26_624, 602, 128), "ragged": (1_000, 70, 41),
           "paper_layer1": (1_024, 128, 41)}
-CARD_SHAPES = {**SHAPES, "one_row": (1, 3, 5)}
+# on the card also: K 1 and 7 (rows 4 and 28 bytes apart: 4-byte copies),
+# and the 64 x 128 tile plan with a ragged M (17,001 = 265 x 64 + 41), K
+# 602 (rows 8-byte aligned) and N 41
+CARD_SHAPES = {**SHAPES, "one_row": (1, 3, 5), "k1": (300, 1, 41),
+               "k7": (1_000, 7, 130), "big_tiles_ragged": (17_001, 602, 41)}
 
 
 def _arr(seed, *shape, scale=1.0):
@@ -76,6 +81,18 @@ def test_update_plain_branch_matches_reference(act):
     out = ops.update(torch.from_numpy(x), torch.from_numpy(w),
                      torch.from_numpy(b), act=act, use_pallas=False)
     np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=_atol(ref))
+
+
+@pytest.mark.parametrize("M,N,sms,want", [
+    (26_624, 128, 132, 0),   # the paper's layer 0: 416 tiles of 64 x 128
+    (1_024, 41, 132, 1),     # layer 1: 16 big tiles; 64 of 16 x 64
+    (17_001, 41, 132, 0),    # 266 big tiles, two per SM
+    (16_832, 128, 132, 1),   # 263: fewer than two per SM
+    (1, 5, 132, 1), (16_896, 128, 132, 0), (4_096, 128, 16, 0)])
+def test_update_mlp_tile_plan(M, N, sms, want):
+    """The big 64 x 128 tiles only where they give at least two thread
+    blocks per SM; else the 16 x 64 tiles, which spread a small output."""
+    assert plan(M, N, sms) == want
 
 
 @pytest.mark.parametrize("which", ["x", "w", "b"])

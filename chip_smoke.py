@@ -58,9 +58,15 @@ init. Phases, each of which exits non-zero on failure:
      ``aggregate_edges`` kernel and ``torch.matmul``) and ``torch.sparse.mm``
      with ``torch.matmul``. Beside them the bound: the larger of the bytes
      the launch must move over 3.35 TB/s and its flops over the 67 TFLOP/s
-     fp32 rate (published H100 SXM peaks). The fused kernels' update flops
-     are counted over the destination rows that hold an edge or a self
-     term (``flops``), and over all padded rows as ``flops_all_rows``;
+     fp32 rate (published H100 SXM peaks). ``fused_bwd``'s lines also
+     give its plan (``real_blocks``, ``groups``, ``slab``, ``ctas``,
+     ``partial_bytes``, held under 8 MiB), the device times of its dw
+     kernel, its reduce and its plan's PyTorch ops apart
+     (``torch.profiler``), and the build report's registers and spill
+     bytes; two launches must give bitwise the same dw (and db). The
+     fused kernels' update flops are counted over the destination rows
+     that hold an edge or a self term (``flops``), and over all padded
+     rows as ``flops_all_rows``;
      without a bias the backward reads ``g`` over the same rows, since a
      row whose z is zero adds nothing to dw. ``aggregate_blockcsr``'s
      flops are 2*128*128*F per slot that holds an edge, over the 495
@@ -175,6 +181,7 @@ MERGED_ITERATIONS = 2
 SEED = 0
 RTOL, ATOL = 1e-5, 1e-6
 LOSS_RTOL = 1e-4
+BWD_PARTIAL_CAP = 8 << 20   # fused_bwd's dw partials stay under this
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor cores
@@ -488,23 +495,69 @@ def check_fused_fwd(name, agg, lay, h, w, s=None):
     return report(row)
 
 
-def check_fused_bwd(name, agg, lay, h, w, g, s=None):
-    """fused_bwd vs plain on the card (act none: dw only), with its dw
-    partial buffer, times, yardsticks and bound."""
+def device_split(fn, calls: int = 10) -> dict:
+    """Device milliseconds per call of ``fn`` by kernel, from
+    ``torch.profiler`` over ``calls`` calls: {kernel name: ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name.replace("(anonymous namespace)::", "")
+            key = key.replace("void ", "").split("(")[0][-80:]
+            split[key] = (split.get(key, 0.0)
+                          + e.time_range.elapsed_us() / 1e3 / calls)
+    return split
+
+
+def check_fused_bwd(name, agg, lay, h, w, g, usage, s=None):
+    """fused_bwd vs plain on the card (act none: dw only), twice, bitwise
+    equal; its plan (real blocks, groups, slab, partial bytes), times
+    (the whole call, and the dw kernel, the reduce and the plan's PyTorch
+    ops apart, by the profiler), yardsticks and bound."""
     args = on_card(lay, FWD)
     got = agg.fused_bwd(*args, h, g, w, None, s)
+    again = agg.fused_bwd(*args, h, g, w, None, s)
     want = agg.fused_bwd_plain(*args, h, g, w, None, s)
     torch.cuda.synchronize()
     err = max(check_close(name, what, a, b)
               for what, a, b in zip(("dw", "db", "dy"), got, want))
+    if not torch.equal(got[0], again[0]):
+        fail(f"{name}: two launches gave different dw bits")
+    if got[1] is not None and not torch.equal(got[1], again[1]):
+        fail(f"{name}: two launches gave different db bits")
     F, N = w.shape
     n_dstb = lay["cols"].shape[0]
-    groups, size = agg.fused_bwd_groups(n_dstb, F, N)
+    slab, groups = agg.fused_bwd_shape(n_dstb, F, N, torch.cuda
+                                       .get_device_properties(0)
+                                       .multi_processor_count)
+    seg = lay["tile_seg"][::lay["cols"].shape[1]]
+    split = device_split(lambda: agg.fused_bwd(*args, h, g, w, None, s))
+    dw_ms = sum(t for k, t in split.items() if "fused_dw" in k)
+    reduce_ms = sum(t for k, t in split.items() if "fused_reduce" in k)
     row = {"kernel": "fused_bwd", "launch": name,
            **fused_shapes(lay, h, w, s),
-           "smem_bytes": agg.fused_bwd_smem_bytes(args[3].shape[1]),
-           "dw_groups": groups, "blocks_per_group": size,
-           "partial_bytes": groups * F * N * 4, "max_abs_err": err}
+           "smem_bytes": agg.fused_bwd_smem_bytes(args[3].shape[1], slab),
+           "real_blocks": int((np.diff(seg) > 0).sum()),
+           # the h rows the walk gathers, an edge's row once for each edge
+           "gather_bytes": 4 * F * int(lay["tile_seg"][-1]),
+           "n_dstb": n_dstb, "groups": groups, "slab": slab,
+           "ctas": groups * -(-F // slab) * -(-N // 128),
+           "partial_bytes": groups * F * N * 4, "max_abs_err": err,
+           "dw_bitwise_repeat": True,
+           **build_usage(usage, "fused_dw"),
+           "dw_kernel_ms": dw_ms, "reduce_ms": reduce_ms,
+           "plan_ms": sum(split.values()) - dw_ms - reduce_ms,
+           "device_kernels": split}
+    if row["partial_bytes"] > BWD_PARTIAL_CAP:
+        fail(f"{name}: {row['partial_bytes']} B of dw partials, over the "
+             f"{BWD_PARTIAL_CAP} B cap")
     n_dst_pad = row["n_dst_pad"]
     a = csr(lay, FWD, n_dst_pad, h.shape[0])
 
@@ -1194,9 +1247,10 @@ def main() -> None:
         check_fused_fwd("layer1_fused_fwd", agg, layers[1], h1, w1)]
     rows["fused_bwd"] = [
         check_fused_bwd("layer0_fused_bwd", agg, layers[0], h0, w0,
-                        randn(out_rows[0], hid)),
+                        randn(out_rows[0], hid), usage["aggregate_fused_bwd"]),
         check_fused_bwd("layer1_fused_bwd", agg, layers[1], h1, w1,
-                        randn(out_rows[1], n_cls))]
+                        randn(out_rows[1], n_cls),
+                        usage["aggregate_fused_bwd"])]
     cfg_m = dataclasses.replace(cfg, name="gin", aggregate_backend=
                                 "pallas_fused", batch_targets=MERGED_TARGETS)
     mb_m = NeighborSampler(graph, cfg_m, graph.train_ids, 0,
@@ -1224,7 +1278,8 @@ def main() -> None:
             s_l))
         rows["fused_bwd"].append(check_fused_bwd(
             f"gin{MERGED_TARGETS}_layer{l}_fused_bwd", agg, lay_l, h_l, w_l,
-            randn(dst_m[l], w_l.shape[1]), s_l))
+            randn(dst_m[l], w_l.shape[1]), usage["aggregate_fused_bwd"],
+            s_l))
     rows["fused_bwd_merged"] = [check_merged(
         "layer1_merged_bwd", agg, lay_m1,
         randn(lay_m1["cols_t"].shape[0] * 128, hid),

@@ -43,7 +43,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import (  # noqa: F401  (re-exported)
     check_tensor, launch_counts, on_card, raise_on, reset_launch_counts,
-    stream)
+    sm_count, stream)
 from repro_torch.kernels.layout import BLK
 from repro_torch.kernels.update_mlp import ACTS, update_epilogue
 
@@ -112,8 +112,8 @@ _SIGNATURES = {
         "aggregate_fused_launch": ([_P] * 9 + [_I, _I, _L, _I, _I, _I, _P],
                                    _I)},
     "aggregate_fused_bwd": {
-        "fused_bwd_smem_bytes": ([_I], _L),
-        "fused_bwd_launch": ([_P] * 14 + [_I, _I, _L, _I, _I, _I, _I, _I,
+        "fused_bwd_smem_bytes": ([_I, _I], _L),
+        "fused_bwd_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _I, _I, _I,
                                           _P], _I),
         "fused_bwd_merged_smem_bytes": ([_I, _I], _L),
         "fused_bwd_merged_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _P],
@@ -368,13 +368,16 @@ class AggregateEdges(torch.autograd.Function):
 
 # the reference takes the merged backward only up to this feature width
 MERGED_MAX_F = 256
-# feature columns per slice of the aggregate the kernels keep on chip, and
-# output columns per thread block (csrc/edge_walk.cuh: FB, NB)
-_FS, _NB = 64, 128
-# the general backward's grid aims at two waves of one block on each of
-# an H100's 132 SMs, with its dw partials held under this many bytes
-_BWD_TARGET_BLOCKS = 264
+# output columns per thread block of the fused kernels (csrc/
+# fused_update.cuh: NB)
+_NB = 128
+# fused_bwd's dw pass (csrc/aggregate_fused_bwd.cu): the z columns a thread
+# block may take (S), the cap on its partials, and the work a block adds
+# when it has a self term or a bias, in edges (staging its rows and dy
+# tile, and its product, cost about as much as walking 512 edges)
+_BWD_SLABS = (128, 32)
 _BWD_PARTIAL_CAP = 8 << 20
+_BWD_BLOCK_COST = 512
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -513,22 +516,56 @@ def aggregate_fused(tile_off, val, seg, cols, h, w, b=None, s=None, *,
     return out
 
 
-def fused_bwd_groups(n_dstb: int, F: int, N: int) -> tuple:
-    """(groups, destination blocks per group) of ``fused_bwd``'s dw
-    reduction: each thread block sums ``z^T dy`` over one contiguous group
-    of destination blocks into its own (F, N) partial, and a second pass
-    adds the partials in group order, so dw has one summation order on
-    every run. The groups give about ``_BWD_TARGET_BLOCKS`` thread blocks
-    and keep the partials under ``_BWD_PARTIAL_CAP`` bytes."""
-    per_group = -(-F // _FS) * -(-N // _NB)
-    want = max(1, -(-_BWD_TARGET_BLOCKS // per_group))
+def fused_bwd_shape(n_dstb: int, F: int, N: int, sms: int) -> tuple:
+    """(slab, groups) of ``fused_bwd``'s dw pass on a card of ``sms``
+    SMs, from the shapes alone, so the grid (groups x slabs of z columns x
+    tiles of 128 output columns) and the (groups, F, N) partials are sized
+    without reading the device. The grid fills the card in one wave of one
+    thread block an SM (a block takes 512 threads and ~170 KB of shared
+    memory); the groups are at most ``n_dstb`` and keep the partials under
+    ``_BWD_PARTIAL_CAP`` bytes. The slab is 128 z columns where that
+    busies half the SMs, else 32: a wider slab walks each edge fewer
+    times, a narrower one spreads a layer of few destination blocks
+    (layer 1's 8) over more SMs."""
     cap = max(1, _BWD_PARTIAL_CAP // max(1, 4 * F * N))
-    size = -(-n_dstb // max(1, min(n_dstb, want, cap)))
-    return -(-n_dstb // size), size
+    for slab in _BWD_SLABS:
+        per_group = -(-F // slab) * -(-N // _NB)
+        groups = max(1, min(n_dstb, cap, sms // per_group))
+        if 2 * groups * per_group > sms:
+            break
+    return slab, groups
 
 
-def fused_bwd_smem_bytes(max_blk: int) -> int:
-    return _lib("aggregate_fused_bwd").fused_bwd_smem_bytes(max_blk)
+def fused_bwd_plan(seg: torch.Tensor, max_blk: int, groups: int,
+                   dense: bool) -> torch.Tensor:
+    """Cuts the destination blocks into ``groups`` contiguous groups of
+    about equal work, on ``seg``'s device and with no host sync. Returns
+    (groups + 1,) int64 bounds: group g takes blocks [bounds[g],
+    bounds[g+1]), in order, so the partials still sum in one fixed order.
+
+    A block's work is its edge count (``seg`` at block boundaries), plus
+    ``_BWD_BLOCK_COST`` when ``dense`` (a self term s or a bias: then every
+    block has rows to add, edges or not). Block i falls in the group whose
+    share of the total work holds the midpoint of its own; a block with no
+    work past the last busy one falls in no group, since it adds
+    nothing."""
+    cost = seg[::max_blk].long()  # work before each block, and the total
+    if dense:
+        cost += torch.arange(0, _BWD_BLOCK_COST * cost.numel(),
+                             _BWD_BLOCK_COST, device=seg.device)
+    mid2 = cost[:-1] + cost[1:]  # twice each block's midpoint
+    # group g starts at the first block whose midpoint reaches g/groups of
+    # the total: 2 g total // groups against mid2
+    targets = torch.div(torch.arange(0, 2 * groups + 1, 2,
+                                     device=seg.device) * cost[-1],
+                        groups, rounding_mode="floor")
+    return torch.searchsorted(mid2, targets)
+
+
+def fused_bwd_smem_bytes(max_blk: int, slab: int) -> int:
+    """Dynamic shared memory of ``fused_bwd``'s largest thread block for a
+    layout with ``max_blk`` slots and the plan's slab (builds it)."""
+    return _lib("aggregate_fused_bwd").fused_bwd_smem_bytes(max_blk, slab)
 
 
 def fused_bwd(tile_off, val, seg, cols, h, g, w, b=None, s=None, *,
@@ -558,18 +595,20 @@ def fused_bwd(tile_off, val, seg, cols, h, g, w, b=None, s=None, *,
     if dw.numel() == 0 or n_dstb == 0:
         dw.zero_()
         return dw, (db.zero_() if db is not None else None), dy
-    groups, size = fused_bwd_groups(n_dstb, F, N)
+    slab, groups = fused_bwd_shape(n_dstb, F, N, sm_count(h))
+    bounds = fused_bwd_plan(seg, max_blk, groups,
+                            s is not None or b is not None)
     part_dw = torch.empty((groups, F, N), dtype=torch.float32, device=dev)
     part_db = (torch.empty((groups, N), dtype=torch.float32, device=dev)
                if b is not None else None)
-    _check_smem("fused_bwd", fused_bwd_smem_bytes(max_blk))
+    _check_smem("fused_bwd", fused_bwd_smem_bytes(max_blk, slab))
     with torch.cuda.device(dev):
         status = _lib("aggregate_fused_bwd").fused_bwd_launch(
             tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
             cols.data_ptr(), h.data_ptr(), g.data_ptr(), w.data_ptr(),
-            _ptr(b), _ptr(s), dw.data_ptr(), _ptr(db), _ptr(dy),
-            part_dw.data_ptr(), _ptr(part_db), n_dstb, max_blk, h.shape[0],
-            F, N, ACTS[act], size, groups, stream(h))
+            _ptr(b), _ptr(s), bounds.data_ptr(), dw.data_ptr(), _ptr(db),
+            _ptr(dy), part_dw.data_ptr(), _ptr(part_db), n_dstb, max_blk,
+            h.shape[0], F, N, ACTS[act], groups, slab, stream(h))
     raise_on(status, "aggregate_fused_bwd", "fused_bwd")
     launch_counts["fused_bwd"] += 1
     return dw, db, dy

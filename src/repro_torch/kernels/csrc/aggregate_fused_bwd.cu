@@ -12,17 +12,13 @@
 //     1. (act not none only) fused_dy_kernel, one block per (destination
 //        block, 128 output columns), forms y as the forward does and
 //        writes dy;
-//     2. fused_dw_partial_kernel, one block per (group of contiguous
-//        destination blocks, 64-column slice of F, 128 output columns),
-//        recomputes each z slice of its group in shared memory and sums
-//        z^T dy over the group, in order, into registers; it writes one
-//        (F, N) partial per group (and a db partial);
-//     3. fused_reduce_kernel adds the partials in group order.
-//   No float atomics: dw has one summation order on every run. The groups
-//   (kernels/aggregate.py:fused_bwd_groups) give the grid about 264 blocks
-//   and keep the partials under 8 MB; at layer 0 of the paper batch that is
-//   26 groups of 8 blocks, 8.0 MB, against the 64 MB aggregate the fused
-//   datapath keeps out of device memory.
+//     2. fused_dw_kernel, one thread block per (group, slab of z columns,
+//        128 output columns), sums z_i^T dy_i over its group's destination
+//        blocks, in order, into registers and writes one (F, N) partial per
+//        group (and a db partial);
+//     3. fused_reduce_kernel adds the partials in group order, skipping
+//        the groups the plan gave no block (they wrote nothing).
+//   No float atomics: dw has one summation order on every run.
 //
 // fused_bwd_merged — replaces src/repro/kernels/aggregate.py:
 //   _fused_bwd_merged_kernel (called by _fused_bwd_merged_call), the case of
@@ -42,13 +38,44 @@
 // (0.022 ms at 3.35 TB/s). chip_smoke.py recomputes the bounds from the
 // batch it runs.
 //
-// Design: a simple kernel that is right. Plain fp32 FMA loops over
-// register tiles (fused_update.cuh); wgmma, TMA and a wider grid for small
-// layers are later work.
+// fused_dw_kernel's design. At layer 0 of the paper batch only 52 of the
+// 208 destination blocks hold an edge (~1,142 each), and each edge names
+// a 2.4 KB h row: the rows the edges gather come to 143 MB, 2.5x the
+// 57.8 MB of distinct rows the bound counts, and gathering them takes
+// about half the time (the rest is resolving edges, staging and the
+// product; PERF.md has the split):
+//   * the plan (kernels/aggregate.py: fused_bwd_shape, fused_bwd_plan)
+//     cuts the destination blocks into contiguous groups of about equal
+//     work on the device, and sizes the grid at one 512-thread block per
+//     SM from the shapes; a block with no edge and no s (and no db to add
+//     to) is skipped before any load;
+//   * a thread block covers a slab of S = 128 or 32 z columns (the plan
+//     narrows it where a layer has few destination blocks), so it
+//     resolves each edge of a block once for S columns: each slot's
+//     thread writes the slot's source block into the places of its edges
+//     (no edge searches for its slot), each edge's (row, source row,
+//     weight) goes to shared memory, and a counting sort puts the edges
+//     in row order, ranking them with __match_any_sync rather than
+//     atomics, so every run takes one order;
+//   * the walk gives each of the 16 warps a run of whole rows with about
+//     equal edges; a warp streams its edges with 16 / (S / 32) h rows in
+//     flight a lane (more ran no faster), sums each row in registers in
+//     edge order and adds it once to the z tile, which holds s (or
+//     zeros);
+//   * s and the block's dy tile are staged by cp.async while the edges are
+//     resolved and walked;
+//   * z_slab^T dy runs on mma.sync m16n8k8 with the 3xTF32 split
+//     (mma_tf32.cuh: split_tf32_fast, each step of 8 rows summed from zero
+//     and joined to the fp32 accumulator by a rounded add), 16 warps as
+//     (S / 32) x (16 / (S / 32)), each owning 32 z columns and a share of
+//     the 128 output columns in registers across the group's blocks.
+
+#include <stdint.h>
 
 #include <algorithm>
 
 #include "fused_update.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -67,45 +94,446 @@ fused_dy_kernel(const int* __restrict__ tile_off,
                      blockIdx.y * NB, max_blk, n_src, F, N, act, smem_raw);
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_dw_partial_kernel(const int* __restrict__ tile_off,
-                        const float* __restrict__ val,
-                        const int* __restrict__ seg,
-                        const int* __restrict__ cols,
-                        const float* __restrict__ h,
-                        const float* __restrict__ s,
-                        const float* __restrict__ dy,
-                        float* __restrict__ part_dw,
-                        float* __restrict__ part_db, int n_dstb,
-                        int group_size, int max_blk, long long n_src, int F,
-                        int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int grp = blockIdx.x;
-  const int i_begin = grp * group_size;
-  const int i_end = min(n_dstb, i_begin + group_size);
-  float* db_out = (part_db != nullptr && blockIdx.y == 0)
-                      ? part_db + (long long)grp * N : nullptr;
-  dw_block(tile_off, val, seg, cols, h, s, dy,
-           part_dw + (long long)grp * F * N, db_out, i_begin, i_end,
-           blockIdx.y * FB, blockIdx.z * NB, max_blk, n_src, F, N, smem_raw);
+namespace dwk {
+
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK = 2048;             // edges resolved at once
+constexpr int PER_THREAD = CHUNK / THREADS;
+constexpr int SLOTS = 4;                // slots a thread resolves at once
+constexpr int LDY = NB + 8;             // dy tile row stride (B rows: 8 mod 32)
+
+// a slab of S z columns
+template <int S>
+struct Slab {
+  static constexpr int CPL = S / 32;         // walk: columns per lane
+  static constexpr int UNROLL = 16 / CPL;    // walk: h rows in flight
+  static constexpr int LDZ = S + 8;          // z tile row stride
+  static constexpr int MW = S / 32;          // product: warps along z
+  static constexpr int NW = WARPS / MW;      // ... and along dy columns
+  static constexpr int NT = NB / NW / 8;     // n8 tiles of a warp
+};
+
+__host__ __device__ inline size_t smem_bytes(int slab) {
+  return sizeof(float) * (size_t)BLK * (slab + 8 + LDY)   // z, dy tiles
+         + (sizeof(int) + sizeof(float)) * CHUNK          // src, weight
+         + sizeof(int) * (2 * BLK + 1 + WARPS * BLK)      // row counts
+         + (sizeof(unsigned short) + 1) * CHUNK;          // order, row
 }
 
-// dw[x] = sum over groups, in order, of part_dw[grp][x]; then db likewise.
+struct Smem {
+  float* zt;        // BLK x LDZ: z of the slab
+  float* dys;       // BLK x LDY: the block's dy tile
+  int* src;         // CHUNK: an edge's h row
+  float* wt;        // CHUNK: its weight
+  int* start;       // BLK + 1: each row's first place in `order`
+  int* cur;         // BLK: the next free place of each row
+  int* wcnt;        // WARPS x BLK: a pass's edges per (warp, row)
+  unsigned short* order;   // CHUNK: the chunk's edges by row
+  unsigned char* row;      // CHUNK: an edge's destination row
+};
+
+template <int S>
+__device__ inline Smem carve(unsigned char* p) {
+  Smem m;
+  m.zt = reinterpret_cast<float*>(p);
+  m.dys = m.zt + BLK * Slab<S>::LDZ;
+  m.src = reinterpret_cast<int*>(m.dys + BLK * LDY);
+  m.wt = reinterpret_cast<float*>(m.src + CHUNK);
+  m.start = reinterpret_cast<int*>(m.wt + CHUNK);
+  m.cur = m.start + BLK + 1;
+  m.wcnt = m.cur + BLK;
+  m.order = reinterpret_cast<unsigned short*>(m.wcnt + WARPS * BLK);
+  m.row = reinterpret_cast<unsigned char*>(m.order + CHUNK);
+  return m;
+}
+
+// dst[r * ldd + c] = src[(row0 + r) * lds + c0 + c] for the 128 rows and
+// the columns c < WIDTH that lie below `cols` rounded up to 8 (those at or
+// past `cols` zero-filled), by cp.async of V floats; the columns past that
+// are left as they are (they only meet outputs no one stores)
+template <int V, int WIDTH>
+__device__ inline void stage(float* dst, int ldd, const float* src,
+                             long long lds, long long row0, int c0,
+                             int cols) {
+  constexpr int PER_ROW = WIDTH / V;
+  const int used = min(WIDTH, (cols - c0 + 7) & ~7);
+  for (int x = threadIdx.x; x < BLK * PER_ROW; x += THREADS) {
+    const int r = x / PER_ROW, c = (x % PER_ROW) * V;
+    if (c >= used) continue;
+    const int left = cols - (c0 + c);
+    const int n = left >= V ? V : (left > 0 ? left : 0);
+    mma_tf32::cp_async<4 * V>(dst + r * ldd + c,
+                              n > 0 ? src + (row0 + r) * lds + c0 + c : src,
+                              4 * n);
+  }
+}
+
+// the widest copy the row stride and the base allow (4, 2 or 1 floats)
+__device__ inline int vec_width(const float* p, long long ld) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (ld % 4 == 0 && (a & 15) == 0) return 4;
+  if (ld % 2 == 0 && (a & 7) == 0) return 2;
+  return 1;
+}
+
+template <int WIDTH>
+__device__ inline void stage_any(float* dst, int ldd, const float* src,
+                                 long long lds, long long row0, int c0,
+                                 int cols, int v) {
+  if (v == 4) stage<4, WIDTH>(dst, ldd, src, lds, row0, c0, cols);
+  else if (v == 2) stage<2, WIDTH>(dst, ldd, src, lds, row0, c0, cols);
+  else stage<1, WIDTH>(dst, ldd, src, lds, row0, c0, cols);
+}
+
+// Resolves the edges c0 .. c0+n of destination block i (seg_i and cols_i
+// its seg and cols rows) into sm.src / sm.wt / sm.row, and puts their
+// indices in row order into sm.order, each row's edges in edge order;
+// sm.start[r] .. sm.start[r+1] are row r's places. sm.cur must be zero.
+// Everything is visible to every thread on return. Each slot's thread
+// writes its source block into its edges' places, so no edge searches for
+// its slot.
+__device__ void resolve(const int* __restrict__ tile_off,
+                        const float* __restrict__ val,
+                        const int* __restrict__ seg_i,
+                        const int* __restrict__ cols_i, int c0, int n,
+                        int max_blk, long long n_src, const Smem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // a thread's edges tid, tid + THREADS, ..., their loads issued first
+  int off[PER_THREAD];
+  float wt[PER_THREAD];
+#pragma unroll
+  for (int j = 0; j < PER_THREAD; ++j) {
+    const int x = tid + j * THREADS;
+    if (x < n) {
+      off[j] = __ldg(tile_off + c0 + x);
+      wt[j] = __ldg(val + c0 + x);
+    }
+  }
+  // the slots, SLOTS a thread at a time, their loads issued together
+  for (int k0 = 0; k0 < max_blk; k0 += SLOTS * THREADS) {
+    int a[SLOTS], b[SLOTS], base[SLOTS];
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int k = k0 + tid + j * THREADS;
+      a[j] = k < max_blk ? max(__ldg(seg_i + k), c0) : 0;
+      b[j] = k < max_blk ? min(__ldg(seg_i + k + 1), c0 + n) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j)
+      base[j] = a[j] < b[j] ? __ldg(cols_i + k0 + tid + j * THREADS) * BLK
+                            : 0;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j)
+      for (int e = a[j]; e < b[j]; ++e) sm.src[e - c0] = base[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < PER_THREAD; ++j) {
+    const int x = tid + j * THREADS;
+    if (x < n) {
+      const long long src = (long long)sm.src[x] + (off[j] & (BLK - 1));
+      if (src >= n_src || off[j] < 0 || off[j] >= BLK * BLK) __trap();
+      sm.src[x] = (int)src;
+      sm.wt[x] = wt[j];
+      sm.row[x] = (unsigned char)(off[j] >> 7);
+      atomicAdd(sm.cur + (off[j] >> 7), 1);  // a count: the same every run
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {  // start = the exclusive scan of the counts; cur = start
+    int c[BLK / 32], sum = 0;
+#pragma unroll
+    for (int j = 0; j < BLK / 32; ++j) {
+      c[j] = sm.cur[lane * (BLK / 32) + j];
+      sum += c[j];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int j = 0; j < BLK / 32; ++j) {
+      sm.start[lane * (BLK / 32) + j] = run;
+      sm.cur[lane * (BLK / 32) + j] = run;
+      run += c[j];
+    }
+    if (lane == 31) sm.start[BLK] = incl;
+  }
+  __syncthreads();
+  // passes of THREADS edges in edge order: an edge's place is its row's
+  // next free place, plus the edges of its row in earlier warps of the
+  // pass, plus those in earlier lanes of its warp
+  for (int p0 = 0; p0 < n; p0 += THREADS) {
+    const int x = p0 + tid;
+    const int r = x < n ? sm.row[x] : BLK;
+    const unsigned peers = __match_any_sync(0xffffffffu, r);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    if (r < BLK && rank == 0) sm.wcnt[warp * BLK + r] = __popc(peers);
+    __syncthreads();
+    if (r < BLK) {
+      int at = sm.cur[r] + rank;
+      for (int w = 0; w < warp; ++w) at += sm.wcnt[w * BLK + r];
+      sm.order[at] = (unsigned short)x;
+    }
+    __syncthreads();
+    if (tid < BLK) {
+      int add = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        add += sm.wcnt[w * BLK + tid];
+        sm.wcnt[w * BLK + tid] = 0;
+      }
+      sm.cur[tid] += add;
+    }
+    __syncthreads();
+  }
+}
+
+// z[r, :] += sum over the resolved edges of row r, in edge order, of
+// weight * h[src, f0 ..]. Warp w takes the whole rows whose places start
+// from w/WARPS of the chunk's edges on, so the warps get about equal
+// edges and every row is summed by one warp.
+template <int S>
+__device__ void walk(const float* __restrict__ h, int n, int F, int f0,
+                     const Smem& sm) {
+  using P = Slab<S>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto first_row = [&](int target) {  // the first row starting at target+
+    int lo = 0, hi = BLK;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (sm.start[mid] >= target) hi = mid; else lo = mid + 1;
+    }
+    return lo;
+  };
+  const int r_lo = first_row(warp * n / WARPS);
+  const int r_hi = warp == WARPS - 1 ? BLK : first_row((warp + 1) * n / WARPS);
+  const int p_end = sm.start[r_hi];
+  const float* hcol = h + f0 + lane;
+  int cur = -1;
+  float acc[P::CPL];
+#pragma unroll
+  for (int c = 0; c < P::CPL; ++c) acc[c] = 0.f;
+  for (int p0 = sm.start[r_lo]; p0 < p_end; p0 += P::UNROLL) {
+    int xs[P::UNROLL];
+    float hv[P::UNROLL][P::CPL];
+#pragma unroll
+    for (int u = 0; u < P::UNROLL; ++u) {
+      xs[u] = p0 + u < p_end ? sm.order[p0 + u] : -1;
+      if (xs[u] >= 0) {
+        const float* hr = hcol + (long long)sm.src[xs[u]] * F;
+#pragma unroll
+        for (int c = 0; c < P::CPL; ++c)
+          hv[u][c] = f0 + lane + 32 * c < F ? __ldg(hr + 32 * c) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < P::UNROLL; ++u) {
+      if (xs[u] < 0) continue;
+      const int r = sm.row[xs[u]];
+      if (r != cur) {
+        if (cur >= 0) {
+#pragma unroll
+          for (int c = 0; c < P::CPL; ++c) {
+            sm.zt[cur * P::LDZ + lane + 32 * c] += acc[c];
+            acc[c] = 0.f;
+          }
+        }
+        cur = r;
+      }
+      const float w = sm.wt[xs[u]];
+#pragma unroll
+      for (int c = 0; c < P::CPL; ++c) acc[c] += w * hv[u][c];
+    }
+  }
+  if (cur >= 0) {
+#pragma unroll
+    for (int c = 0; c < P::CPL; ++c)
+      sm.zt[cur * P::LDZ + lane + 32 * c] += acc[c];
+  }
+}
+
+// part_dw[grp][f0 .. f0+S, n0 .. n0+NB] = sum over the group's destination
+// blocks i, in order, of z_i[:, slab]^T dy_i[:, n0 ..]; with part_db (the
+// first slab's thread blocks) also the sum of dy_i's rows.
+template <int S>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_dw_kernel(const int* __restrict__ tile_off,
+                const float* __restrict__ val, const int* __restrict__ seg,
+                const int* __restrict__ cols, const float* __restrict__ h,
+                const float* __restrict__ s, const float* __restrict__ dy,
+                const long long* __restrict__ bounds,
+                float* __restrict__ part_dw, float* __restrict__ part_db,
+                int max_blk, long long n_src, int F, int N) {
+  using P = Slab<S>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int grp = blockIdx.x;
+  const int i_begin = (int)bounds[grp], i_end = (int)bounds[grp + 1];
+  if (i_begin >= i_end) return;  // the plan gave this group no block
+  const int f0 = blockIdx.y * S, n0 = blockIdx.z * NB;
+  const bool with_db = part_db != nullptr && blockIdx.y == 0;
+  const Smem sm = carve<S>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // product: warp (wm, wn) owns z columns 32 wm .. and dy columns
+  // NT*8 wn ..; g and t index the mma fragments (mma_tf32.cuh)
+  const int wm = warp % P::MW, wn = warp / P::MW;
+  const int g = lane >> 2, t = lane & 3;
+  const bool warp_cols = n0 + wn * P::NT * 8 < N;  // any column to form
+  const int v_s = s != nullptr ? vec_width(s, F) : 1;
+  const int v_dy = vec_width(dy, N);
+
+  float acc[2][P::NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < P::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  float db_acc = 0.f;
+  for (int x = tid; x < WARPS * BLK; x += THREADS) sm.wcnt[x] = 0;
+
+  for (int i = i_begin; i < i_end; ++i) {
+    const long long slot0 = (long long)i * max_blk;
+    const int e_begin = seg[slot0], e_end = seg[slot0 + max_blk];
+    const bool need_z = e_end > e_begin || s != nullptr;
+    if (!need_z && !with_db) continue;
+    const long long row0 = (long long)i * BLK;
+    // z's base (s, or zeros) and the dy tile land while the edges resolve
+    if (s != nullptr) {
+      stage_any<S>(sm.zt, P::LDZ, s, F, row0, f0, F, v_s);
+    } else {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int x = tid; x < BLK * S / 4; x += THREADS)
+        *reinterpret_cast<float4*>(sm.zt + (x / (S / 4)) * P::LDZ
+                                   + (x % (S / 4)) * 4) = zero;
+    }
+    mma_tf32::cp_async_commit();
+    stage_any<NB>(sm.dys, LDY, dy, N, row0, n0, N, v_dy);
+    mma_tf32::cp_async_commit();
+    if (e_end > e_begin) {
+      for (int c0 = e_begin; c0 < e_end; c0 += CHUNK) {
+        const int n = min(CHUNK, e_end - c0);
+        if (tid < BLK) sm.cur[tid] = 0;  // the last user synced after it
+        resolve(tile_off, val, seg + slot0, cols + slot0, c0, n, max_blk,
+                n_src, sm);
+        if (c0 == e_begin) {
+          mma_tf32::cp_async_wait<1>();  // z's base landed
+          __syncthreads();
+        }
+        walk<S>(h, n, F, f0, sm);
+        __syncthreads();
+      }
+    }
+    mma_tf32::cp_async_wait<0>();
+    __syncthreads();
+    if (need_z && warp_cols) {
+      // z^T dy over the block's 128 rows, 8 at a time: A = z^T (the z tile
+      // read transposed), B = dy, 3xTF32 (mma_tf32.cuh)
+      const float* za = sm.zt + wm * 32;
+      const float* yb = sm.dys + wn * P::NT * 8;
+#pragma unroll 1
+      for (int k0 = 0; k0 < BLK; k0 += 8) {
+        uint32_t a_hi[2][4], a_lo[2][4], b_hi[P::NT][2], b_lo[P::NT][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_tf32::load_a_t(za + k0 * P::LDZ + mt * 16, P::LDZ, g, t,
+                             a_hi[mt], a_lo[mt]);
+#pragma unroll
+        for (int nt = 0; nt < P::NT; ++nt)
+          mma_tf32::load_b(yb + k0 * LDY + nt * 8, LDY, g, t, b_hi[nt],
+                           b_lo[nt]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < P::NT; ++nt)
+            mma_tf32::mma_step(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi[nt],
+                               b_lo[nt]);
+      }
+    }
+    if (with_db && tid < NB)
+      for (int r = 0; r < BLK; ++r) db_acc += sm.dys[r * LDY + tid];
+    __syncthreads();  // z, dy and the staging are free for the next block
+  }
+
+  float* out = part_dw + (long long)grp * F * N;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int f = f0 + wm * 32 + mt * 16 + g + 8 * half;
+      if (f >= F) continue;
+#pragma unroll
+      for (int nt = 0; nt < P::NT; ++nt) {
+        const int n = n0 + wn * P::NT * 8 + nt * 8 + 2 * t;
+        float* o = out + (long long)f * N + n;
+        if (n < N) o[0] = acc[mt][nt][2 * half];
+        if (n + 1 < N) o[1] = acc[mt][nt][2 * half + 1];
+      }
+    }
+  if (with_db && tid < NB && n0 + tid < N)
+    part_db[(long long)grp * N + n0 + tid] = db_acc;
+}
+
+template <int S>
+cudaError_t launch_dw(const int* tile_off, const float* val, const int* seg,
+                      const int* cols, const float* h, const float* s,
+                      const float* dy, const long long* bounds,
+                      float* part_dw, float* part_db, int n_groups,
+                      int max_blk, long long n_src, int F, int N,
+                      cudaStream_t st) {
+  const size_t smem = smem_bytes(S);
+  cudaError_t err = allow_smem(fused_dw_kernel<S>, smem);
+  if (err != cudaSuccess) return err;
+  fused_dw_kernel<S><<<dim3(n_groups, (F + S - 1) / S, (N + NB - 1) / NB),
+                       THREADS, smem, st>>>(
+      tile_off, val, seg, cols, h, s, dy, bounds, part_dw, part_db, max_blk,
+      n_src, F, N);
+  return cudaGetLastError();
+}
+
+}  // namespace dwk
+
+// dw[x] = sum over the groups the plan gave a block, in group order, of
+// part_dw[grp][x]; then db likewise. Only those groups wrote a partial; a
+// warp lists them in shared memory (n_groups ints) first.
 __global__ void __launch_bounds__(THREADS)
 fused_reduce_kernel(const float* __restrict__ part_dw,
                     const float* __restrict__ part_db,
+                    const long long* __restrict__ bounds,
                     float* __restrict__ dw, float* __restrict__ db,
                     int n_groups, long long FN, int N) {
+  extern __shared__ int written[];
+  __shared__ int n_written;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int g0 = 0; g0 < n_groups; g0 += 32) {
+      const int grp = g0 + lane;
+      const bool wrote = grp < n_groups && bounds[grp] < bounds[grp + 1];
+      const unsigned m = __ballot_sync(0xffffffffu, wrote);
+      if (wrote) written[n + __popc(m & ((1u << lane) - 1u))] = grp;
+      n += __popc(m);
+    }
+    if (lane == 0) n_written = n;
+  }
+  __syncthreads();
+  const int nw = n_written;
   const long long x = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (x < FN) {
     float acc = 0.f;
-    for (int grp = 0; grp < n_groups; ++grp) acc += part_dw[grp * FN + x];
+#pragma unroll 4
+    for (int k = 0; k < nw; ++k) acc += part_dw[written[k] * FN + x];
     dw[x] = acc;
   } else if (part_db != nullptr && x < FN + N) {
     const long long n = x - FN;
     float acc = 0.f;
-    for (int grp = 0; grp < n_groups; ++grp)
-      acc += part_db[(long long)grp * N + n];
+#pragma unroll 4
+    for (int k = 0; k < nw; ++k)
+      acc += part_db[(long long)written[k] * N + n];
     db[n] = acc;
   }
 }
@@ -176,53 +604,61 @@ fused_bwd_merged_kernel(const int* __restrict__ tile_off,
 
 extern "C" {
 
-// Dynamic shared memory of fused_bwd's largest thread block.
-long long fused_bwd_smem_bytes(int max_blk) {
+// Dynamic shared memory of fused_bwd's largest thread block, for a layout
+// with max_blk slots per destination block and the plan's slab.
+long long fused_bwd_smem_bytes(int max_blk, int slab) {
   return (long long)std::max(update_smem_bytes(max_blk),
-                             dw_smem_bytes(max_blk));
+                             dwk::smem_bytes(slab));
 }
 
 // Launches fused_bwd's kernels on `stream` (see the top of this file);
 // returns the CUDA status after the last launch (0 = launched). g is read
-// as dy when act is none, and dy may then be null; part_dw holds n_groups
+// as dy when act is none, and dy may then be null; bounds (n_groups + 1)
+// are the plan's groups (kernels/aggregate.py: fused_bwd_plan), slab its
+// z columns per thread block (128 or 32); part_dw holds n_groups
 // (F, N) partials and part_db n_groups (N,) ones (null without a bias).
 // Does not synchronise and allocates nothing.
 int fused_bwd_launch(const int* tile_off, const float* val, const int* seg,
                      const int* cols, const float* h, const float* g,
                      const float* w, const float* b, const float* s,
-                     float* dw, float* db, float* dy, float* part_dw,
-                     float* part_db, int n_dstb, int max_blk,
-                     long long n_src, int F, int N, int act, int group_size,
-                     int n_groups, void* stream) {
+                     const long long* bounds, float* dw, float* db,
+                     float* dy, float* part_dw, float* part_db, int n_dstb,
+                     int max_blk,
+                     long long n_src, int F, int N, int act, int n_groups,
+                     int slab, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_nb = (N + NB - 1) / NB;
   const float* dy_in = g;
   if (act != ACT_NONE) {
     const size_t smem = update_smem_bytes(max_blk);
     cudaError_t err = allow_smem(fused_dy_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    fused_dy_kernel<<<dim3(n_dstb, n_nb), THREADS, smem, st>>>(
+    fused_dy_kernel<<<dim3(n_dstb, (N + NB - 1) / NB), THREADS, smem, st>>>(
         tile_off, val, seg, cols, h, w, b, s, g, dy, max_blk, n_src, F, N,
         act);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     dy_in = dy;
   }
-  const size_t smem = dw_smem_bytes(max_blk);
-  cudaError_t err = allow_smem(fused_dw_partial_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_dw_partial_kernel<<<dim3(n_groups, (F + FB - 1) / FB, n_nb),
-                            THREADS, smem, st>>>(
-      tile_off, val, seg, cols, h, s, dy_in, part_dw,
-      b != nullptr ? part_db : nullptr, n_dstb, group_size, max_blk, n_src,
-      F, N);
-  err = cudaGetLastError();
+  float* pdb = b != nullptr ? part_db : nullptr;
+  auto dw_pass = [&](auto launch) {
+    return launch(tile_off, val, seg, cols, h, s, dy_in, bounds, part_dw,
+                  pdb, n_groups, max_blk, n_src, F, N, st);
+  };
+  cudaError_t err;
+  switch (slab) {
+    case 128: err = dw_pass(dwk::launch_dw<128>); break;
+    case 32: err = dw_pass(dwk::launch_dw<32>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   const long long FN = (long long)F * N;
   const long long total = FN + (b != nullptr ? N : 0);
+  const size_t list = sizeof(int) * (size_t)n_groups;
+  err = allow_smem(fused_reduce_kernel, list);
+  if (err != cudaSuccess) return (int)err;
   fused_reduce_kernel<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS,
-                        0, st>>>(part_dw, b != nullptr ? part_db : nullptr,
-                                 dw, db, n_groups, FN, N);
+                        list, st>>>(part_dw, pdb, bounds, dw, db, n_groups,
+                                    FN, N);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // mma_tf32.cuh: fp32 products on the tensor cores (mma.sync m16n8k8 TF32
 // with the 3xTF32 split) and the cp.async copies that stage their operands,
-// shared by aggregate_blockcsr.cu, update_mlp.cu and wkv6_chunk.cu.
+// shared by aggregate_blockcsr.cu, update_mlp.cu, wkv6_chunk.cu and
+// aggregate_fused_bwd.cu.
 //
 // The 3xTF32 rule every user keeps: split each operand into TF32 parts,
 // a = a_hi + a_lo, and form a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (the dropped

@@ -44,7 +44,8 @@ BWD = ("tile_off_t", "val_t", "tile_seg_t", "cols_t")
 ACTS = ("none", "relu", "gelu")
 
 # sampled-layer shapes: (n_src, n_dst, edges, share of edges kept, whether
-# (src, dst) pairs may repeat, so that several edges share one cell)
+# (src, dst) pairs may repeat, so that several edges share one cell[, the
+# destination rows [lo, hi) the edges land in, when not all of them])
 LAYOUTS = {
     "multi_block": (300, 260, 2000, 0.9, False),
     "multi_edge": (200, 150, 3000, 0.9, True),
@@ -54,18 +55,29 @@ LAYOUTS = {
     "single_block": (300, 100, 1500, 0.9, False),
     "single_block_multi_edge": (200, 90, 1200, 0.9, True),
     "single_block_masked": (200, 90, 400, 0.0, False),
+    # fused_bwd's plans on the card: every edge in 1 of 40 blocks; the real
+    # rows in the first quarter of the blocks, as the sampler gives them;
+    # the paper's layer-0 and layer-1 widths at fewer blocks
+    "skewed": (300, 40 * 128, 2000, 0.9, False, (17 * 128, 18 * 128)),
+    "front_quarter": (3000, 40 * 128, 6000, 0.9, False, (0, 10 * 128)),
+    "layer0_like": (4000, 26 * 128, 9000, 0.95, True, (0, 7 * 128)),
+    "layer1_like": (3328, 8 * 128, 8000, 0.95, False),
+    # ~5,700 edges in one destination block: more than the 2,048 the dw
+    # kernel resolves at once, so it walks the block in three chunks
+    "dense_block": (600, 2 * 128, 6000, 0.95, False, (0, 128)),
 }
 
 
 def _layout(name, seed=0):
-    n_src, n_dst, n_edges, keep, repeat = LAYOUTS[name]
+    n_src, n_dst, n_edges, keep, repeat, *rows = LAYOUTS[name]
+    lo, hi = rows[0] if rows else (0, n_dst)
     rng = np.random.default_rng(seed)
     if repeat:
-        pairs = rng.integers(0, n_src * n_dst, n_edges)
+        pairs = rng.integers(0, n_src * (hi - lo), n_edges)
     else:
-        pairs = rng.choice(n_src * n_dst, n_edges, replace=False)
+        pairs = rng.choice(n_src * (hi - lo), n_edges, replace=False)
     es = (pairs % n_src).astype(np.int32)
-    ed = (pairs // n_src).astype(np.int32)
+    ed = (lo + pairs // n_src).astype(np.int32)
     em = rng.random(n_edges) < keep
     vals = rng.standard_normal(n_edges).astype(np.float32)
     return build_block_coo_pair(es, ed, em, n_src, n_dst, vals,
@@ -401,16 +413,6 @@ def test_merged_wrapper_rejects_more_than_one_destination_block():
                              g[:128] @ w.T)
 
 
-def test_bwd_groups_cover_the_blocks_under_the_cap():
-    for n_dstb, F, N in ((208, 602, 128), (8, 128, 41), (1, 16, 8),
-                         (26, 602, 128), (5000, 2048, 2048)):
-        groups, size = agg.fused_bwd_groups(n_dstb, F, N)
-        assert (groups - 1) * size < n_dstb <= groups * size
-        assert groups == 1 or groups * F * N * 4 <= agg._BWD_PARTIAL_CAP
-    # the paper's layer 0: 26 groups of 8 blocks, 8.0 MB of partials
-    assert agg.fused_bwd_groups(208, 602, 128) == (26, 8)
-
-
 # -- on the card ----------------------------------------------------------------
 
 def _cuda(xs):
@@ -447,6 +449,45 @@ def test_fused_kernels_match_plain_on_card(lay, F, N, act, bias, self_term):
         if got is not None:
             torch.testing.assert_close(got, want, rtol=RTOL,
                                        atol=_atol(want.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lay,F,N,act,bias,self_term", [
+    ("skewed", 64, 41, "none", False, False),
+    ("skewed", 128, 128, "none", True, True),
+    ("front_quarter", 200, 130, "none", False, False),
+    ("front_quarter", 331, 41, "relu", True, True),
+    ("layer0_like", 602, 128, "none", False, False),
+    ("layer0_like", 602, 128, "none", False, True),
+    ("layer1_like", 128, 41, "none", False, False),
+    ("layer1_like", 128, 41, "none", True, False),
+    ("zero_edges", 602, 128, "none", False, True),
+    ("zero_edges", 40, 41, "none", True, True),
+    ("dense_block", 96, 41, "none", False, False),
+    ("dense_block", 602, 128, "none", True, True),
+])
+def test_fused_bwd_plans_match_plain_on_card_bitwise_repeatable(
+        lay, F, N, act, bias, self_term):
+    """fused_bwd's dw pass over skewed, front-loaded and empty layouts at
+    the paper's widths: against the plain version, and bitwise equal over
+    two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    coo = _layout(lay)
+    h, w, b, s, g = _cuda(map(_t, _operands(coo, F, N, bias, self_term)))
+    lay_c = _cuda(_layout_t(coo, FWD))
+    before = agg.launch_counts["fused_bwd"]
+    first = agg.fused_bwd(*lay_c, h, g, w, b, s, act=act)
+    second = agg.fused_bwd(*lay_c, h, g, w, b, s, act=act)
+    torch.cuda.synchronize()
+    assert agg.launch_counts["fused_bwd"] == before + 2
+    want = agg.fused_bwd_plain(*lay_c, h, g, w, b, s, act)
+    for got, again, ref in zip(first, second, want):
+        assert (got is None) == (again is None) == (ref is None)
+        if got is not None:
+            torch.testing.assert_close(got, ref, rtol=RTOL,
+                                       atol=_atol(ref.cpu()))
+            assert torch.equal(got, again)
 
 
 @pytest.mark.gpu

@@ -51,17 +51,11 @@
 //     to) is skipped before any load;
 //   * a thread block covers a slab of S = 128 or 32 z columns (the plan
 //     narrows it where a layer has few destination blocks), so it
-//     resolves each edge of a block once for S columns: each slot's
-//     thread writes the slot's source block into the places of its edges
-//     (no edge searches for its slot), each edge's (row, source row,
-//     weight) goes to shared memory, and a counting sort puts the edges
-//     in row order, ranking them with __match_any_sync rather than
-//     atomics, so every run takes one order;
-//   * the walk gives each of the 16 warps a run of whole rows with about
-//     equal edges; a warp streams its edges with 16 / (S / 32) h rows in
-//     flight a lane (more ran no faster), sums each row in registers in
-//     edge order and adds it once to the z tile, which holds s (or
-//     zeros);
+//     resolves each edge of a block once for S columns and walks it once
+//     (fused_walk.cuh, shared with the forward in aggregate_fused.cu:
+//     edges sorted by row without atomics on the order, each row summed
+//     by one warp in edge order, 16 / (S / 32) h rows in flight a lane;
+//     more ran no faster) into the z tile, which holds s (or zeros);
 //   * s and the block's dy tile are staged by cp.async while the edges are
 //     resolved and walked;
 //   * z_slab^T dy runs on mma.sync m16n8k8 with the 3xTF32 split
@@ -75,6 +69,7 @@
 #include <algorithm>
 
 #include "fused_update.cuh"
+#include "fused_walk.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -96,18 +91,19 @@ fused_dy_kernel(const int* __restrict__ tile_off,
 
 namespace dwk {
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int CHUNK = 2048;             // edges resolved at once
-constexpr int PER_THREAD = CHUNK / THREADS;
-constexpr int SLOTS = 4;                // slots a thread resolves at once
+using fused_walk::CHUNK;
+using fused_walk::Smem;
+using fused_walk::THREADS;
+using fused_walk::WARPS;
+using fused_walk::resolve;
+using fused_walk::stage_any;
+using fused_walk::vec_width;
+using fused_walk::walk;
 constexpr int LDY = NB + 8;             // dy tile row stride (B rows: 8 mod 32)
 
-// a slab of S z columns
+// the product over a slab of S z columns
 template <int S>
 struct Slab {
-  static constexpr int CPL = S / 32;         // walk: columns per lane
-  static constexpr int UNROLL = 16 / CPL;    // walk: h rows in flight
   static constexpr int LDZ = S + 8;          // z tile row stride
   static constexpr int MW = S / 32;          // product: warps along z
   static constexpr int NW = WARPS / MW;      // ... and along dy columns
@@ -115,246 +111,7 @@ struct Slab {
 };
 
 __host__ __device__ inline size_t smem_bytes(int slab) {
-  return sizeof(float) * (size_t)BLK * (slab + 8 + LDY)   // z, dy tiles
-         + (sizeof(int) + sizeof(float)) * CHUNK          // src, weight
-         + sizeof(int) * (2 * BLK + 1 + WARPS * BLK)      // row counts
-         + (sizeof(unsigned short) + 1) * CHUNK;          // order, row
-}
-
-struct Smem {
-  float* zt;        // BLK x LDZ: z of the slab
-  float* dys;       // BLK x LDY: the block's dy tile
-  int* src;         // CHUNK: an edge's h row
-  float* wt;        // CHUNK: its weight
-  int* start;       // BLK + 1: each row's first place in `order`
-  int* cur;         // BLK: the next free place of each row
-  int* wcnt;        // WARPS x BLK: a pass's edges per (warp, row)
-  unsigned short* order;   // CHUNK: the chunk's edges by row
-  unsigned char* row;      // CHUNK: an edge's destination row
-};
-
-template <int S>
-__device__ inline Smem carve(unsigned char* p) {
-  Smem m;
-  m.zt = reinterpret_cast<float*>(p);
-  m.dys = m.zt + BLK * Slab<S>::LDZ;
-  m.src = reinterpret_cast<int*>(m.dys + BLK * LDY);
-  m.wt = reinterpret_cast<float*>(m.src + CHUNK);
-  m.start = reinterpret_cast<int*>(m.wt + CHUNK);
-  m.cur = m.start + BLK + 1;
-  m.wcnt = m.cur + BLK;
-  m.order = reinterpret_cast<unsigned short*>(m.wcnt + WARPS * BLK);
-  m.row = reinterpret_cast<unsigned char*>(m.order + CHUNK);
-  return m;
-}
-
-// dst[r * ldd + c] = src[(row0 + r) * lds + c0 + c] for the 128 rows and
-// the columns c < WIDTH that lie below `cols` rounded up to 8 (those at or
-// past `cols` zero-filled), by cp.async of V floats; the columns past that
-// are left as they are (they only meet outputs no one stores)
-template <int V, int WIDTH>
-__device__ inline void stage(float* dst, int ldd, const float* src,
-                             long long lds, long long row0, int c0,
-                             int cols) {
-  constexpr int PER_ROW = WIDTH / V;
-  const int used = min(WIDTH, (cols - c0 + 7) & ~7);
-  for (int x = threadIdx.x; x < BLK * PER_ROW; x += THREADS) {
-    const int r = x / PER_ROW, c = (x % PER_ROW) * V;
-    if (c >= used) continue;
-    const int left = cols - (c0 + c);
-    const int n = left >= V ? V : (left > 0 ? left : 0);
-    mma_tf32::cp_async<4 * V>(dst + r * ldd + c,
-                              n > 0 ? src + (row0 + r) * lds + c0 + c : src,
-                              4 * n);
-  }
-}
-
-// the widest copy the row stride and the base allow (4, 2 or 1 floats)
-__device__ inline int vec_width(const float* p, long long ld) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  if (ld % 4 == 0 && (a & 15) == 0) return 4;
-  if (ld % 2 == 0 && (a & 7) == 0) return 2;
-  return 1;
-}
-
-template <int WIDTH>
-__device__ inline void stage_any(float* dst, int ldd, const float* src,
-                                 long long lds, long long row0, int c0,
-                                 int cols, int v) {
-  if (v == 4) stage<4, WIDTH>(dst, ldd, src, lds, row0, c0, cols);
-  else if (v == 2) stage<2, WIDTH>(dst, ldd, src, lds, row0, c0, cols);
-  else stage<1, WIDTH>(dst, ldd, src, lds, row0, c0, cols);
-}
-
-// Resolves the edges c0 .. c0+n of destination block i (seg_i and cols_i
-// its seg and cols rows) into sm.src / sm.wt / sm.row, and puts their
-// indices in row order into sm.order, each row's edges in edge order;
-// sm.start[r] .. sm.start[r+1] are row r's places. sm.cur must be zero.
-// Everything is visible to every thread on return. Each slot's thread
-// writes its source block into its edges' places, so no edge searches for
-// its slot.
-__device__ void resolve(const int* __restrict__ tile_off,
-                        const float* __restrict__ val,
-                        const int* __restrict__ seg_i,
-                        const int* __restrict__ cols_i, int c0, int n,
-                        int max_blk, long long n_src, const Smem& sm) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // a thread's edges tid, tid + THREADS, ..., their loads issued first
-  int off[PER_THREAD];
-  float wt[PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int x = tid + j * THREADS;
-    if (x < n) {
-      off[j] = __ldg(tile_off + c0 + x);
-      wt[j] = __ldg(val + c0 + x);
-    }
-  }
-  // the slots, SLOTS a thread at a time, their loads issued together
-  for (int k0 = 0; k0 < max_blk; k0 += SLOTS * THREADS) {
-    int a[SLOTS], b[SLOTS], base[SLOTS];
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int k = k0 + tid + j * THREADS;
-      a[j] = k < max_blk ? max(__ldg(seg_i + k), c0) : 0;
-      b[j] = k < max_blk ? min(__ldg(seg_i + k + 1), c0 + n) : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j)
-      base[j] = a[j] < b[j] ? __ldg(cols_i + k0 + tid + j * THREADS) * BLK
-                            : 0;
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j)
-      for (int e = a[j]; e < b[j]; ++e) sm.src[e - c0] = base[j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int x = tid + j * THREADS;
-    if (x < n) {
-      const long long src = (long long)sm.src[x] + (off[j] & (BLK - 1));
-      if (src >= n_src || off[j] < 0 || off[j] >= BLK * BLK) __trap();
-      sm.src[x] = (int)src;
-      sm.wt[x] = wt[j];
-      sm.row[x] = (unsigned char)(off[j] >> 7);
-      atomicAdd(sm.cur + (off[j] >> 7), 1);  // a count: the same every run
-    }
-  }
-  __syncthreads();
-  if (warp == 0) {  // start = the exclusive scan of the counts; cur = start
-    int c[BLK / 32], sum = 0;
-#pragma unroll
-    for (int j = 0; j < BLK / 32; ++j) {
-      c[j] = sm.cur[lane * (BLK / 32) + j];
-      sum += c[j];
-    }
-    int incl = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += y;
-    }
-    int run = incl - sum;
-#pragma unroll
-    for (int j = 0; j < BLK / 32; ++j) {
-      sm.start[lane * (BLK / 32) + j] = run;
-      sm.cur[lane * (BLK / 32) + j] = run;
-      run += c[j];
-    }
-    if (lane == 31) sm.start[BLK] = incl;
-  }
-  __syncthreads();
-  // passes of THREADS edges in edge order: an edge's place is its row's
-  // next free place, plus the edges of its row in earlier warps of the
-  // pass, plus those in earlier lanes of its warp
-  for (int p0 = 0; p0 < n; p0 += THREADS) {
-    const int x = p0 + tid;
-    const int r = x < n ? sm.row[x] : BLK;
-    const unsigned peers = __match_any_sync(0xffffffffu, r);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    if (r < BLK && rank == 0) sm.wcnt[warp * BLK + r] = __popc(peers);
-    __syncthreads();
-    if (r < BLK) {
-      int at = sm.cur[r] + rank;
-      for (int w = 0; w < warp; ++w) at += sm.wcnt[w * BLK + r];
-      sm.order[at] = (unsigned short)x;
-    }
-    __syncthreads();
-    if (tid < BLK) {
-      int add = 0;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        add += sm.wcnt[w * BLK + tid];
-        sm.wcnt[w * BLK + tid] = 0;
-      }
-      sm.cur[tid] += add;
-    }
-    __syncthreads();
-  }
-}
-
-// z[r, :] += sum over the resolved edges of row r, in edge order, of
-// weight * h[src, f0 ..]. Warp w takes the whole rows whose places start
-// from w/WARPS of the chunk's edges on, so the warps get about equal
-// edges and every row is summed by one warp.
-template <int S>
-__device__ void walk(const float* __restrict__ h, int n, int F, int f0,
-                     const Smem& sm) {
-  using P = Slab<S>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  auto first_row = [&](int target) {  // the first row starting at target+
-    int lo = 0, hi = BLK;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (sm.start[mid] >= target) hi = mid; else lo = mid + 1;
-    }
-    return lo;
-  };
-  const int r_lo = first_row(warp * n / WARPS);
-  const int r_hi = warp == WARPS - 1 ? BLK : first_row((warp + 1) * n / WARPS);
-  const int p_end = sm.start[r_hi];
-  const float* hcol = h + f0 + lane;
-  int cur = -1;
-  float acc[P::CPL];
-#pragma unroll
-  for (int c = 0; c < P::CPL; ++c) acc[c] = 0.f;
-  for (int p0 = sm.start[r_lo]; p0 < p_end; p0 += P::UNROLL) {
-    int xs[P::UNROLL];
-    float hv[P::UNROLL][P::CPL];
-#pragma unroll
-    for (int u = 0; u < P::UNROLL; ++u) {
-      xs[u] = p0 + u < p_end ? sm.order[p0 + u] : -1;
-      if (xs[u] >= 0) {
-        const float* hr = hcol + (long long)sm.src[xs[u]] * F;
-#pragma unroll
-        for (int c = 0; c < P::CPL; ++c)
-          hv[u][c] = f0 + lane + 32 * c < F ? __ldg(hr + 32 * c) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < P::UNROLL; ++u) {
-      if (xs[u] < 0) continue;
-      const int r = sm.row[xs[u]];
-      if (r != cur) {
-        if (cur >= 0) {
-#pragma unroll
-          for (int c = 0; c < P::CPL; ++c) {
-            sm.zt[cur * P::LDZ + lane + 32 * c] += acc[c];
-            acc[c] = 0.f;
-          }
-        }
-        cur = r;
-      }
-      const float w = sm.wt[xs[u]];
-#pragma unroll
-      for (int c = 0; c < P::CPL; ++c) acc[c] += w * hv[u][c];
-    }
-  }
-  if (cur >= 0) {
-#pragma unroll
-    for (int c = 0; c < P::CPL; ++c)
-      sm.zt[cur * P::LDZ + lane + 32 * c] += acc[c];
-  }
+  return fused_walk::smem_bytes((size_t)BLK * (slab + 8), (size_t)BLK * LDY);
 }
 
 // part_dw[grp][f0 .. f0+S, n0 .. n0+NB] = sum over the group's destination
@@ -376,7 +133,7 @@ fused_dw_kernel(const int* __restrict__ tile_off,
   if (i_begin >= i_end) return;  // the plan gave this group no block
   const int f0 = blockIdx.y * S, n0 = blockIdx.z * NB;
   const bool with_db = part_db != nullptr && blockIdx.y == 0;
-  const Smem sm = carve<S>(smem_raw);
+  const Smem sm = fused_walk::carve(smem_raw, BLK * P::LDZ, BLK * LDY);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // product: warp (wm, wn) owns z columns 32 wm .. and dy columns
   // NT*8 wn ..; g and t index the mma fragments (mma_tf32.cuh)
@@ -404,7 +161,7 @@ fused_dw_kernel(const int* __restrict__ tile_off,
     const long long row0 = (long long)i * BLK;
     // z's base (s, or zeros) and the dy tile land while the edges resolve
     if (s != nullptr) {
-      stage_any<S>(sm.zt, P::LDZ, s, F, row0, f0, F, v_s);
+      stage_any<S>(sm.zt, P::LDZ, s, F, row0, BLK, f0, F, v_s);
     } else {
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int x = tid; x < BLK * S / 4; x += THREADS)
@@ -412,7 +169,7 @@ fused_dw_kernel(const int* __restrict__ tile_off,
                                    + (x % (S / 4)) * 4) = zero;
     }
     mma_tf32::cp_async_commit();
-    stage_any<NB>(sm.dys, LDY, dy, N, row0, n0, N, v_dy);
+    stage_any<NB>(sm.op, LDY, dy, N, row0, BLK, n0, N, v_dy);
     mma_tf32::cp_async_commit();
     if (e_end > e_begin) {
       for (int c0 = e_begin; c0 < e_end; c0 += CHUNK) {
@@ -424,7 +181,7 @@ fused_dw_kernel(const int* __restrict__ tile_off,
           mma_tf32::cp_async_wait<1>();  // z's base landed
           __syncthreads();
         }
-        walk<S>(h, n, F, f0, sm);
+        walk<S, P::LDZ>(h, n, F, f0, sm);
         __syncthreads();
       }
     }
@@ -434,7 +191,7 @@ fused_dw_kernel(const int* __restrict__ tile_off,
       // z^T dy over the block's 128 rows, 8 at a time: A = z^T (the z tile
       // read transposed), B = dy, 3xTF32 (mma_tf32.cuh)
       const float* za = sm.zt + wm * 32;
-      const float* yb = sm.dys + wn * P::NT * 8;
+      const float* yb = sm.op + wn * P::NT * 8;
 #pragma unroll 1
       for (int k0 = 0; k0 < BLK; k0 += 8) {
         uint32_t a_hi[2][4], a_lo[2][4], b_hi[P::NT][2], b_lo[P::NT][2];
@@ -455,7 +212,7 @@ fused_dw_kernel(const int* __restrict__ tile_off,
       }
     }
     if (with_db && tid < NB)
-      for (int r = 0; r < BLK; ++r) db_acc += sm.dys[r * LDY + tid];
+      for (int r = 0; r < BLK; ++r) db_acc += sm.op[r * LDY + tid];
     __syncthreads();  // z, dy and the staging are free for the next block
   }
 

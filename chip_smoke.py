@@ -63,7 +63,11 @@ init. Phases, each of which exits non-zero on failure:
      ``partial_bytes``, held under 8 MiB), the device times of its dw
      kernel, its reduce and its plan's PyTorch ops apart
      (``torch.profiler``), and the build report's registers and spill
-     bytes; two launches must give bitwise the same dw (and db). The
+     bytes; two launches must give bitwise the same dw (and db).
+     ``aggregate_fused``'s lines give its shape (``slab``, ``cluster``,
+     ``rounds``, ``ctas``, ``real_blocks``: the destination blocks that
+     hold an edge), its device split by kernel and the build report's
+     registers and spill bytes; two launches must give the same bits. The
      fused kernels' update flops are counted over the destination rows
      that hold an edge or a self term (``flops``), and over all padded
      rows as ``flops_all_rows``;
@@ -457,19 +461,38 @@ def fused_shapes(lay: dict, h, w, s) -> dict:
             "h": list(h.shape), "w": list(w.shape), "self_term": s is not None}
 
 
-def check_fused_fwd(name, agg, lay, h, w, s=None):
-    """aggregate_fused vs plain on the card, its times, yardsticks and
-    bound for one launch (no bias and no activation: the models keep those
+def check_fused_fwd(name, agg, lay, h, w, usage, s=None):
+    """aggregate_fused vs plain on the card, twice, bitwise equal; its
+    shape (slab, cluster, rounds, thread blocks, busy destination blocks),
+    build (registers, spills), device split, times, yardsticks and bound
+    for one launch (no bias and no activation: the models keep those
     outside the kernel)."""
     args = on_card(lay, FWD)
     out = agg.aggregate_fused(*args, h, w, None, s)
+    again = agg.aggregate_fused(*args, h, w, None, s)
     ref = agg.aggregate_fused_plain(*args, h, w, None, s)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        fail(f"{name}: two launches gave different bits")
+    F, N = w.shape
+    n_dstb = lay["cols"].shape[0]
+    slab, cluster, rounds = agg.aggregate_fused_shape(
+        n_dstb, F, N, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    seg = lay["tile_seg"][::lay["cols"].shape[1]]
     row = {"kernel": "aggregate_fused", "launch": name,
            **fused_shapes(lay, h, w, s),
-           "smem_bytes": agg.aggregate_fused_smem_bytes(args[3].shape[1]),
-           "max_abs_err": check_close(name, "out", out, ref)}
-    F, N = w.shape
+           "smem_bytes": agg.aggregate_fused_smem_bytes(slab),
+           "real_blocks": int((np.diff(seg) > 0).sum()), "n_dstb": n_dstb,
+           "slab": slab, "cluster": cluster, "rounds": rounds,
+           "ctas": cluster * n_dstb * -(-N // 128),
+           # the h rows the walk gathers, an edge's row once for each edge
+           "gather_bytes": 4 * F * int(lay["tile_seg"][-1]),
+           "max_abs_err": check_close(name, "out", out, ref),
+           "bitwise_repeat": True,
+           **build_usage(usage, "aggregate_fused_kernel"),
+           "device_kernels": device_split(
+               lambda: agg.aggregate_fused(*args, h, w, None, s))}
     n_dst_pad = row["n_dst_pad"]
     a = csr(lay, FWD, n_dst_pad, h.shape[0])
 
@@ -1243,8 +1266,10 @@ def main() -> None:
     w0, w1 = randn(f0, hid, scale=f0 ** -0.5), randn(hid, n_cls,
                                                      scale=hid ** -0.5)
     rows["aggregate_fused"] = [
-        check_fused_fwd("layer0_fused_fwd", agg, layers[0], h0, w0),
-        check_fused_fwd("layer1_fused_fwd", agg, layers[1], h1, w1)]
+        check_fused_fwd("layer0_fused_fwd", agg, layers[0], h0, w0,
+                        usage["aggregate_fused"]),
+        check_fused_fwd("layer1_fused_fwd", agg, layers[1], h1, w1,
+                        usage["aggregate_fused"])]
     rows["fused_bwd"] = [
         check_fused_bwd("layer0_fused_bwd", agg, layers[0], h0, w0,
                         randn(out_rows[0], hid), usage["aggregate_fused_bwd"]),
@@ -1275,7 +1300,7 @@ def main() -> None:
         s_l = randn(dst_m[l], h_l.shape[1])
         rows["aggregate_fused"].append(check_fused_fwd(
             f"gin{MERGED_TARGETS}_layer{l}_fused_fwd", agg, lay_l, h_l, w_l,
-            s_l))
+            usage["aggregate_fused"], s_l))
         rows["fused_bwd"].append(check_fused_bwd(
             f"gin{MERGED_TARGETS}_layer{l}_fused_bwd", agg, lay_l, h_l, w_l,
             randn(dst_m[l], w_l.shape[1]), usage["aggregate_fused_bwd"],

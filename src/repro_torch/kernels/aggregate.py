@@ -23,7 +23,8 @@ against the JAX reference:
   kernel over the transposed segments, ``dh = A^T @ g``.
 * ``aggregate_fused`` (``csrc/aggregate_fused.cu``): ``act((A @ h [+ s]) @
   w [+ b])`` with the aggregate kept on chip, never written to device
-  memory.
+  memory; ``aggregate_fused_shape`` sizes its grid (slabs of z columns
+  split over a thread block cluster) from the shapes.
 * ``fused_bwd`` and ``fused_bwd_merged`` (``csrc/aggregate_fused_bwd.cu``):
   its backward, which recomputes the aggregate per destination block.
   ``AggregateFused`` is the autograd function and picks between them as
@@ -109,8 +110,8 @@ _SIGNATURES = {
         "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
     "aggregate_fused": {
         "aggregate_fused_smem_bytes": ([_I], _L),
-        "aggregate_fused_launch": ([_P] * 9 + [_I, _I, _L, _I, _I, _I, _P],
-                                   _I)},
+        "aggregate_fused_launch": ([_P] * 9 + [_I, _I, _L, _I, _I, _I, _I,
+                                               _I, _P], _I)},
     "aggregate_fused_bwd": {
         "fused_bwd_smem_bytes": ([_I, _I], _L),
         "fused_bwd_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _I, _I, _I,
@@ -371,6 +372,10 @@ MERGED_MAX_F = 256
 # output columns per thread block of the fused kernels (csrc/
 # fused_update.cuh: NB)
 _NB = 128
+# aggregate_fused (csrc/aggregate_fused.cu): the z columns a thread block
+# may take (S), and the most thread blocks of a cluster (the portable size)
+_FWD_SLABS = (128, 32)
+_FWD_MAX_CLUSTER = 8
 # fused_bwd's dw pass (csrc/aggregate_fused_bwd.cu): the z columns a thread
 # block may take (S), the cap on its partials, and the work a block adds
 # when it has a self term or a bias, in edges (staging its rows and dy
@@ -477,10 +482,30 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def aggregate_fused_smem_bytes(max_blk: int) -> int:
+def aggregate_fused_smem_bytes(slab: int) -> int:
     """Dynamic shared memory of one ``aggregate_fused`` thread block for a
-    layout with ``max_blk`` slots per destination block (builds it)."""
-    return _lib("aggregate_fused").aggregate_fused_smem_bytes(max_blk)
+    slab of ``slab`` z columns (builds the kernel)."""
+    return _lib("aggregate_fused").aggregate_fused_smem_bytes(slab)
+
+
+def aggregate_fused_shape(n_dstb: int, F: int, N: int, sms: int) -> tuple:
+    """(slab, cluster, rounds) of ``aggregate_fused`` on a card of ``sms``
+    SMs, from the shapes alone (no host sync). The grid is (cluster,
+    n_dstb, N / 128 rounded up) thread blocks of 512 threads, one an SM
+    (~170 KB of shared memory at slab 128); the ``cluster`` blocks of a
+    destination block split its ``ceil(F / slab)`` slabs of z columns,
+    rank r taking slabs r, r + cluster, ... (``rounds`` at most), and sum
+    their partials through distributed shared memory. The cluster is at
+    most 8 (the portable size). The slab is 128 z columns where that
+    busies half the SMs, else 32: a wider slab walks each edge fewer
+    times, a narrower one spreads a layer of few destination blocks
+    (layer 1's 8) over more SMs."""
+    for slab in _FWD_SLABS:
+        slabs = -(-F // slab)
+        cluster = max(1, min(slabs, _FWD_MAX_CLUSTER))
+        if 2 * cluster * n_dstb * -(-N // _NB) > sms:
+            break
+    return slab, cluster, -(-slabs // cluster)
 
 
 def aggregate_fused(tile_off, val, seg, cols, h, w, b=None, s=None, *,
@@ -491,8 +516,8 @@ def aggregate_fused(tile_off, val, seg, cols, h, w, b=None, s=None, *,
     The layout and h are as for ``aggregate_edges``; w (F, N), b (N,) and
     s (n_dstb*128, F) are float32 and unpadded; act is none, relu or gelu.
     Returns (n_dstb*128, N) float32. A CUDA tensor goes through
-    ``csrc/aggregate_fused.cu``, a CPU tensor through
-    ``aggregate_fused_plain``."""
+    ``csrc/aggregate_fused.cu`` in the grid ``aggregate_fused_shape``
+    picks, a CPU tensor through ``aggregate_fused_plain``."""
     _check_z_dtype(z_dtype)
     _check_fused(tile_off, val, seg, cols, h, w, b, s, act)
     if not on_card("aggregate_fused", h):
@@ -504,13 +529,14 @@ def aggregate_fused(tile_off, val, seg, cols, h, w, b=None, s=None, *,
                       device=h.device)
     if out.numel() == 0:
         return out
-    _check_smem("aggregate_fused", aggregate_fused_smem_bytes(max_blk))
+    slab, cluster, _ = aggregate_fused_shape(n_dstb, F, N, sm_count(h))
+    _check_smem("aggregate_fused", aggregate_fused_smem_bytes(slab))
     with torch.cuda.device(h.device):
         status = _lib("aggregate_fused").aggregate_fused_launch(
             tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
             cols.data_ptr(), h.data_ptr(), w.data_ptr(), _ptr(b), _ptr(s),
             out.data_ptr(), n_dstb, max_blk, h.shape[0], F, N, ACTS[act],
-            stream(h))
+            slab, cluster, stream(h))
     raise_on(status, "aggregate_fused", "aggregate_fused")
     launch_counts["aggregate_fused"] += 1
     return out

@@ -1,5 +1,6 @@
 // activation.cuh: the update stage's activations, shared by the update
-// kernels (update_mlp.cu, and the fused kernels through fused_update.cuh).
+// kernels (update_mlp.cu, aggregate_fused.cu, and fused_bwd's dy kernel
+// through fused_update.cuh).
 // The codes are kernels/update_mlp.py's ACTS.
 
 #pragma once

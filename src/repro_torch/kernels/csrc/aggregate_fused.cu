@@ -28,25 +28,62 @@
 // 64 MB aggregate. chip_smoke.py recomputes these bounds from the batch it
 // runs; PERF.md has the measured times beside them.
 //
-// Design (a simple kernel that is right; wgmma, TMA and cp.async staging
-// are later work):
-//   * one thread block per (destination block i, range of NB = 128 output
-//     columns), no float atomics;
-//   * the aggregate is formed 64 feature columns at a time into a 128 x 64
-//     shared-memory tile (the TPU kernel held all of F in VMEM, which does
-//     not fit a block's 227 KB at F = 602), s is added, and the tile is
-//     multiplied at once into the matching 64 rows of w, staged beside it,
-//     so (A @ h) @ w = sum over slices of (A @ h[:, fs]) @ w[fs, :];
-//   * the 128 x 128 result lives in registers (8 x 8 per thread) across the
-//     slices; the epilogue adds b, applies act and writes only (128, N).
+// Design. Only 52 of layer 0's 208 destination blocks hold an edge, and a
+// whole 128-row z tile at F = 602 (308 KB) does not fit a block's 227 KB:
+//   * the grid is (rank in a cluster, destination block, 128 output
+//     columns); kernels/aggregate.py: aggregate_fused_shape picks, from
+//     the shapes alone, a slab of S = 128 z columns (32 where that would
+//     busy fewer than half the SMs) and a cluster of C = min(F / S
+//     rounded up, 8) thread blocks; rank r takes the slabs r, r + C, ...;
+//   * a destination block with no edge and no s writes its rows as act(b)
+//     and leaves before any load;
+//   * each thread block resolves its block's edges once and walks them
+//     once a slab into a 128 x S z tile (fused_walk.cuh, the dw pass's
+//     walk), while w[slab, n0 ..] and s land by cp.async, then adds
+//     z_slab @ w_slab into a 128 x 128 fp32 partial held in registers;
+//   * the partials meet in distributed shared memory: after a cluster
+//     barrier, rank r sums its share of the rows over every rank's partial
+//     in rank order, adds b, applies act and writes those rows. No float
+//     atomics: one summation order on every run.
 
-#include "fused_update.cuh"
+#include <cooperative_groups.h>
+
+#include "activation.cuh"
+#include "edge_walk.cuh"
+#include "fused_walk.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-using namespace fused;
+namespace cg = cooperative_groups;
+using namespace fused_walk;
+using activation::act_apply;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int NB = 128;            // output columns per thread block
+constexpr int LDW = NB + 8;        // w slab row stride
+constexpr int LDP = NB + 8;        // partial row stride
+constexpr int MAX_CLUSTER = 8;     // the portable cluster size
+
+// a slab of S z columns
+template <int S>
+struct Fwd {
+  static constexpr int LDZ = S + 4;   // z tile row stride
+};
+
+__host__ __device__ inline size_t smem_bytes(int slab) {
+  const size_t walk =
+      fused_walk::smem_bytes((size_t)BLK * (slab + 4), (size_t)slab * LDW);
+  const size_t part = sizeof(float) * BLK * LDP;
+  return walk > part ? walk : part;
+}
+
+// the product's register tile: thread (ty, tx) of 32 x 16 owns rows
+// ty + 32 m and columns tx + 16 j
+constexpr int TX = 16, TY = THREADS / TX;
+constexpr int TM = BLK / TY, TN = NB / TX;
+
+template <int S>
+__global__ void __launch_bounds__(THREADS, 1)
 aggregate_fused_kernel(const int* __restrict__ tile_off,
                        const float* __restrict__ val,
                        const int* __restrict__ seg,
@@ -57,37 +94,185 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
                        const float* __restrict__ s,
                        float* __restrict__ out, int max_blk, long long n_src,
                        int F, int N, int act) {
+  using P = Fwd<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  update_block<false>(tile_off, val, seg, cols, h, w, b, s, nullptr, out,
-                      blockIdx.x, blockIdx.y * NB, max_blk, n_src, F, N, act,
-                      smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  const int i = blockIdx.y, n0 = blockIdx.z * NB;
+  const int n_cols = min(NB, N - n0);
+  const int tid = threadIdx.x;
+  const long long slot0 = (long long)i * max_blk;
+  const long long row0 = (long long)i * BLK;
+  const int e_begin = seg[slot0], e_end = seg[slot0 + max_blk];
+
+  if (e_end == e_begin && s == nullptr) {
+    // z is zero: the rows are act(b); rank r writes rows r, r + C, ...
+    const int rows = (BLK - rank + C - 1) / C;
+    for (int x = tid; x < rows * n_cols; x += THREADS) {
+      const int r = rank + C * (x / n_cols), n = n0 + x % n_cols;
+      out[(row0 + r) * N + n] = act_apply(b != nullptr ? b[n] : 0.f, act);
+    }
+    return;  // the whole cluster leaves here: its blocks share i
+  }
+
+  const Smem sm = carve(smem_raw, BLK * P::LDZ, S * LDW);
+  float* ws = sm.op;
+  const int v_s = s != nullptr ? vec_width(s, F) : 1;
+  const int v_w = vec_width(w, N);
+  const int n_slabs = (F + S - 1) / S;
+  const bool one_chunk = e_end - e_begin <= CHUNK;
+  const int tx = tid % TX, ty = tid / TX;
+  float acc[TM][TN];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[m][j] = 0.f;
+  for (int x = tid; x < WARPS * BLK; x += THREADS) sm.wcnt[x] = 0;
+
+  for (int k = rank; k < n_slabs; k += C) {
+    const int f0 = k * S;
+    const int kmax = min(S, F - f0);       // z columns of the slab
+    // z's base (s, or zeros) and w's rows f0 .. f0+kmax land while the
+    // edges resolve; w's rows up to kmax rounded to 8 are zeroed
+    if (s != nullptr) {
+      stage_any<S>(sm.zt, P::LDZ, s, F, row0, BLK, f0, F, v_s);
+    } else {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int x = tid; x < BLK * S / 4; x += THREADS)
+        *reinterpret_cast<float4*>(sm.zt + (x / (S / 4)) * P::LDZ
+                                   + (x % (S / 4)) * 4) = zero;
+    }
+    stage_any<NB>(ws, LDW, w, N, f0, kmax, n0, N, v_w);
+    mma_tf32::cp_async_commit();
+    for (int x = tid; x < (((kmax + 7) & ~7) - kmax) * NB; x += THREADS)
+      ws[(kmax + x / NB) * LDW + x % NB] = 0.f;
+    for (int c0 = e_begin; c0 < e_end; c0 += CHUNK) {
+      const int n = min(CHUNK, e_end - c0);
+      if (!one_chunk || k == rank) {  // one chunk: resolved for every slab
+        if (tid < BLK) sm.cur[tid] = 0;  // the last user synced after it
+        resolve(tile_off, val, seg + slot0, cols + slot0, c0, n, max_blk,
+                n_src, sm);
+      }
+      if (c0 == e_begin) {
+        mma_tf32::cp_async_wait<0>();  // z's base landed
+        __syncthreads();
+      }
+      walk<S, P::LDZ>(h, n, F, f0, sm);
+      __syncthreads();
+    }
+    mma_tf32::cp_async_wait<0>();
+    __syncthreads();
+    // acc += z_slab @ w_slab on FMA
+#pragma unroll 4
+    for (int kk = 0; kk < kmax; ++kk) {
+      float a[TM], bv[TN];
+#pragma unroll
+      for (int m = 0; m < TM; ++m) a[m] = sm.zt[(ty + TY * m) * P::LDZ + kk];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = ws[kk * LDW + tx + TX * j];
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[m][j] = fmaf(a[m], bv[j], acc[m][j]);
+    }
+    __syncthreads();  // z and w are free for the next slab or the partial
+  }
+
+  // the partial over z and w's place, then every rank's in rank order
+  float* part = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      part[(ty + TY * m) * LDP + tx + TX * j] = acc[m][j];
+  cluster.sync();
+  const int share = (BLK + C - 1) / C;
+  const int r_lo = rank * share, r_hi = min(BLK, r_lo + share);
+  const int q4 = (n_cols + 3) / 4;
+  for (int x = tid; x < (r_hi - r_lo) * q4; x += THREADS) {
+    const int r = r_lo + x / q4, c = (x % q4) * 4;
+    float4 y = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(part, 0) + r * LDP + c);
+    for (int q = 1; q < C; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, q) + r * LDP + c);
+      y.x += v.x;
+      y.y += v.y;
+      y.z += v.z;
+      y.w += v.w;
+    }
+    const float ys[4] = {y.x, y.y, y.z, y.w};
+    float* orow = out + (row0 + r) * N + n0 + c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < n_cols)
+        orow[e] = act_apply(ys[e] + (b != nullptr ? b[n0 + c + e] : 0.f),
+                            act);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+template <int S>
+cudaError_t launch(const int* tile_off, const float* val, const int* seg,
+                   const int* cols, const float* h, const float* w,
+                   const float* b, const float* s, float* out, int n_dstb,
+                   int max_blk, long long n_src, int F, int N, int act,
+                   int cluster, cudaStream_t st) {
+  const size_t smem = smem_bytes(S);
+  cudaError_t err = edge_walk::allow_smem(aggregate_fused_kernel<S>, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, n_dstb, (N + NB - 1) / NB);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, aggregate_fused_kernel<S>, tile_off, val,
+                           seg, cols, h, w, b, s, out, max_blk, n_src, F, N,
+                           act);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one thread block for a layout with max_blk
-// slots per destination block.
-long long aggregate_fused_smem_bytes(int max_blk) {
-  return (long long)update_smem_bytes(max_blk);
+// Dynamic shared memory of one thread block for a slab of `slab` z columns.
+long long aggregate_fused_smem_bytes(int slab) {
+  return (long long)smem_bytes(slab);
 }
 
-// Launches on `stream`; returns the CUDA status right after the launch
-// (0 = launched). Does not synchronise and allocates nothing.
+// Launches on `stream` with the shape of kernels/aggregate.py:
+// aggregate_fused_shape (slab 128 or 32 z columns, cluster 1 .. 8 thread
+// blocks); returns the CUDA status right after the launch (0 = launched).
+// Does not synchronise and allocates nothing.
 int aggregate_fused_launch(const int* tile_off, const float* val,
                            const int* seg, const int* cols, const float* h,
                            const float* w, const float* b, const float* s,
                            float* out, int n_dstb, int max_blk,
-                           long long n_src, int F, int N, int act,
-                           void* stream) {
-  const size_t smem = update_smem_bytes(max_blk);
-  cudaError_t err = allow_smem(aggregate_fused_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_dstb, (N + NB - 1) / NB);
-  aggregate_fused_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      tile_off, val, seg, cols, h, w, b, s, out, max_blk, n_src, F, N, act);
-  return (int)cudaGetLastError();
+                           long long n_src, int F, int N, int act, int slab,
+                           int cluster, void* stream) {
+  if (cluster < 1 || cluster > MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (slab) {
+    case 128:
+      return (int)launch<128>(tile_off, val, seg, cols, h, w, b, s, out,
+                              n_dstb, max_blk, n_src, F, N, act, cluster, st);
+    case 32:
+      return (int)launch<32>(tile_off, val, seg, cols, h, w, b, s, out,
+                             n_dstb, max_blk, n_src, F, N, act, cluster, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* aggregate_fused_error_string(int status) {

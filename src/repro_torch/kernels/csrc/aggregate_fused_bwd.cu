@@ -85,8 +85,8 @@ fused_dy_kernel(const int* __restrict__ tile_off,
                 float* __restrict__ dy, int max_blk, long long n_src, int F,
                 int N, int act) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  update_block<true>(tile_off, val, seg, cols, h, w, b, s, g, dy, blockIdx.x,
-                     blockIdx.y * NB, max_blk, n_src, F, N, act, smem_raw);
+  dy_block(tile_off, val, seg, cols, h, w, b, s, g, dy, blockIdx.x,
+           blockIdx.y * NB, max_blk, n_src, F, N, act, smem_raw);
 }
 
 namespace dwk {

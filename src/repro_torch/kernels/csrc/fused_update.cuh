@@ -1,5 +1,5 @@
-// fused_update.cuh: the block-level pieces of the fused aggregate -> update
-// kernels (aggregate_fused.cu, aggregate_fused_bwd.cu).
+// fused_update.cuh: the block-level pieces of the fused backward kernels
+// (aggregate_fused_bwd.cu) that still form z a 64-column slice at a time.
 //
 // Both recompute, for one destination block i, z_i = A_i @ h [+ s_i] one
 // slice of FB = 64 feature columns at a time into a 128 x 64 fp32 tile in
@@ -8,17 +8,17 @@
 // tile fits whatever F is (a whole 128-row z tile at F = 602 would be
 // 308 KB, more than the 227 KB of shared memory a block may have):
 //
-//   update_block: y = sum over slices of z[:, fs] @ w[fs, n0:n0+NB], held in
-//     registers, then the epilogue (+ b, act) — the forward — or
-//     dy = g * act'(y) for the backward;
+//   dy_block: y = sum over slices of z[:, fs] @ w[fs, n0:n0+NB], held in
+//     registers, then dy = g * act'(y + b) (fused_dy_kernel);
 //   dw_block: dw[fs, n0:n0+NB] = sum over a run of destination blocks of
-//     z_i[:, fs]^T @ dy_i[:, n0:n0+NB], held in registers.
+//     z_i[:, fs]^T @ dy_i[:, n0:n0+NB], held in registers
+//     (fused_bwd_merged).
 //
 // The products are plain fp32 FMA loops over register tiles (each thread
-// owns an 8 x 8 or 4 x 8 tile and reads its operands from shared memory);
-// tensor cores (wgmma) are later work. w, b and s come unpadded: rows of w
-// past F and columns past N are staged as zeros, and stores past N are
-// masked.
+// owns an 8 x 8 or 4 x 8 tile and reads its operands from shared memory).
+// w, b and s come unpadded: rows of w past F and columns past N are staged
+// as zeros, and stores past N are masked. The forward (aggregate_fused.cu)
+// and the dw pass walk edges once a slab instead (fused_walk.cuh).
 
 #pragma once
 
@@ -32,7 +32,7 @@ using namespace edge_walk;
 
 constexpr int NB = 128;             // output columns per thread block
 constexpr int TX = 16, TY = 16;     // threads of a block as a TY x TX grid
-constexpr int TM = BLK / TY;        // update_block: rows per thread (8)
+constexpr int TM = BLK / TY;        // dy_block: rows per thread (8)
 constexpr int TN = NB / TX;         // columns per thread (8)
 constexpr int TF = FB / TY;         // dw_block: rows of dw per thread (4)
 static_assert(TX * TY == THREADS, "one register tile per thread");
@@ -70,22 +70,20 @@ __device__ inline void form_z(const int* __restrict__ tile_off,
 }
 
 // Destination block i, output columns n0 .. n0+NB:
-// y = (A_i @ h [+ s_i]) @ w + b. Writes out = act(y) (kDy false, the
-// forward) or out = g * act'(y) (kDy true, the backward's dy), both
-// (n_dstb*128, N) row-major.
-template <bool kDy>
-__device__ void update_block(const int* __restrict__ tile_off,
-                             const float* __restrict__ val,
-                             const int* __restrict__ seg,
-                             const int* __restrict__ cols,
-                             const float* __restrict__ h,
-                             const float* __restrict__ w,
-                             const float* __restrict__ b,
-                             const float* __restrict__ s,
-                             const float* __restrict__ g,
-                             float* __restrict__ out, int i, int n0,
-                             int max_blk, long long n_src, int F, int N,
-                             int act, unsigned char* smem) {
+// y = (A_i @ h [+ s_i]) @ w + b; writes out = g * act'(y), the backward's
+// dy, (n_dstb*128, N) row-major.
+__device__ void dy_block(const int* __restrict__ tile_off,
+                         const float* __restrict__ val,
+                         const int* __restrict__ seg,
+                         const int* __restrict__ cols,
+                         const float* __restrict__ h,
+                         const float* __restrict__ w,
+                         const float* __restrict__ b,
+                         const float* __restrict__ s,
+                         const float* __restrict__ g,
+                         float* __restrict__ out, int i, int n0,
+                         int max_blk, long long n_src, int F, int N,
+                         int act, unsigned char* smem) {
   float* zt = reinterpret_cast<float*>(smem);   // BLK x FB
   float* ws = zt + BLK * FB;                    // FB x NB
   const Staging st = carve_staging(
@@ -132,7 +130,7 @@ __device__ void update_block(const int* __restrict__ tile_off,
       if (n >= N) continue;
       const float y = acc[m][j] + (b != nullptr ? b[n] : 0.f);
       const long long o = (row0 + ty + TY * m) * N + n;
-      out[o] = kDy ? g[o] * act_grad(y, act) : act_apply(y, act);
+      out[o] = g[o] * act_grad(y, act);
     }
   }
 }

@@ -491,6 +491,43 @@ def test_fused_bwd_plans_match_plain_on_card_bitwise_repeatable(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lay,F,N,act,bias,self_term", [
+    ("skewed", 64, 41, "none", False, False),
+    ("skewed", 128, 128, "relu", True, True),
+    ("front_quarter", 200, 130, "none", False, False),
+    # 9 slabs of 128 columns over a cluster of 8: rank 0 takes two
+    ("front_quarter", 1100, 41, "none", True, False),
+    ("layer0_like", 602, 128, "none", False, False),
+    ("layer0_like", 602, 128, "none", False, True),
+    ("layer1_like", 128, 41, "none", False, False),
+    ("zero_edges", 602, 128, "none", False, True),
+    ("dense_block", 96, 41, "none", False, False),
+    # three resolve chunks, 19 slabs of 32 columns over a cluster of 8
+    ("dense_block", 602, 128, "gelu", True, True),
+    ("ragged_tail", 101, 257, "none", True, True),
+    ("multi_block", 331, 41, "relu", True, False),
+])
+def test_fused_fwd_matches_plain_on_card_bitwise_repeatable(
+        lay, F, N, act, bias, self_term):
+    """aggregate_fused over skewed, front-loaded, empty and dense layouts at
+    the paper's widths and past 8 slabs of z columns: against the plain
+    version, and bitwise equal over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    coo = _layout(lay)
+    h, w, b, s, _ = _cuda(map(_t, _operands(coo, F, N, bias, self_term)))
+    lay_c = _cuda(_layout_t(coo, FWD))
+    before = agg.launch_counts["aggregate_fused"]
+    first = agg.aggregate_fused(*lay_c, h, w, b, s, act=act)
+    second = agg.aggregate_fused(*lay_c, h, w, b, s, act=act)
+    torch.cuda.synchronize()
+    assert agg.launch_counts["aggregate_fused"] == before + 2
+    want = agg.aggregate_fused_plain(*lay_c, h, w, b, s, act)
+    torch.testing.assert_close(first, want, rtol=RTOL, atol=_atol(want.cpu()))
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("lay,F,N,bias,self_term", [
     ("single_block", 16, 8, False, False),
     ("single_block", 200, 41, True, True),

@@ -110,6 +110,7 @@ _SIGNATURES = {
         "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
     "aggregate_fused": {
         "aggregate_fused_smem_bytes": ([_I], _L),
+        "aggregate_fused_max_clusters": ([_I, _I], _I),
         "aggregate_fused_launch": ([_P] * 9 + [_I, _I, _L, _I, _I, _I, _I,
                                                _I, _P], _I)},
     "aggregate_fused_bwd": {
@@ -486,6 +487,13 @@ def aggregate_fused_smem_bytes(slab: int) -> int:
     """Dynamic shared memory of one ``aggregate_fused`` thread block for a
     slab of ``slab`` z columns (builds the kernel)."""
     return _lib("aggregate_fused").aggregate_fused_smem_bytes(slab)
+
+
+def aggregate_fused_max_clusters(slab: int, cluster: int) -> int:
+    """The most clusters of ``cluster`` ``aggregate_fused`` thread blocks
+    the current card runs at once at a slab of ``slab`` z columns
+    (``cudaOccupancyMaxActiveClusters``; builds the kernel)."""
+    return _lib("aggregate_fused").aggregate_fused_max_clusters(slab, cluster)
 
 
 def aggregate_fused_shape(n_dstb: int, F: int, N: int, sms: int) -> tuple:

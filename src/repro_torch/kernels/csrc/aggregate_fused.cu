@@ -40,7 +40,11 @@
 //   * each thread block resolves its block's edges once and walks them
 //     once a slab into a 128 x S z tile (fused_walk.cuh, the dw pass's
 //     walk), while w[slab, n0 ..] and s land by cp.async, then adds
-//     z_slab @ w_slab into a 128 x 128 fp32 partial held in registers;
+//     z_slab @ w_slab into a 128 x 128 fp32 partial held in registers, on
+//     mma.sync m16n8k8 with the 3xTF32 split (mma_tf32.cuh:
+//     split_tf32_fast, each step of 8 z columns summed from zero and
+//     joined to the fp32 accumulator by a rounded add), 16 warps as 4 x 4,
+//     each owning 32 rows and 32 output columns;
 //   * the partials meet in distributed shared memory: after a cluster
 //     barrier, rank r sums its share of the rows over every rank's partial
 //     in rank order, adds b, applies act and writes those rows. No float
@@ -60,14 +64,17 @@ using namespace fused_walk;
 using activation::act_apply;
 
 constexpr int NB = 128;            // output columns per thread block
-constexpr int LDW = NB + 8;        // w slab row stride
-constexpr int LDP = NB + 8;        // partial row stride
+constexpr int LDW = NB + 8;        // w slab row stride (B rows: 8 mod 32)
+constexpr int LDP = NB + 8;        // partial row stride (D rows: 8 mod 32)
+constexpr int WM = BLK / 32;       // product: warps along rows (4) ...
+constexpr int WN = NB / 32;        // ... and along output columns (4)
+static_assert(WM * WN == WARPS, "one 32 x 32 output tile a warp");
 constexpr int MAX_CLUSTER = 8;     // the portable cluster size
 
 // a slab of S z columns
 template <int S>
 struct Fwd {
-  static constexpr int LDZ = S + 4;   // z tile row stride
+  static constexpr int LDZ = S + 4;   // z tile row stride (A rows: 4 mod 32)
 };
 
 __host__ __device__ inline size_t smem_bytes(int slab) {
@@ -76,11 +83,6 @@ __host__ __device__ inline size_t smem_bytes(int slab) {
   const size_t part = sizeof(float) * BLK * LDP;
   return walk > part ? walk : part;
 }
-
-// the product's register tile: thread (ty, tx) of 32 x 16 owns rows
-// ty + 32 m and columns tx + 16 j
-constexpr int TX = 16, TY = THREADS / TX;
-constexpr int TM = BLK / TY, TN = NB / TX;
 
 template <int S>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -122,12 +124,19 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
   const int v_w = vec_width(w, N);
   const int n_slabs = (F + S - 1) / S;
   const bool one_chunk = e_end - e_begin <= CHUNK;
-  const int tx = tid % TX, ty = tid / TX;
-  float acc[TM][TN];
+  // product: warp (wm, wn) owns rows 32 wm .. and output columns
+  // 32 wn ..; g and t index the mma fragments (mma_tf32.cuh)
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, t = lane & 3;
+  const bool warp_cols = n0 + 32 * wn < N;  // any column to form
+  float acc[2][4][4];
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[m][j] = 0.f;
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   for (int x = tid; x < WARPS * BLK; x += THREADS) sm.wcnt[x] = 0;
 
   for (int k = rank; k < n_slabs; k += C) {
@@ -163,18 +172,29 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
     }
     mma_tf32::cp_async_wait<0>();
     __syncthreads();
-    // acc += z_slab @ w_slab on FMA
-#pragma unroll 4
-    for (int kk = 0; kk < kmax; ++kk) {
-      float a[TM], bv[TN];
+    if (warp_cols) {
+      // acc += z_slab @ w_slab, 8 z columns a step, 3xTF32: the columns
+      // and w rows from kmax up to the next 8 hold zeros
+      const float* za = sm.zt + 32 * wm * P::LDZ;
+      const float* wb = ws + 32 * wn;
+#pragma unroll 1
+      for (int k0 = 0; k0 < kmax; k0 += 8) {
+        uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
 #pragma unroll
-      for (int m = 0; m < TM; ++m) a[m] = sm.zt[(ty + TY * m) * P::LDZ + kk];
+        for (int mt = 0; mt < 2; ++mt)
+          mma_tf32::load_a(za + mt * 16 * P::LDZ + k0, P::LDZ, g, t,
+                           a_hi[mt], a_lo[mt]);
 #pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = ws[kk * LDW + tx + TX * j];
+        for (int nt = 0; nt < 4; ++nt)
+          mma_tf32::load_b(wb + k0 * LDW + nt * 8, LDW, g, t, b_hi[nt],
+                           b_lo[nt]);
 #pragma unroll
-      for (int m = 0; m < TM; ++m)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[m][j] = fmaf(a[m], bv[j], acc[m][j]);
+          for (int nt = 0; nt < 4; ++nt)
+            mma_tf32::mma_step(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi[nt],
+                               b_lo[nt]);
+      }
     }
     __syncthreads();  // z and w are free for the next slab or the partial
   }
@@ -182,10 +202,16 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
   // the partial over z and w's place, then every rank's in rank order
   float* part = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < TN; ++j)
-      part[(ty + TY * m) * LDP + tx + TX * j] = acc[m][j];
+    for (int half = 0; half < 2; ++half) {
+      float* prow = part + (32 * wm + 16 * mt + g + 8 * half) * LDP
+                    + 32 * wn + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(prow + 8 * nt) =
+            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+    }
   cluster.sync();
   const int share = (BLK + C - 1) / C;
   const int r_lo = rank * share, r_hi = min(BLK, r_lo + share);
@@ -214,26 +240,33 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
 }
 
 template <int S>
+cudaLaunchConfig_t config(int cluster, int n_dstb, int N, cudaStream_t st,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, n_dstb, (N + NB - 1) / NB);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes(S);
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int S>
 cudaError_t launch(const int* tile_off, const float* val, const int* seg,
                    const int* cols, const float* h, const float* w,
                    const float* b, const float* s, float* out, int n_dstb,
                    int max_blk, long long n_src, int F, int N, int act,
                    int cluster, cudaStream_t st) {
-  const size_t smem = smem_bytes(S);
-  cudaError_t err = edge_walk::allow_smem(aggregate_fused_kernel<S>, smem);
+  cudaError_t err =
+      edge_walk::allow_smem(aggregate_fused_kernel<S>, smem_bytes(S));
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, n_dstb, (N + NB - 1) / NB);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<S>(cluster, n_dstb, N, st, &attr);
   err = cudaLaunchKernelEx(&cfg, aggregate_fused_kernel<S>, tile_off, val,
                            seg, cols, h, w, b, s, out, max_blk, n_src, F, N,
                            act);
@@ -241,9 +274,33 @@ cudaError_t launch(const int* tile_off, const float* val, const int* seg,
   return cudaGetLastError();
 }
 
+template <int S>
+int max_clusters(int cluster) {
+  if (edge_walk::allow_smem(aggregate_fused_kernel<S>, smem_bytes(S))
+      != cudaSuccess)
+    return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<S>(cluster, 1, 1, 0, &attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, aggregate_fused_kernel<S>, &cfg)
+      != cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The most clusters of `cluster` thread blocks that the card runs at once
+// for a slab of `slab` z columns (-1 if the runtime cannot say).
+int aggregate_fused_max_clusters(int slab, int cluster) {
+  switch (slab) {
+    case 128: return max_clusters<128>(cluster);
+    case 32: return max_clusters<32>(cluster);
+    default: return -1;
+  }
+}
 
 // Dynamic shared memory of one thread block for a slab of `slab` z columns.
 long long aggregate_fused_smem_bytes(int slab) {

@@ -486,6 +486,8 @@ def check_fused_fwd(name, agg, lay, h, w, usage, s=None):
            "real_blocks": int((np.diff(seg) > 0).sum()), "n_dstb": n_dstb,
            "slab": slab, "cluster": cluster, "rounds": rounds,
            "ctas": cluster * n_dstb * -(-N // 128),
+           "max_active_clusters": agg.aggregate_fused_max_clusters(
+               slab, cluster),
            # the h rows the walk gathers, an edge's row once for each edge
            "gather_bytes": 4 * F * int(lay["tile_seg"][-1]),
            "max_abs_err": check_close(name, "out", out, ref),

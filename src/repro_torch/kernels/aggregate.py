@@ -110,8 +110,9 @@ _SIGNATURES = {
         "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
     "aggregate_fused": {
         "aggregate_fused_smem_bytes": ([_I], _L),
-        "aggregate_fused_launch": ([_P] * 10 + [_I, _I, _L, _I, _I, _I, _I,
-                                                _I, _P], _I)},
+        "aggregate_fused_max_clusters": ([_I, _I], _I),
+        "aggregate_fused_launch": ([_P] * 9 + [_I, _I, _L, _I, _I, _I, _I,
+                                               _I, _P], _I)},
     "aggregate_fused_bwd": {
         "fused_bwd_smem_bytes": ([_I, _I], _L),
         "fused_bwd_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _I, _I, _I,
@@ -488,6 +489,13 @@ def aggregate_fused_smem_bytes(slab: int) -> int:
     return _lib("aggregate_fused").aggregate_fused_smem_bytes(slab)
 
 
+def aggregate_fused_max_clusters(slab: int, cluster: int) -> int:
+    """The most clusters of ``cluster`` ``aggregate_fused`` thread blocks
+    the current card runs at once at a slab of ``slab`` z columns
+    (``cudaOccupancyMaxActiveClusters``; builds the kernel)."""
+    return _lib("aggregate_fused").aggregate_fused_max_clusters(slab, cluster)
+
+
 def aggregate_fused_shape(n_dstb: int, F: int, N: int, sms: int) -> tuple:
     """(slab, cluster, rounds) of ``aggregate_fused`` on a card of ``sms``
     SMs, from the shapes alone (no host sync). The grid is (cluster,
@@ -531,14 +539,12 @@ def aggregate_fused(tile_off, val, seg, cols, h, w, b=None, s=None, *,
         return out
     slab, cluster, _ = aggregate_fused_shape(n_dstb, F, N, sm_count(h))
     _check_smem("aggregate_fused", aggregate_fused_smem_bytes(slab))
-    part = torch.empty((cluster, n_dstb * BLK, N), dtype=torch.float32,
-                       device=h.device)
     with torch.cuda.device(h.device):
         status = _lib("aggregate_fused").aggregate_fused_launch(
             tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
             cols.data_ptr(), h.data_ptr(), w.data_ptr(), _ptr(b), _ptr(s),
-            out.data_ptr(), part.data_ptr(), n_dstb, max_blk, h.shape[0], F,
-            N, ACTS[act], slab, cluster, stream(h))
+            out.data_ptr(), n_dstb, max_blk, h.shape[0], F, N, ACTS[act],
+            slab, cluster, stream(h))
     raise_on(status, "aggregate_fused", "aggregate_fused")
     launch_counts["aggregate_fused"] += 1
     return out

@@ -45,10 +45,12 @@
 //     split_tf32_fast, each step of 8 z columns summed from zero and
 //     joined to the fp32 accumulator by a rounded add), 16 warps as 4 x 4,
 //     each owning 32 rows and 32 output columns;
-//   * each rank writes its partial to device memory (part, (C, n_dstb*128,
-//     N)), and fused_combine_kernel sums the C partials in rank order,
-//     adds b, applies act and writes every row (act(b) for a block with no
-//     edge and no s). No float atomics: one summation order on every run.
+//   * the partials meet in distributed shared memory: after a cluster
+//     barrier, rank r sums its share of the rows over every rank's partial
+//     in rank order, adds b, applies act and writes those rows. No float
+//     atomics: one summation order on every run.
+
+#include <cooperative_groups.h>
 
 #include "activation.cuh"
 #include "edge_walk.cuh"
@@ -57,6 +59,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace fused_walk;
 using activation::act_apply;
 
@@ -89,13 +92,15 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
                        const int* __restrict__ cols,
                        const float* __restrict__ h,
                        const float* __restrict__ w,
+                       const float* __restrict__ b,
                        const float* __restrict__ s,
-                       float* __restrict__ part, int max_blk,
-                       long long n_src, int F, int N) {
+                       float* __restrict__ out, int max_blk, long long n_src,
+                       int F, int N, int act) {
   using P = Fwd<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rank = blockIdx.x;
-  const int C = gridDim.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
   const int i = blockIdx.y, n0 = blockIdx.z * NB;
   const int n_cols = min(NB, N - n0);
   const int tid = threadIdx.x;
@@ -103,7 +108,15 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
   const long long row0 = (long long)i * BLK;
   const int e_begin = seg[slot0], e_end = seg[slot0 + max_blk];
 
-  if (e_end == e_begin && s == nullptr) return;  // the combine writes act(b)
+  if (e_end == e_begin && s == nullptr) {
+    // z is zero: the rows are act(b); rank r writes rows r, r + C, ...
+    const int rows = (BLK - rank + C - 1) / C;
+    for (int x = tid; x < rows * n_cols; x += THREADS) {
+      const int r = rank + C * (x / n_cols), n = n0 + x % n_cols;
+      out[(row0 + r) * N + n] = act_apply(b != nullptr ? b[n] : 0.f, act);
+    }
+    return;  // the whole cluster leaves here: its blocks share i
+  }
 
   const Smem sm = carve(smem_raw, BLK * P::LDZ, S * LDW);
   float* ws = sm.op;
@@ -186,66 +199,108 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
     __syncthreads();  // z and w are free for the next slab or the partial
   }
 
-  // rank r's partial
-  float* prt = part + ((long long)rank * gridDim.y * BLK + row0) * N + n0;
+  // the partial over z and w's place, then every rank's in rank order
+  float* part = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = 32 * wm + 16 * mt + g + 8 * half;
+      float* prow = part + (32 * wm + 16 * mt + g + 8 * half) * LDP
+                    + 32 * wn + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = 32 * wn + 8 * nt + 2 * t;
-        if (c < n_cols) prt[(long long)r * N + c] = acc[mt][nt][2 * half];
-        if (c + 1 < n_cols)
-          prt[(long long)r * N + c + 1] = acc[mt][nt][2 * half + 1];
-      }
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(prow + 8 * nt) =
+            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
     }
+  cluster.sync();
+  const int share = (BLK + C - 1) / C;
+  const int r_lo = rank * share, r_hi = min(BLK, r_lo + share);
+  const int q4 = (n_cols + 3) / 4;
+  for (int x = tid; x < (r_hi - r_lo) * q4; x += THREADS) {
+    const int r = r_lo + x / q4, c = (x % q4) * 4;
+    float4 y = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(part, 0) + r * LDP + c);
+    for (int q = 1; q < C; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, q) + r * LDP + c);
+      y.x += v.x;
+      y.y += v.y;
+      y.z += v.z;
+      y.w += v.w;
+    }
+    const float ys[4] = {y.x, y.y, y.z, y.w};
+    float* orow = out + (row0 + r) * N + n0 + c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < n_cols)
+        orow[e] = act_apply(ys[e] + (b != nullptr ? b[n0 + c + e] : 0.f),
+                            act);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
 }
 
-// out[row, n] = act(sum over ranks q, in order, of part[q][row, n] + b[n]),
-// the partials read only for the destination blocks that have an edge or s
-__global__ void __launch_bounds__(256)
-fused_combine_kernel(const float* __restrict__ part,
-                     const int* __restrict__ seg, const float* __restrict__ b,
-                     const float* __restrict__ s, float* __restrict__ out,
-                     int max_blk, long long rows, int N, int C, int act) {
-  const long long x = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (x >= rows * N) return;
-  const long long row = x / N;
-  const int n = (int)(x % N);
-  const long long slot0 = row / BLK * max_blk;
-  float y = 0.f;
-  if (s != nullptr || seg[slot0 + max_blk] > seg[slot0]) {
-    y = part[x];
-    for (int q = 1; q < C; ++q) y += part[q * rows * N + x];
-  }
-  out[x] = act_apply(y + (b != nullptr ? b[n] : 0.f), act);
+template <int S>
+cudaLaunchConfig_t config(int cluster, int n_dstb, int N, cudaStream_t st,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, n_dstb, (N + NB - 1) / NB);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes(S);
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int S>
 cudaError_t launch(const int* tile_off, const float* val, const int* seg,
                    const int* cols, const float* h, const float* w,
-                   const float* b, const float* s, float* out, float* part,
-                   int n_dstb, int max_blk, long long n_src, int F, int N,
-                   int act, int cluster, cudaStream_t st) {
+                   const float* b, const float* s, float* out, int n_dstb,
+                   int max_blk, long long n_src, int F, int N, int act,
+                   int cluster, cudaStream_t st) {
   cudaError_t err =
       edge_walk::allow_smem(aggregate_fused_kernel<S>, smem_bytes(S));
   if (err != cudaSuccess) return err;
-  aggregate_fused_kernel<S><<<dim3(cluster, n_dstb, (N + NB - 1) / NB),
-                              THREADS, smem_bytes(S), st>>>(
-      tile_off, val, seg, cols, h, w, s, part, max_blk, n_src, F, N);
-  err = cudaGetLastError();
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<S>(cluster, n_dstb, N, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, aggregate_fused_kernel<S>, tile_off, val,
+                           seg, cols, h, w, b, s, out, max_blk, n_src, F, N,
+                           act);
   if (err != cudaSuccess) return err;
-  const long long rows = (long long)n_dstb * BLK;
-  fused_combine_kernel<<<(unsigned)((rows * N + 255) / 256), 256, 0, st>>>(
-      part, seg, b, s, out, max_blk, rows, N, cluster, act);
   return cudaGetLastError();
+}
+
+template <int S>
+int max_clusters(int cluster) {
+  if (edge_walk::allow_smem(aggregate_fused_kernel<S>, smem_bytes(S))
+      != cudaSuccess)
+    return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<S>(cluster, 1, 1, 0, &attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, aggregate_fused_kernel<S>, &cfg)
+      != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
 
 extern "C" {
+
+// The most clusters of `cluster` thread blocks that the card runs at once
+// for a slab of `slab` z columns (-1 if the runtime cannot say).
+int aggregate_fused_max_clusters(int slab, int cluster) {
+  switch (slab) {
+    case 128: return max_clusters<128>(cluster);
+    case 32: return max_clusters<32>(cluster);
+    default: return -1;
+  }
+}
 
 // Dynamic shared memory of one thread block for a slab of `slab` z columns.
 long long aggregate_fused_smem_bytes(int slab) {
@@ -259,21 +314,19 @@ long long aggregate_fused_smem_bytes(int slab) {
 int aggregate_fused_launch(const int* tile_off, const float* val,
                            const int* seg, const int* cols, const float* h,
                            const float* w, const float* b, const float* s,
-                           float* out, float* part, int n_dstb,
-                           int max_blk, long long n_src, int F, int N,
-                           int act, int slab, int cluster, void* stream) {
+                           float* out, int n_dstb, int max_blk,
+                           long long n_src, int F, int N, int act, int slab,
+                           int cluster, void* stream) {
   if (cluster < 1 || cluster > MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (slab) {
     case 128:
       return (int)launch<128>(tile_off, val, seg, cols, h, w, b, s, out,
-                              part, n_dstb, max_blk, n_src, F, N, act,
-                              cluster, st);
+                              n_dstb, max_blk, n_src, F, N, act, cluster, st);
     case 32:
       return (int)launch<32>(tile_off, val, seg, cols, h, w, b, s, out,
-                             part, n_dstb, max_blk, n_src, F, N, act,
-                             cluster, st);
+                             n_dstb, max_blk, n_src, F, N, act, cluster, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -492,8 +492,10 @@ def check_fused_fwd(name, agg, lay, h, w, usage, s=None):
            "gather_bytes": 4 * F * int(lay["tile_seg"][-1]),
            "max_abs_err": check_close(name, "out", out, ref),
            "bitwise_repeat": True,
-           **build_usage(usage, "aggregate_fused_kernel"),
-           "build": {fn[fn.index("aggregate_fused_kernel"):][:30]: u
+           # this launch's instantiation: slab S, one or several rounds
+           **build_usage(usage, f"aggregate_fused_kernelILi{slab}ELb"
+                                f"{int(rounds > 1)}E"),
+           "build": {fn[fn.index("aggregate_fused_kernel"):][:34]: u
                      for fn, u in usage.items()
                      if "aggregate_fused_kernel" in fn},
            "device_kernels": device_split(

@@ -34,7 +34,9 @@
 //     columns); kernels/aggregate.py: aggregate_fused_shape picks, from
 //     the shapes alone, a slab of S = 128 z columns (32 where that would
 //     busy fewer than half the SMs) and a cluster of C = min(F / S
-//     rounded up, 8) thread blocks; rank r takes the slabs r, r + C, ...;
+//     rounded up, 8) thread blocks; rank r takes the slabs r, r + C, ...
+//     (one each up to 8 slabs, in an instantiation that holds no partial
+//     in registers across the walk);
 //   * a destination block with no edge and no s writes its rows as act(b)
 //     and leaves before any load;
 //   * each thread block resolves its block's edges once and walks them
@@ -84,7 +86,8 @@ __host__ __device__ inline size_t smem_bytes(int slab) {
   return walk > part ? walk : part;
 }
 
-template <int S>
+// MULTI: a rank may take more than one slab
+template <int S, bool MULTI>
 __global__ void __launch_bounds__(THREADS, 1)
 aggregate_fused_kernel(const int* __restrict__ tile_off,
                        const float* __restrict__ val,
@@ -197,6 +200,7 @@ aggregate_fused_kernel(const int* __restrict__ tile_off,
       }
     }
     __syncthreads();  // z and w are free for the next slab or the partial
+    if (!MULTI) break;
   }
 
   // the partial over z and w's place, then every rank's in rank order
@@ -262,28 +266,27 @@ cudaError_t launch(const int* tile_off, const float* val, const int* seg,
                    const float* b, const float* s, float* out, int n_dstb,
                    int max_blk, long long n_src, int F, int N, int act,
                    int cluster, cudaStream_t st) {
-  cudaError_t err =
-      edge_walk::allow_smem(aggregate_fused_kernel<S>, smem_bytes(S));
+  const bool multi = (F + S - 1) / S > cluster;
+  auto kernel = multi ? aggregate_fused_kernel<S, true>
+                      : aggregate_fused_kernel<S, false>;
+  cudaError_t err = edge_walk::allow_smem(kernel, smem_bytes(S));
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config<S>(cluster, n_dstb, N, st, &attr);
-  err = cudaLaunchKernelEx(&cfg, aggregate_fused_kernel<S>, tile_off, val,
-                           seg, cols, h, w, b, s, out, max_blk, n_src, F, N,
-                           act);
+  err = cudaLaunchKernelEx(&cfg, kernel, tile_off, val, seg, cols, h, w, b,
+                           s, out, max_blk, n_src, F, N, act);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int S>
 int max_clusters(int cluster) {
-  if (edge_walk::allow_smem(aggregate_fused_kernel<S>, smem_bytes(S))
-      != cudaSuccess)
-    return -1;
+  auto kernel = aggregate_fused_kernel<S, false>;
+  if (edge_walk::allow_smem(kernel, smem_bytes(S)) != cudaSuccess) return -1;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config<S>(cluster, 1, 1, 0, &attr);
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, aggregate_fused_kernel<S>, &cfg)
-      != cudaSuccess)
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
     return -1;
   return n;
 }

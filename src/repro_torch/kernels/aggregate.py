@@ -373,9 +373,8 @@ MERGED_MAX_F = 256
 # output columns per thread block of the fused kernels (csrc/
 # fused_update.cuh: NB)
 _NB = 128
-# aggregate_fused (csrc/aggregate_fused.cu): the z columns a thread block
-# may take (S), and the most thread blocks of a cluster (the portable size)
-_FWD_SLABS = (128, 32)
+# aggregate_fused (csrc/aggregate_fused.cu): the most thread blocks of a
+# cluster (the portable size)
 _FWD_MAX_CLUSTER = 8
 # fused_bwd's dw pass (csrc/aggregate_fused_bwd.cu): the z columns a thread
 # block may take (S), the cap on its partials, and the work a block adds
@@ -500,15 +499,20 @@ def aggregate_fused_shape(n_dstb: int, F: int, N: int, sms: int) -> tuple:
     """(slab, cluster, rounds) of ``aggregate_fused`` on a card of ``sms``
     SMs, from the shapes alone (no host sync). The grid is (cluster,
     n_dstb, N / 128 rounded up) thread blocks of 512 threads, one an SM
-    (~170 KB of shared memory at slab 128); the ``cluster`` blocks of a
+    (up to ~200 KB of shared memory); the ``cluster`` blocks of a
     destination block split its ``ceil(F / slab)`` slabs of z columns,
     rank r taking slabs r, r + cluster, ... (``rounds`` at most), and sum
     their partials through distributed shared memory. The cluster is at
-    most 8 (the portable size). The slab is 128 z columns where that
-    busies half the SMs, else 32: a wider slab walks each edge fewer
-    times, a narrower one spreads a layer of few destination blocks
-    (layer 1's 8) over more SMs."""
-    for slab in _FWD_SLABS:
+    most 8 (the portable size).
+
+    The slab is wide where that busies half the SMs, else 32: a wider
+    slab walks each edge fewer times, a narrower one spreads a layer of
+    few destination blocks (layer 1's 8) over more SMs. Wide is 160 z
+    columns where that needs fewer slabs than 128, else 128: at F = 602
+    it cuts the cluster from 5 thread blocks to 4, and the card runs 30
+    clusters of 4 at once against 22 of 5 (PERF.md, PR 19)."""
+    wide = 160 if -(-F // 160) < -(-F // 128) else 128
+    for slab in (wide, 32):
         slabs = -(-F // slab)
         cluster = max(1, min(slabs, _FWD_MAX_CLUSTER))
         if 2 * cluster * n_dstb * -(-N // _NB) > sms:

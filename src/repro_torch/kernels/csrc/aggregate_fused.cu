@@ -32,8 +32,8 @@
 // whole 128-row z tile at F = 602 (308 KB) does not fit a block's 227 KB:
 //   * the grid is (rank in a cluster, destination block, 128 output
 //     columns); kernels/aggregate.py: aggregate_fused_shape picks, from
-//     the shapes alone, a slab of S = 128 z columns (32 where that would
-//     busy fewer than half the SMs) and a cluster of C = min(F / S
+//     the shapes alone, a slab of S = 160 or 128 z columns (32 where that
+//     would busy fewer than half the SMs) and a cluster of C = min(F / S
 //     rounded up, 8) thread blocks; rank r takes the slabs r, r + C, ...
 //     (one each up to 8 slabs, in an instantiation that holds no partial
 //     in registers across the walk);
@@ -299,6 +299,7 @@ extern "C" {
 // for a slab of `slab` z columns (-1 if the runtime cannot say).
 int aggregate_fused_max_clusters(int slab, int cluster) {
   switch (slab) {
+    case 160: return max_clusters<160>(cluster);
     case 128: return max_clusters<128>(cluster);
     case 32: return max_clusters<32>(cluster);
     default: return -1;
@@ -324,6 +325,9 @@ int aggregate_fused_launch(const int* tile_off, const float* val,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (slab) {
+    case 160:
+      return (int)launch<160>(tile_off, val, seg, cols, h, w, b, s, out,
+                              n_dstb, max_blk, n_src, F, N, act, cluster, st);
     case 128:
       return (int)launch<128>(tile_off, val, seg, cols, h, w, b, s, out,
                               n_dstb, max_blk, n_src, F, N, act, cluster, st);

@@ -495,8 +495,8 @@ def test_fused_bwd_plans_match_plain_on_card_bitwise_repeatable(
     ("skewed", 64, 41, "none", False, False),
     ("skewed", 128, 128, "relu", True, True),
     ("front_quarter", 200, 130, "none", False, False),
-    # 9 slabs of 128 columns over a cluster of 8: rank 0 takes two
-    ("front_quarter", 1100, 41, "none", True, False),
+    # 9 slabs of 160 columns over a cluster of 8: rank 0 takes two
+    ("front_quarter", 1300, 41, "none", True, False),
     ("layer0_like", 602, 128, "none", False, False),
     ("layer0_like", 602, 128, "none", False, True),
     ("layer1_like", 128, 41, "none", False, False),

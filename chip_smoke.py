@@ -65,9 +65,11 @@ init. Phases, each of which exits non-zero on failure:
      (``torch.profiler``), and the build report's registers and spill
      bytes; two launches must give bitwise the same dw (and db).
      ``aggregate_fused``'s lines give its shape (``slab``, ``cluster``,
-     ``rounds``, ``ctas``, ``real_blocks``: the destination blocks that
-     hold an edge), its device split by kernel and the build report's
-     registers and spill bytes; two launches must give the same bits. The
+     ``rounds``, ``ctas``, ``max_active_clusters``: the clusters the card
+     runs at once, ``real_blocks``: the destination blocks that hold an
+     edge), its device split by kernel and the build report's registers
+     and spill bytes (of the launch's instantiation, and of each under
+     ``build``); two launches must give the same bits. The
      fused kernels' update flops are counted over the destination rows
      that hold an edge or a self term (``flops``), and over all padded
      rows as ``flops_all_rows``;

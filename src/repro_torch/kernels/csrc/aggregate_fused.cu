@@ -36,7 +36,9 @@
 //     would busy fewer than half the SMs) and a cluster of C = min(F / S
 //     rounded up, 8) thread blocks; rank r takes the slabs r, r + C, ...
 //     (one each up to 8 slabs, in an instantiation that holds no partial
-//     in registers across the walk);
+//     in registers across the walk). 160 is taken where it needs fewer
+//     slabs than 128: at F = 602 a cluster of 4, and an H100 runs 30
+//     clusters of 4 of these blocks at once against 22 of 5;
 //   * a destination block with no edge and no s writes its rows as act(b)
 //     and leaves before any load;
 //   * each thread block resolves its block's edges once and walks them

@@ -510,7 +510,7 @@ def aggregate_fused_shape(n_dstb: int, F: int, N: int, sms: int) -> tuple:
     few destination blocks (layer 1's 8) over more SMs. Wide is 160 z
     columns where that needs fewer slabs than 128, else 128: at F = 602
     it cuts the cluster from 5 thread blocks to 4, and the card runs 30
-    clusters of 4 at once against 22 of 5 (PERF.md, PR 19)."""
+    clusters of 4 at once against 22 of 5 on an H100 (PERF.md)."""
     wide = 160 if -(-F // 160) < -(-F // 128) else 128
     for slab in (wide, 32):
         slabs = -(-F // slab)

@@ -58,7 +58,13 @@ init. Phases, each of which exits non-zero on failure:
      ``aggregate_edges`` kernel and ``torch.matmul``) and ``torch.sparse.mm``
      with ``torch.matmul``. Beside them the bound: the larger of the bytes
      the launch must move over 3.35 TB/s and its flops over the 67 TFLOP/s
-     fp32 rate (published H100 SXM peaks). ``fused_bwd``'s lines also
+     fp32 rate (published H100 SXM peaks). ``aggregate_edges``' lines
+     give its shape (``groups`` of ``rows_a_group`` rows, ``slab``: the
+     columns a warp walks at once, ``vec``: the floats a lane loads at
+     once, ``ctas``, ``real_blocks``: the destination blocks that hold an
+     edge, ``busy_ctas``) and the build report's registers and spill bytes
+     of the launch's instantiation; two launches must give the same bits.
+     ``fused_bwd``'s lines also
      give its plan (``real_blocks``, ``groups``, ``slab``, ``ctas``,
      ``partial_bytes``, held under 8 MiB), the device times of its dw
      kernel, its reduce and its plan's PyTorch ops apart
@@ -418,26 +424,40 @@ def report(row: dict) -> dict:
     return row
 
 
-def check_edges_launch(name, agg, lay, keys, h, n_out):
-    """aggregate_edges vs plain on the card, the times, and the bound of
-    one launch."""
+def check_edges_launch(name, agg, lay, keys, h, n_out, usage):
+    """aggregate_edges vs plain on the card, twice, bitwise equal; its
+    shape (row groups, rows a group, columns a warp walks at once, load
+    width, thread blocks, busy destination blocks), build (registers,
+    spills of the launch's instantiation), times and bound for one
+    launch."""
     args = on_card(lay, keys)
     out = agg.aggregate_edges(*args, h)
+    again = agg.aggregate_edges(*args, h)
     ref = agg.aggregate_edges_plain(*args, h)
     torch.cuda.synchronize()
     max_abs = check_close(name, "out", out, ref)
+    if not torch.equal(out, again):
+        fail(f"{name}: two launches gave different bits")
     err = (out - ref).abs()
     max_rel = float((err / ref.abs().clamp_min(ATOL)).max())
     a = csr(lay, keys, n_out, h.shape[0])
     lib_err = float((sparse_mm(a, h) - ref).abs().max())
     dst, src, _ = edge_coords(lay, keys)
     F = h.shape[1]
+    n_dstb, max_blk = lay[keys[3]].shape
+    groups = agg.aggregate_edges_shape(
+        n_dstb, F, torch.cuda.get_device_properties(0).multi_processor_count)
+    vec = agg.aggregate_edges_vec(h)
+    busy = int((np.diff(lay[keys[2]][::max_blk]) > 0).sum())
     row = {"kernel": "aggregate_edges", "launch": name, "edges": len(dst),
            "src_rows": len(np.unique(src)), "h": list(h.shape),
-           "out": [n_out, F],
-           "smem_bytes": agg.aggregate_edges_smem_bytes(args[3].shape[1]),
+           "out": [n_out, F], "groups": groups, "rows_a_group": 128 // groups,
+           "slab": 128, "vec": vec, "ctas": groups * n_dstb,
+           "real_blocks": busy, "busy_ctas": groups * busy,
+           "smem_bytes": agg.aggregate_edges_smem_bytes(),
+           **build_usage(usage, f"aggregate_edges_kernelILi{vec}E"),
            "max_abs_err": max_abs, "max_rel_err": max_rel,
-           "library_max_abs_err": lib_err,
+           "bitwise_repeat": True, "library_max_abs_err": lib_err,
            "ms": time_ms(lambda: agg.aggregate_edges(*args, h)),
            "plain_ms": time_ms(lambda: agg.aggregate_edges_plain(*args, h)),
            "library_ms": time_ms(lambda: sparse_mm(a, h))}
@@ -1268,10 +1288,11 @@ def main() -> None:
     h1, g1 = randn(pad[1], hid), randn(out_rows[1], hid)
     rows = {"aggregate_edges": [
         check_edges_launch("layer0_fwd", agg, layers[0], FWD, h0,
-                           out_rows[0]),
+                           out_rows[0], usage["aggregate_edges"]),
         check_edges_launch("layer1_fwd", agg, layers[1], FWD, h1,
-                           out_rows[1]),
-        check_edges_launch("layer1_bwd", agg, layers[1], BWD, g1, pad[1])]}
+                           out_rows[1], usage["aggregate_edges"]),
+        check_edges_launch("layer1_bwd", agg, layers[1], BWD, g1, pad[1],
+                           usage["aggregate_edges"])]}
     w0, w1 = randn(f0, hid, scale=f0 ** -0.5), randn(hid, n_cls,
                                                      scale=hid ** -0.5)
     rows["aggregate_fused"] = [

@@ -53,6 +53,10 @@ launch_counts.update(aggregate_blockcsr=0, aggregate_edges=0,
 
 # dynamic shared memory a thread block may use on Hopper
 _MAX_SMEM = 232_448
+# aggregate_edges (csrc/aggregate_edges.cu): the most row-columns a thread
+# block walks, and the fewest rows of a group (one a warp)
+_EDGES_GROUP_WORK = 16384
+_EDGES_MIN_ROWS = 8
 
 
 def aggregate_edges_plain(tile_off: torch.Tensor, val: torch.Tensor,
@@ -106,8 +110,9 @@ _SIGNATURES = {
         "aggregate_blockcsr_smem_bytes": ([], _I),
         "aggregate_blockcsr_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
     "aggregate_edges": {
-        "aggregate_edges_smem_bytes": ([_I], _L),
-        "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
+        "aggregate_edges_smem_bytes": ([], _L),
+        "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _I, _I, _P],
+                                   _I)},
     "aggregate_fused": {
         "aggregate_fused_smem_bytes": ([_I], _L),
         "aggregate_fused_max_clusters": ([_I, _I], _I),
@@ -310,10 +315,29 @@ class AggregateCompact(torch.autograd.Function):
 
 # --- edge-streaming aggregation ---------------------------------------------
 
-def aggregate_edges_smem_bytes(max_blk: int) -> int:
-    """Dynamic shared memory one kernel launch uses for a layout with
-    ``max_blk`` tile slots per destination block (builds the kernel)."""
-    return _lib("aggregate_edges").aggregate_edges_smem_bytes(max_blk)
+def aggregate_edges_smem_bytes() -> int:
+    """Shared memory of one ``aggregate_edges`` thread block, the same for
+    every layout (builds the kernel)."""
+    return _lib("aggregate_edges").aggregate_edges_smem_bytes()
+
+
+def aggregate_edges_shape(n_dstb: int, F: int, sms: int) -> int:
+    """The row groups a destination block of ``aggregate_edges`` is cut
+    into on a card of ``sms`` SMs, from the shapes alone (no host sync).
+    The grid is (groups, n_dstb) thread blocks of 256 threads, each owning
+    128 / groups rows and every column of them. Groups double while a
+    thread block would walk more than ``_EDGES_GROUP_WORK`` row-columns
+    (F = 602: 16 rows, so layer 0's busy blocks spread over every SM) or
+    the grid would hold fewer than two thread blocks an SM (layer 1's 8
+    destination blocks), down to ``_EDGES_MIN_ROWS`` rows, one a warp."""
+    return 1  # checkpoint 1: one thread block a destination block
+
+
+def aggregate_edges_vec(h: torch.Tensor) -> int:
+    """The floats an ``aggregate_edges`` lane loads at once from ``h``: the
+    widest of 4, 2 and 1 that the row length and the base allow (float2 at
+    F = 602, whose rows are 8-byte aligned; float4 at F = 128)."""
+    return 1  # checkpoint 1: scalar loads
 
 
 def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,
@@ -325,21 +349,22 @@ def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,
     (n_dstb*max_blk + 1,) i32 segment offsets (masked edges lie past
     seg[-1]); cols (n_dstb, max_blk) i32 source-block table; h (n_srcb*128,
     F) f32. Returns (n_dstb*128, F) f32. A CUDA tensor goes through the
-    kernel, a CPU tensor through ``aggregate_edges_plain``."""
+    kernel in the grid ``aggregate_edges_shape`` picks, a CPU tensor
+    through ``aggregate_edges_plain``."""
     _check(tile_off, val, seg, cols, h)
     if not on_card("aggregate_edges", h):
         return aggregate_edges_plain(tile_off, val, seg, cols, h)
     n_dstb, max_blk = cols.shape
     F = h.shape[1]
     out = torch.empty((n_dstb * BLK, F), dtype=torch.float32, device=h.device)
-    if tile_off.numel() == 0 or F == 0:  # zero-capacity layer: A is empty
+    if tile_off.numel() == 0 or out.numel() == 0:  # A is empty, or out is
         return out.zero_()
-    _check_smem("aggregate_edges", aggregate_edges_smem_bytes(max_blk))
+    groups = aggregate_edges_shape(n_dstb, F, sm_count(h))
     with torch.cuda.device(h.device):
         status = _lib("aggregate_edges").aggregate_edges_launch(
             tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
             cols.data_ptr(), h.data_ptr(), out.data_ptr(), n_dstb, max_blk,
-            h.shape[0], F, stream(h))
+            h.shape[0], F, groups, aggregate_edges_vec(h), stream(h))
     raise_on(status, "aggregate_edges", "aggregate_edges")
     launch_counts["aggregate_edges"] += 1
     return out

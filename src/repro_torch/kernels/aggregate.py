@@ -330,14 +330,19 @@ def aggregate_edges_shape(n_dstb: int, F: int, sms: int) -> int:
     (F = 602: 16 rows, so layer 0's busy blocks spread over every SM) or
     the grid would hold fewer than two thread blocks an SM (layer 1's 8
     destination blocks), down to ``_EDGES_MIN_ROWS`` rows, one a warp."""
-    return 1  # checkpoint 1: one thread block a destination block
+    groups = 1
+    while BLK // groups > _EDGES_MIN_ROWS and (
+            BLK // groups * F > _EDGES_GROUP_WORK
+            or n_dstb * groups < 2 * sms):
+        groups *= 2
+    return groups
 
 
 def aggregate_edges_vec(h: torch.Tensor) -> int:
     """The floats an ``aggregate_edges`` lane loads at once from ``h``: the
     widest of 4, 2 and 1 that the row length and the base allow (float2 at
     F = 602, whose rows are 8-byte aligned; float4 at F = 128)."""
-    return 1  # checkpoint 1: scalar loads
+    return 1  # checkpoints 1-2: scalar loads
 
 
 def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,

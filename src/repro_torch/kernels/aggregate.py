@@ -342,7 +342,8 @@ def aggregate_edges_vec(h: torch.Tensor) -> int:
     """The floats an ``aggregate_edges`` lane loads at once from ``h``: the
     widest of 4, 2 and 1 that the row length and the base allow (float2 at
     F = 602, whose rows are 8-byte aligned; float4 at F = 128)."""
-    return 1  # checkpoints 1-2: scalar loads
+    F, ptr = h.shape[1], h.data_ptr()
+    return next(v for v in (4, 2, 1) if F % v == 0 and ptr % (4 * v) == 0)
 
 
 def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,

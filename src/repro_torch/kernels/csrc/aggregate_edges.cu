@@ -67,7 +67,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 2048;              // edges resolved at once
 constexpr int STEPS = CHUNK / THREADS;   // 32-edge steps of a warp's share
 constexpr int SLOTS = 4;                 // slots a thread resolves at once
-constexpr int UNROLL = 4;                // h rows in flight a warp
+constexpr int UNROLL = 8;                // h rows in flight a warp
 constexpr int SPAN = 128;                // columns a warp walks at once
 
 struct Smem {

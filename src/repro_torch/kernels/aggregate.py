@@ -55,7 +55,7 @@ launch_counts.update(aggregate_blockcsr=0, aggregate_edges=0,
 _MAX_SMEM = 232_448
 # aggregate_edges (csrc/aggregate_edges.cu): the most row-columns a thread
 # block walks, and the fewest rows of a group (one a warp)
-_EDGES_GROUP_WORK = 16384
+_EDGES_GROUP_WORK = 32768
 _EDGES_MIN_ROWS = 8
 
 
@@ -324,16 +324,18 @@ def aggregate_edges_smem_bytes() -> int:
 def aggregate_edges_shape(n_dstb: int, F: int, sms: int) -> int:
     """The row groups a destination block of ``aggregate_edges`` is cut
     into on a card of ``sms`` SMs, from the shapes alone (no host sync).
-    The grid is (groups, n_dstb) thread blocks of 256 threads, each owning
-    128 / groups rows and every column of them. Groups double while a
-    thread block would walk more than ``_EDGES_GROUP_WORK`` row-columns
-    (F = 602: 16 rows, so layer 0's busy blocks spread over every SM) or
-    the grid would hold fewer than two thread blocks an SM (layer 1's 8
-    destination blocks), down to ``_EDGES_MIN_ROWS`` rows, one a warp."""
+    The grid is (groups, n_dstb) thread blocks of 256 threads, two an SM,
+    each owning 128 / groups rows and every column of them. Groups double
+    while a thread block would walk more than ``_EDGES_GROUP_WORK``
+    row-columns (F = 602: 32 rows, so the paper batch's 52 busy layer-0
+    blocks become 208 thread blocks that the card holds at once) or the
+    grid would hold fewer than four thread blocks an SM (layer 1's 8
+    destination blocks, and the 208 of its backward), down to
+    ``_EDGES_MIN_ROWS`` rows, one a warp."""
     groups = 1
     while BLK // groups > _EDGES_MIN_ROWS and (
             BLK // groups * F > _EDGES_GROUP_WORK
-            or n_dstb * groups < 2 * sms):
+            or n_dstb * groups < 4 * sms):
         groups *= 2
     return groups
 

@@ -67,7 +67,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 2048;              // edges resolved at once
 constexpr int STEPS = CHUNK / THREADS;   // 32-edge steps of a warp's share
 constexpr int SLOTS = 4;                 // slots a thread resolves at once
-constexpr int UNROLL = 8;                // h rows in flight a warp
+constexpr int UNROLL = 16;               // h rows in flight a warp
 constexpr int SPAN = 128;                // columns a warp walks at once
 
 struct Smem {
@@ -160,20 +160,19 @@ __device__ void resolve(const int* __restrict__ tile_off,
       wv[j] = __ldg(val + c0 + x);
     }
   }
-  // the slots, SLOTS a thread at a time: each writes its source block into
-  // the places of its edges in the chunk
+  // the slots, SLOTS a thread at a time, their seg and cols loads issued
+  // together: each writes its source block into the places of its edges in
+  // the chunk
   for (int k0 = 0; k0 < max_blk; k0 += SLOTS * THREADS) {
     int a[SLOTS], b[SLOTS], base[SLOTS];
 #pragma unroll
     for (int j = 0; j < SLOTS; ++j) {
       const int k = k0 + tid + j * THREADS;
-      a[j] = k < max_blk ? max(__ldg(seg_i + k), c0) : 0;
-      b[j] = k < max_blk ? min(__ldg(seg_i + k + 1), c0 + n) : 0;
+      const bool in = k < max_blk;
+      a[j] = in ? max(__ldg(seg_i + k), c0) : 0;
+      b[j] = in ? min(__ldg(seg_i + k + 1), c0 + n) : 0;
+      base[j] = in ? __ldg(cols_i + k) * BLK : 0;
     }
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j)
-      base[j] = a[j] < b[j] ? __ldg(cols_i + k0 + tid + j * THREADS) * BLK
-                            : 0;
 #pragma unroll
     for (int j = 0; j < SLOTS; ++j)
       for (int e = a[j]; e < b[j]; ++e) sm.base[e - c0] = base[j];
@@ -333,7 +332,7 @@ __device__ void walk(const float* __restrict__ h, float* out_g, int F, int R,
 }
 
 template <int V>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 aggregate_edges_kernel(const int* __restrict__ tile_off,
                        const float* __restrict__ val,
                        const int* __restrict__ seg,

@@ -3,9 +3,12 @@
 On the CPU the port's wrapper runs ``aggregate_edges_plain``; it is held
 against ``repro.kernels.aggregate.aggregate_edges`` in interpret mode, and
 its backward against ``jax.vjp`` of ``aggregate_edges_vjp``, at rtol 1e-5 /
-atol 1e-6 (fp32 sums taken in another order). The test marked ``gpu``
-holds the CUDA kernel against the plain version on the card; it needs no
-JAX, so the reference is imported only by the tests that use it.
+atol 1e-6 (fp32 sums taken in another order). The tests marked ``gpu``
+hold the CUDA kernel against the plain version on the card (atol 1e-6
+times the plain result's largest magnitude where the cases of
+``test_torch_edges_plan.py`` run, and two launches must give the same
+bits); they need no JAX, so the reference is imported only by the tests
+that use it.
 """
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from repro_torch.kernels import aggregate as agg
 from repro_torch.kernels.layout import (block_capacities,
                                         build_block_coo_pair,
                                         build_layer_layouts)
+import test_torch_edges_plan as plan
 
 RTOL, ATOL = 1e-5, 1e-6
 FWD = ("tile_off", "val", "tile_seg", "cols")
@@ -174,6 +178,41 @@ def test_kernel_matches_plain_on_card(layer):
         assert agg.launch_counts["aggregate_edges"] == before + 1
         torch.testing.assert_close(out, agg.aggregate_edges_plain(*args, h),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 41, 128, 130, 602])
+@pytest.mark.parametrize("case", list(plan.CASES) + ["all_masked"])
+def test_kernel_matches_plain_on_card_bitwise_repeatable(case, F):
+    """The redesigned kernel over the plan's cases (skewed rows, a row
+    past a resolve chunk, empty blocks and layers, max_blk 1,280), from h,
+    from a view of it one row in and from one two floats in (an 8-byte
+    aligned base where h's is 16): within tolerance of the plain version,
+    and the same bits from two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    if case == "all_masked":  # edges, none of them valid
+        coo = plan._layout([5] * 128 + [3] * 128, 400, mask_p=0.0)
+    else:
+        coo = plan._layout(*plan.CASES[case])
+    args = [torch.from_numpy(coo[k]).cuda() for k in FWD]
+    rows = coo["n_src_pad"]
+    flat = torch.from_numpy(np.random.default_rng(F).standard_normal(
+        (rows + 1) * F + 2).astype(np.float32)).cuda()
+    views = {"base": flat[:rows * F].view(rows, F),
+             "one_row_in": flat[F:(rows + 1) * F].view(rows, F),
+             "two_floats_in": flat[2:rows * F + 2].view(rows, F)}
+    for what, h in views.items():
+        before = agg.launch_counts["aggregate_edges"]
+        out = agg.aggregate_edges(*args, h)
+        again = agg.aggregate_edges(*args, h)
+        want = agg.aggregate_edges_plain(*args, h)
+        torch.cuda.synchronize()
+        assert agg.launch_counts["aggregate_edges"] == before + (
+            2 if coo["tile_off"].size else 0), what
+        assert torch.equal(out, again), what
+        torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL * max(
+            1.0, float(want.abs().max())), msg=what)
 
 
 @pytest.mark.gpu

@@ -454,7 +454,6 @@ def check_edges_launch(name, agg, lay, keys, h, n_out, usage):
            "out": [n_out, F], "groups": groups, "rows_a_group": 128 // groups,
            "slab": 128, "vec": vec, "ctas": groups * n_dstb,
            "real_blocks": busy, "busy_ctas": groups * busy,
-           "smem_bytes": agg.aggregate_edges_smem_bytes(),
            **build_usage(usage, f"aggregate_edges_kernelILi{vec}E"),
            "max_abs_err": max_abs, "max_rel_err": max_rel,
            "bitwise_repeat": True, "library_max_abs_err": lib_err,

@@ -18,9 +18,11 @@ against the JAX reference:
   training path's autograd function (tiles densified in the forward and,
   only when ``h`` needs a gradient, from A^T in the backward);
   ``AggregateBlockCSR`` takes dense tiles.
-* ``aggregate_edges`` (``csrc/aggregate_edges.cu``): ``out = A @ h``.
-  ``AggregateEdges`` is its autograd function; the backward is the same
-  kernel over the transposed segments, ``dh = A^T @ g``.
+* ``aggregate_edges`` (``csrc/aggregate_edges.cu``): ``out = A @ h``;
+  ``aggregate_edges_shape`` sizes its grid (row groups of each
+  destination block) from the shapes. ``AggregateEdges`` is its autograd
+  function; the backward is the same kernel over the transposed
+  segments, ``dh = A^T @ g``.
 * ``aggregate_fused`` (``csrc/aggregate_fused.cu``): ``act((A @ h [+ s]) @
   w [+ b])`` with the aggregate kept on chip, never written to device
   memory; ``aggregate_fused_shape`` sizes its grid (slabs of z columns
@@ -110,7 +112,6 @@ _SIGNATURES = {
         "aggregate_blockcsr_smem_bytes": ([], _I),
         "aggregate_blockcsr_launch": ([_P] * 6 + [_I, _I, _L, _I, _P], _I)},
     "aggregate_edges": {
-        "aggregate_edges_smem_bytes": ([], _L),
         "aggregate_edges_launch": ([_P] * 6 + [_I, _I, _L, _I, _I, _I, _P],
                                    _I)},
     "aggregate_fused": {
@@ -315,12 +316,6 @@ class AggregateCompact(torch.autograd.Function):
 
 # --- edge-streaming aggregation ---------------------------------------------
 
-def aggregate_edges_smem_bytes() -> int:
-    """Shared memory of one ``aggregate_edges`` thread block, the same for
-    every layout (builds the kernel)."""
-    return _lib("aggregate_edges").aggregate_edges_smem_bytes()
-
-
 def aggregate_edges_shape(n_dstb: int, F: int, sms: int) -> int:
     """The row groups a destination block of ``aggregate_edges`` is cut
     into on a card of ``sms`` SMs, from the shapes alone (no host sync).
@@ -365,7 +360,7 @@ def aggregate_edges(tile_off: torch.Tensor, val: torch.Tensor,
     n_dstb, max_blk = cols.shape
     F = h.shape[1]
     out = torch.empty((n_dstb * BLK, F), dtype=torch.float32, device=h.device)
-    if tile_off.numel() == 0 or out.numel() == 0:  # A is empty, or out is
+    if tile_off.numel() == 0 or out.numel() == 0:  # A or out is empty
         return out.zero_()
     groups = aggregate_edges_shape(n_dstb, F, sm_count(h))
     with torch.cuda.device(h.device):

@@ -32,12 +32,14 @@
 // Design:
 //   * the grid is (row group, destination block): a thread block of 256
 //     threads owns R = 128 / groups rows of one destination block and every
-//     column of them; kernels/aggregate.py: aggregate_edges_shape picks
-//     groups from the shapes alone (no host sync), enough thread blocks to
-//     fill the card at layer 1's 8 destination blocks and rows few enough
-//     at F = 602 that the busy blocks spread over every SM;
+//     column of them, at most 128 registers a thread so that two fit an SM;
+//     kernels/aggregate.py: aggregate_edges_shape picks groups from the
+//     shapes alone (no host sync): 32 rows at F = 602, so the paper batch's
+//     52 busy layer-0 blocks become 208 thread blocks the card holds at
+//     once, and enough groups elsewhere for four thread blocks an SM (16 of
+//     8 rows at layer 1's 8 destination blocks);
 //   * a destination block with no edge writes its group's rows as zeros by
-//     vector stores and leaves: it stages nothing;
+//     float4 stores and leaves: it stages nothing;
 //   * a busy block resolves its block's edges once, CHUNK at a time, for
 //     every column: the thread of a slot writes the slot's source block
 //     into its edges' places (no search per edge), and the edges of the
@@ -49,11 +51,15 @@
 //     allow (float4 at F = 128, float2 at F = 602), 128 columns and
 //     UNROLL h rows in flight at a time. Each row is summed in registers in
 //     edge order, by fma from zero as the shared-memory tile of the earlier
-//     design summed it, and stored once; a row whose edges span two chunks
-//     resumes from the sum it stored. No float atomics, no shared-memory
-//     accumulator: the same bits on every run;
+//     design summed it (the same bits), and stored once; a row whose edges
+//     span two chunks resumes from the sum it stored. No float atomics, no
+//     shared-memory accumulator: the same bits on every run;
 //   * h is indexed with 64-bit offsets (row * F reaches 1.8e8 at layer 0),
 //     and a cell offset or source row out of range traps.
+//
+// On the paper batch layer 0 takes about 1.8x its bound: its edges gather
+// 143 MB of h rows, 2.5x the distinct rows the bound counts, and L2 serves
+// little of it (PERF.md).
 
 #include <stdint.h>
 
@@ -380,9 +386,6 @@ cudaError_t launch(const int* tile_off, const float* val, const int* seg,
 }  // namespace
 
 extern "C" {
-
-// Static shared memory of one thread block (any layout).
-long long aggregate_edges_smem_bytes() { return (long long)sizeof(Smem); }
 
 // Launches on `stream` with `groups` row groups a destination block (a
 // divisor of 128; kernels/aggregate.py: aggregate_edges_shape) and loads of

@@ -58,8 +58,7 @@
 //     and a cell offset or source row out of range traps.
 //
 // On the paper batch layer 0 takes about 1.8x its bound: its edges gather
-// 143 MB of h rows, 2.5x the distinct rows the bound counts, and L2 serves
-// little of it (PERF.md).
+// 143 MB of h rows, 2.5x the distinct rows the bound counts (PERF.md).
 
 #include <stdint.h>
 

@@ -392,7 +392,8 @@ def ptxas_usage(report: str) -> dict:
     for line in report.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-            usage[fn] = {"registers": None, "spill_bytes": 0}
+            usage[fn] = {"registers": None, "spill_bytes": 0,
+                         "smem_bytes": 0}
         elif fn and "spill stores" in line:
             words = line.replace(",", "").split()
             usage[fn]["spill_bytes"] = (int(words[words.index("spill") - 2])
@@ -400,6 +401,8 @@ def ptxas_usage(report: str) -> dict:
         elif fn and "Used" in line and "registers" in line:
             words = line.replace(",", "").split()
             usage[fn]["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                usage[fn]["smem_bytes"] = int(words[words.index("smem") - 2])
     return usage
 
 
@@ -546,9 +549,10 @@ def check_fused_fwd(name, agg, lay, h, w, usage, s=None):
     return report(row)
 
 
-def device_split(fn, calls: int = 10) -> dict:
+def device_split(fn, calls: int = 10, counts: dict | None = None) -> dict:
     """Device milliseconds per call of ``fn`` by kernel, from
-    ``torch.profiler`` over ``calls`` calls: {kernel name: ms}."""
+    ``torch.profiler`` over ``calls`` calls: {kernel name: ms}; with
+    ``counts``, also fills it with each kernel's launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -564,6 +568,11 @@ def device_split(fn, calls: int = 10) -> dict:
             key = key.replace("void ", "").split("(")[0][-80:]
             split[key] = (split.get(key, 0.0)
                           + e.time_range.elapsed_us() / 1e3 / calls)
+            if counts is not None:
+                counts[key] = counts.get(key, 0) + 1
+    if counts is not None:
+        for key in counts:
+            counts[key] /= calls
     return split
 
 
@@ -635,23 +644,53 @@ def check_fused_bwd(name, agg, lay, h, w, g, usage, s=None):
     return report(row)
 
 
-def check_merged(name, agg, lay, h, w, g, s):
+def check_merged(name, agg, lay, h, w, g, s, usage):
     """fused_bwd_merged vs plain on the card (one destination block, act
-    none), its times, yardsticks and bound."""
+    none), twice, bitwise equal, and dh bitwise equal to the
+    ``aggregate_edges`` kernel over A^T (the unfused branch's dh); its shape
+    (dh row groups, dw row groups, thread blocks, load width), build
+    (registers, spills, static and dynamic shared memory of the launch's
+    instantiation), device split (one kernel a call), times, yardsticks and
+    bound."""
     args = on_card(lay, FWD + BWD)
     dz = (g @ w.T).contiguous()
     got = agg.fused_bwd_merged(*args, h, g, dz, s)
+    again = agg.fused_bwd_merged(*args, h, g, dz, s)
     want = agg.fused_bwd_merged_plain(*args, h, g, dz, s)
+    dh_edges = agg.aggregate_edges(*args[4:], dz)
     torch.cuda.synchronize()
     err = max(check_close(name, what, a, b)
               for what, a, b in zip(("dw", "db", "dh"), got, want))
+    for what, a, b in zip(("dw", "db", "dh"), got, again):
+        if a is not None and not torch.equal(a, b):
+            fail(f"{name}: two launches gave different {what} bits")
+    if not torch.equal(got[2], dh_edges):
+        fail(f"{name}: dh differs from the aggregate_edges kernel over A^T "
+             f"in {int((got[2] != dh_edges).sum())} elements")
     F, N = w.shape
+    n_srcb = lay["cols_t"].shape[0]
+    dh_groups, dw_groups, ctas = agg.fused_bwd_merged_shape(
+        n_srcb, F, N, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    vec = min(agg.aggregate_edges_vec(h), agg.aggregate_edges_vec(dz))
+    key = f"fused_bwd_merged_kernelILi{vec}E"
+    counts = {}
+    split = device_split(lambda: agg.fused_bwd_merged(*args, h, g, dz, s),
+                         counts=counts)
+    if sum(counts.values()) != 1.0:
+        fail(f"{name}: {counts} device kernels a call, expected one")
     row = {"kernel": "fused_bwd_merged", "launch": name,
            **fused_shapes(lay, h, w, s),
-           "edges_t": int(lay["tile_seg_t"][-1]),
-           "smem_bytes": agg.fused_bwd_merged_smem_bytes(
-               args[3].shape[1], args[7].shape[1]),
-           "max_abs_err": err}
+           "edges_t": int(lay["tile_seg_t"][-1]), "n_srcb": n_srcb,
+           "dh_groups": dh_groups, "dw_groups": dw_groups, "ctas": ctas,
+           "vec": vec, **build_usage(usage, key),
+           "static_smem_bytes": max(u["smem_bytes"] for fn, u in usage.items()
+                                    if key in fn),
+           "dynamic_smem_bytes": agg.fused_bwd_merged_smem_bytes(
+               F, dw_groups),
+           "max_abs_err": err, "bitwise_repeat": True,
+           "dh_equals_aggregate_edges": True,
+           "device_kernels": split, "device_launches_a_call": counts}
     n_src = h.shape[0]
     a = csr(lay, FWD, 128, n_src)
     at = csr(lay, BWD, n_src, 128)
@@ -1338,7 +1377,7 @@ def main() -> None:
         "layer1_merged_bwd", agg, lay_m1,
         randn(lay_m1["cols_t"].shape[0] * 128, hid),
         randn(hid, n_cls, scale=hid ** -0.5), randn(128, n_cls),
-        randn(128, hid))]
+        randn(128, hid), usage["aggregate_fused_bwd"])]
     del hm0, hm1
     lay_c = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
                                 block_capacities(cfg), "mean")

@@ -123,9 +123,8 @@ _SIGNATURES = {
         "fused_bwd_smem_bytes": ([_I, _I], _L),
         "fused_bwd_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _I, _I, _I,
                                           _P], _I),
-        "fused_bwd_merged_smem_bytes": ([_I, _I], _L),
-        "fused_bwd_merged_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _P],
-                                    _I)},
+        "fused_bwd_merged_launch": ([_P] * 18 + [_I, _I, _L] + [_I] * 5
+                                    + [_P], _I)},
 }
 
 
@@ -411,6 +410,9 @@ _FWD_MAX_CLUSTER = 8
 _BWD_SLABS = (128, 32)
 _BWD_PARTIAL_CAP = 8 << 20
 _BWD_BLOCK_COST = 512
+# fused_bwd_merged (csrc/aggregate_fused_bwd.cu): the destination block's
+# rows a dw thread block takes
+_MERGED_DW_ROWS = 16
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -680,9 +682,42 @@ def fused_bwd(tile_off, val, seg, cols, h, g, w, b=None, s=None, *,
     return dw, db, dy
 
 
-def fused_bwd_merged_smem_bytes(max_blk: int, max_blk_t: int) -> int:
-    return _lib("aggregate_fused_bwd").fused_bwd_merged_smem_bytes(
-        max_blk, max_blk_t)
+def fused_bwd_merged_shape(n_srcb: int, F: int, N: int, sms: int) -> tuple:
+    """(dh_groups, dw_groups, thread blocks) of ``fused_bwd_merged`` on a
+    card of ``sms`` SMs, from the shapes alone (no host sync). One launch
+    of 256-thread blocks in two roles: ``dw_groups`` thread blocks first,
+    each taking ``_MERGED_DW_ROWS`` rows of the one destination block for
+    dw and db, then ``dh_groups`` row groups of each of the ``n_srcb``
+    source blocks for dh, sized as ``aggregate_edges_shape`` sizes them (the
+    dh role is that kernel's thread block over A^T). N does not change the
+    grid: the dw role takes 128 columns of it a pass."""
+    del N
+    dh_groups = aggregate_edges_shape(n_srcb, F, sms)
+    dw_groups = BLK // _MERGED_DW_ROWS
+    return dh_groups, dw_groups, dw_groups + dh_groups * n_srcb
+
+
+def fused_bwd_merged_smem_bytes(F: int, dw_groups: int) -> int:
+    """Dynamic shared memory of a ``fused_bwd_merged`` thread block: the dw
+    role's z and s tiles (R x ldz, ldz = F rounded up to 32, plus 8) and g
+    tile (R x 136), R = 128 / dw_groups, as ``csrc/aggregate_fused_bwd.cu``'s
+    launcher sizes it. Beside it every thread block holds the row walk's
+    static shared memory (``csrc/edge_rows.cuh``: Smem, ~31 KB)."""
+    R = BLK // dw_groups
+    return 4 * R * (2 * (-(-F // 32) * 32 + 8) + _NB + 8)
+
+
+# the ticket of each (device, stream) that picks fused_bwd_merged's last dw
+# thread block; the kernel sets it back to zero, so it is zeroed only once
+_MERGED_TICKETS: dict = {}
+
+
+def _merged_ticket(t: torch.Tensor) -> torch.Tensor:
+    key = (t.device.index, stream(t))
+    if key not in _MERGED_TICKETS:
+        _MERGED_TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                           device=t.device)
+    return _MERGED_TICKETS[key]
 
 
 def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
@@ -730,15 +765,21 @@ def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
     db = (torch.empty((N,), dtype=torch.float32, device=dev)
           if has_bias else None)
     dh = torch.empty_like(h)
-    _check_smem("fused_bwd_merged",
-                fused_bwd_merged_smem_bytes(max_blk, max_blk_t))
+    dh_groups, dw_groups, _ = fused_bwd_merged_shape(n_srcb, F, N,
+                                                     sm_count(h))
+    part = torch.empty((dw_groups * (F * N + (N if has_bias else 0)),),
+                       dtype=torch.float32, device=dev)
+    part_db = part[dw_groups * F * N:] if has_bias else None
+    vec = min(aggregate_edges_vec(h), aggregate_edges_vec(dz))
     with torch.cuda.device(dev):
         status = _lib("aggregate_fused_bwd").fused_bwd_merged_launch(
             tile_off.data_ptr(), val.data_ptr(), seg.data_ptr(),
             cols.data_ptr(), tile_off_t.data_ptr(), val_t.data_ptr(),
             seg_t.data_ptr(), cols_t.data_ptr(), h.data_ptr(), g.data_ptr(),
             dz.data_ptr(), _ptr(s), dw.data_ptr(), _ptr(db), dh.data_ptr(),
-            max_blk, max_blk_t, h.shape[0], F, N, stream(h))
+            part.data_ptr(), _ptr(part_db), _merged_ticket(h).data_ptr(),
+            max_blk, max_blk_t, h.shape[0], F, N, dh_groups, dw_groups, vec,
+            stream(h))
     raise_on(status, "aggregate_fused_bwd", "fused_bwd_merged")
     launch_counts["fused_bwd_merged"] += 1
     return dw, db, dh

@@ -68,6 +68,7 @@
 
 #include <algorithm>
 
+#include "edge_rows.cuh"
 #include "fused_update.cuh"
 #include "fused_walk.cuh"
 #include "mma_tf32.cuh"
@@ -299,7 +300,175 @@ size_t merged_dh_smem_bytes(int max_blk_t) {
   return sizeof(float) * (size_t)BLK * FB + staging_bytes(max_blk_t);
 }
 
-__global__ void __launch_bounds__(THREADS)
+namespace merged {
+
+using edge_rows::BLK;
+using edge_rows::CHUNK;
+using edge_rows::Smem;
+using edge_rows::THREADS;
+using edge_rows::WARPS;
+using edge_rows::resolve;
+using edge_rows::walk;
+constexpr int NB = 128;       // output columns of one product pass
+constexpr int LDG = NB + 8;   // g tile row stride (B rows: 8 mod 32)
+
+// z and s tile row stride: F rounded up to 32, plus 8 (z^T is read as A by
+// rows of z: 8 mod 32), a multiple of 4 floats for the walk's stores
+__host__ __device__ inline int ldz(int F) { return (F + 31) / 32 * 32 + 8; }
+
+// dynamic shared memory of the dw role: the z and s tiles (R x ldz) and the
+// g tile (R x LDG), R = BLK / dw_groups
+__host__ __device__ inline size_t dw_smem_bytes(int F, int dw_groups) {
+  const size_t R = BLK / dw_groups;
+  return sizeof(float) * R * (2 * (size_t)ldz(F) + LDG);
+}
+
+// dst[r * ldd + c] = src[(row0 + r) * lds + c0 + c] for r < rows and the
+// columns c < width below cols - c0 rounded up to 8 (those at or past cols
+// zero-filled), by cp.async of V floats
+template <int V>
+__device__ inline void stage(float* dst, int ldd, const float* src,
+                             long long lds, int row0, int rows, int c0,
+                             int cols, int width) {
+  const int per_row = min(width, (cols - c0 + 7) & ~7) / V;
+  for (int x = threadIdx.x; x < rows * per_row; x += THREADS) {
+    const int r = x / per_row, c = (x % per_row) * V;
+    const int left = cols - (c0 + c);
+    const int n = left >= V ? V : (left > 0 ? left : 0);
+    mma_tf32::cp_async<4 * V>(dst + r * ldd + c,
+                              n > 0 ? src + (row0 + r) * lds + c0 + c : src,
+                              4 * n);
+  }
+}
+
+__device__ inline void stage_any(float* dst, int ldd, const float* src,
+                                 long long lds, int row0, int rows, int c0,
+                                 int cols, int width) {
+  const int v = fused_walk::vec_width(src, lds);
+  if (v == 4) stage<4>(dst, ldd, src, lds, row0, rows, c0, cols, width);
+  else if (v == 2) stage<2>(dst, ldd, src, lds, row0, rows, c0, cols, width);
+  else stage<1>(dst, ldd, src, lds, row0, rows, c0, cols, width);
+}
+
+// The dw role's row group grp of `groups`: rows r0 .. r0+R of the one
+// destination block. z_R = A_R @ h (+ s_R) by the shared row walk into a
+// shared-memory tile, its partial z_R^T g_R on mma.sync 3xTF32 into
+// part_dw[grp] (and sum_rows g_R into part_db[grp]); the thread block that
+// finishes last, by an integer ticket, adds the partials in group order
+// into dw (and db) and sets the ticket back to zero.
+template <int V>
+__device__ void dw_role(const int* __restrict__ tile_off,
+                        const float* __restrict__ val,
+                        const int* __restrict__ seg,
+                        const int* __restrict__ cols,
+                        const float* __restrict__ h,
+                        const float* __restrict__ s,
+                        const float* __restrict__ g,
+                        float* __restrict__ part_dw,
+                        float* __restrict__ part_db, float* __restrict__ dw,
+                        float* __restrict__ db, int* ticket, int max_blk,
+                        long long n_src, int F, int N, int grp, int groups,
+                        Smem& sm, float* dyn) {
+  __shared__ int last;
+  const int R = BLK / groups, r0 = grp * R;
+  const int LDZ = ldz(F);
+  float* zt = dyn;             // R x LDZ: z
+  float* st = zt + R * LDZ;    // R x LDZ: s
+  float* gt = st + R * LDZ;    // R x LDG: 128 columns of g
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // s's rows and g's first columns land while the edges resolve
+  if (s != nullptr) stage_any(st, LDZ, s, F, r0, R, 0, F, LDZ);
+  stage_any(gt, LDG, g, N, r0, R, 0, N, NB);
+  mma_tf32::cp_async_commit();
+  const int e_begin = __ldg(seg), e_end = __ldg(seg + max_blk);
+  if (tid < R) sm.started[tid] = 0;
+  if (tid <= R) sm.start[tid] = 0;
+  __syncthreads();
+  for (int c0 = e_begin; c0 < e_end; c0 += CHUNK) {
+    const int n = min(CHUNK, e_end - c0);
+    resolve(tile_off, val, seg, cols, c0, n, max_blk, n_src, r0, R, sm);
+    walk<V>(h, zt, LDZ, F, R, sm);
+  }
+  mma_tf32::cp_async_wait<0>();
+  __syncthreads();
+  // z = the walked sums (zero on a row no chunk gave an edge) + s; the
+  // columns from F to the product's 16 are zeros
+  const int FP = (F + 15) & ~15;
+  for (int x = tid; x < R * FP; x += THREADS) {
+    const int r = x / FP, c = x % FP;
+    float z = 0.f;
+    if (c < F) {
+      if (sm.started[r] || sm.start[r + 1] > sm.start[r]) z = zt[r * LDZ + c];
+      if (s != nullptr) z += st[r * LDZ + c];
+    }
+    zt[r * LDZ + c] = z;
+  }
+  __syncthreads();
+  // z_R^T g_R, 128 columns of N a pass: warp w takes the (16 x 8) tiles
+  // w, w + WARPS, ..., each summed over the R rows 8 at a time (mma_tf32.cuh)
+  const int gq = lane >> 2, tq = lane & 3;
+  const int MT = FP / 16;
+  const long long FN = (long long)F * N;
+  float* pdw = part_dw + grp * FN;
+  for (int n0 = 0; n0 < N; n0 += NB) {
+    if (n0 > 0) {
+      __syncthreads();  // every warp is done with the last g columns
+      stage_any(gt, LDG, g, N, r0, R, n0, N, NB);
+      mma_tf32::cp_async_commit();
+      mma_tf32::cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int NT = (min(NB, N - n0) + 7) / 8;
+    for (int tile = warp; tile < MT * NT; tile += WARPS) {
+      const int mt = tile / NT, nt = tile % NT;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k0 = 0; k0 < R; k0 += 8) {
+        uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
+        mma_tf32::load_a_t(zt + k0 * LDZ + mt * 16, LDZ, gq, tq, a_hi, a_lo);
+        mma_tf32::load_b(gt + k0 * LDG + nt * 8, LDG, gq, tq, b_hi, b_lo);
+        mma_tf32::mma_step(acc, a_hi, a_lo, b_hi, b_lo);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int f = mt * 16 + gq + 8 * half;
+        const int n = n0 + nt * 8 + 2 * tq;
+        if (f >= F) continue;
+        float* o = pdw + (long long)f * N + n;
+        if (n < N) o[0] = acc[2 * half];
+        if (n + 1 < N) o[1] = acc[2 * half + 1];
+      }
+    }
+    if (part_db != nullptr && tid < NB && n0 + tid < N) {
+      float d = 0.f;
+      for (int r = 0; r < R; ++r) d += gt[r * LDG + tid];
+      part_db[(long long)grp * N + n0 + tid] = d;
+    }
+  }
+  // the last thread block to finish adds the partials in group order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == groups - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (long long x = tid; x < FN; x += THREADS) {
+    float acc = 0.f;
+    for (int k = 0; k < groups; ++k) acc += __ldcg(part_dw + k * FN + x);
+    dw[x] = acc;
+  }
+  if (part_db != nullptr) {
+    for (int x = tid; x < N; x += THREADS) {
+      float acc = 0.f;
+      for (int k = 0; k < groups; ++k)
+        acc += __ldcg(part_db + (long long)k * N + x);
+      db[x] = acc;
+    }
+  }
+  if (tid == 0) *ticket = 0;
+}
+
+template <int V>
+__global__ void __launch_bounds__(THREADS, 2)
 fused_bwd_merged_kernel(const int* __restrict__ tile_off,
                         const float* __restrict__ val,
                         const int* __restrict__ seg,
@@ -313,38 +482,39 @@ fused_bwd_merged_kernel(const int* __restrict__ tile_off,
                         const float* __restrict__ dz,
                         const float* __restrict__ s,
                         float* __restrict__ dw, float* __restrict__ db,
-                        float* __restrict__ dh, int max_blk, int max_blk_t,
-                        long long n_src, int F, int N, int n_dh_blocks) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_fs = (F + FB - 1) / FB;
-  if ((int)blockIdx.x >= n_dh_blocks) {
-    // dw / db role: the one destination block, slice fs, columns n0..
-    const int k = blockIdx.x - n_dh_blocks;
-    const int fs = k % n_fs;
-    dw_block(tile_off, val, seg, cols, h, s, g, dw,
-             fs == 0 ? db : nullptr, 0, 1, fs * FB, (k / n_fs) * NB,
-             max_blk, n_src, F, N, smem_raw);
+                        float* __restrict__ dh, float* __restrict__ part_dw,
+                        float* __restrict__ part_db, int* ticket,
+                        int max_blk, int max_blk_t, long long n_src, int F,
+                        int N, int dw_groups) {
+  __shared__ Smem sm;
+  extern __shared__ __align__(16) float dyn[];
+  if ((int)blockIdx.x < dw_groups) {
+    dw_role<V>(tile_off, val, seg, cols, h, s, g, part_dw, part_db, dw, db,
+               ticket, max_blk, n_src, F, N, blockIdx.x, dw_groups, sm, dyn);
     return;
   }
-  // dh role: source block j, columns f0 .. f0+FB
-  const int j = blockIdx.x / n_fs;
-  const int f0 = (blockIdx.x % n_fs) * FB;
+  // dh role (PR 12's walk): source block j, columns f0 .. f0+FB
+  using edge_walk::FB;
+  using edge_walk::VEC;
+  const int n_fs = (F + FB - 1) / FB;
+  const int k = blockIdx.x - dw_groups;
+  const int j = k / n_fs;
+  const int f0 = (k % n_fs) * FB;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   bool named = false;
-  for (int k = threadIdx.x; k < max_blk; k += THREADS)
-    named |= cols[k] == j;
+  for (int x = threadIdx.x; x < max_blk; x += THREADS)
+    named |= cols[x] == j;
   const bool covered = __syncthreads_or(named);
-  float* acc = reinterpret_cast<float*>(smem_raw);   // BLK x FB
-  zero(acc, BLK * FB);
+  float* acc = dyn;   // BLK x FB
+  edge_walk::zero(acc, BLK * FB);
   if (covered) {
-    const Staging st = carve_staging(
+    const edge_walk::Staging st = edge_walk::carve_staging(
         reinterpret_cast<unsigned char*>(acc + BLK * FB), max_blk_t);
-    load_seg(seg_t, j, max_blk_t, st);
+    edge_walk::load_seg(seg_t, j, max_blk_t, st);
     __syncthreads();
-    // A^T's destination block j gathers rows of dz, which has one block
-    walk_edges(tile_off_t, val_t, cols_t + (long long)j * max_blk_t, dz, acc,
-               max_blk_t, BLK, F, f0, st);
+    edge_walk::walk_edges(tile_off_t, val_t, cols_t + (long long)j * max_blk_t,
+                          dz, acc, max_blk_t, BLK, F, f0, st);
   }
   __syncthreads();
   for (int r = warp; r < BLK; r += WARPS) {
@@ -356,6 +526,32 @@ fused_bwd_merged_kernel(const int* __restrict__ tile_off,
     }
   }
 }
+
+template <int V>
+cudaError_t launch(const int* tile_off, const float* val, const int* seg,
+                   const int* cols, const int* tile_off_t, const float* val_t,
+                   const int* seg_t, const int* cols_t, const float* h,
+                   const float* g, const float* dz, const float* s, float* dw,
+                   float* db, float* dh, float* part_dw, float* part_db,
+                   int* ticket, int max_blk, int max_blk_t, long long n_src,
+                   int F, int N, int dh_groups, int dw_groups,
+                   cudaStream_t st) {
+  (void)dh_groups;
+  const size_t smem = std::max(dw_smem_bytes(F, dw_groups),
+                               merged_dh_smem_bytes(max_blk_t));
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_bwd_merged_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_dh = (int)(n_src / BLK) * ((F + edge_walk::FB - 1) / edge_walk::FB);
+  fused_bwd_merged_kernel<V><<<dw_groups + n_dh, THREADS, smem, st>>>(
+      tile_off, val, seg, cols, tile_off_t, val_t, seg_t, cols_t, h, g, dz, s,
+      dw, db, dh, part_dw, part_db, ticket, max_blk, max_blk_t, n_src, F, N,
+      dw_groups);
+  return cudaGetLastError();
+}
+
+}  // namespace merged
 
 }  // namespace
 
@@ -419,36 +615,48 @@ int fused_bwd_launch(const int* tile_off, const float* val, const int* seg,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a fused_bwd_merged thread block.
-long long fused_bwd_merged_smem_bytes(int max_blk, int max_blk_t) {
-  return (long long)std::max(dw_smem_bytes(max_blk),
-                             merged_dh_smem_bytes(max_blk_t));
-}
-
-// Launches fused_bwd_merged on `stream`: h is (n_src, F) with
-// n_src = n_srcb*128 = the rows of dh, g (128, N), dz (128, F), s (128, F)
-// or null, db null without a bias. Returns the CUDA status after the
-// launch (0 = launched). Does not synchronise and allocates nothing.
+// Launches fused_bwd_merged on `stream` (see the top of this file): h is
+// (n_src, F) with n_src = n_srcb*128 = the rows of dh, g (128, N), dz
+// (128, F), s (128, F) or null, db and part_db null without a bias;
+// part_dw holds dw_groups (F, N) partials and part_db dw_groups (N,) ones;
+// ticket is one int, zero before the launch and again after it. dh_groups
+// row groups a source block (a divisor of 128; kernels/aggregate.py:
+// fused_bwd_merged_shape), dw_groups for the destination block (a divisor
+// of 16), loads of `vec` floats (4, 2 or 1; F and the bases of h and dz
+// must allow it). Returns the CUDA status after the launch (0 =
+// launched). Does not synchronise and allocates nothing.
 int fused_bwd_merged_launch(const int* tile_off, const float* val,
                             const int* seg, const int* cols,
                             const int* tile_off_t, const float* val_t,
                             const int* seg_t, const int* cols_t,
                             const float* h, const float* g, const float* dz,
                             const float* s, float* dw, float* db, float* dh,
+                            float* part_dw, float* part_db, int* ticket,
                             int max_blk, int max_blk_t, long long n_src,
-                            int F, int N, void* stream) {
-  const size_t smem = (size_t)fused_bwd_merged_smem_bytes(max_blk,
-                                                          max_blk_t);
-  cudaError_t err = allow_smem(fused_bwd_merged_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_fs = (F + FB - 1) / FB;
-  const int n_dh_blocks = (int)(n_src / BLK) * n_fs;
-  const int n_dw_blocks = n_fs * ((N + NB - 1) / NB);
-  fused_bwd_merged_kernel<<<n_dh_blocks + n_dw_blocks, THREADS, smem,
-                            (cudaStream_t)stream>>>(
-      tile_off, val, seg, cols, tile_off_t, val_t, seg_t, cols_t, h, g, dz,
-      s, dw, db, dh, max_blk, max_blk_t, n_src, F, N, n_dh_blocks);
-  return (int)cudaGetLastError();
+                            int F, int N, int dh_groups, int dw_groups,
+                            int vec, void* stream) {
+  const uintptr_t align = 4 * (uintptr_t)vec;
+  if (dh_groups < 1 || dh_groups > BLK || BLK % dh_groups != 0 ||
+      dw_groups < 1 || dw_groups > BLK / 8 || BLK % dw_groups != 0 ||
+      F < 1 || F > 256 || N < 0 || n_src < BLK || n_src % BLK != 0 ||
+      max_blk < 1 || max_blk_t < 1 ||
+      (vec != 4 && vec != 2 && vec != 1) || F % vec != 0 ||
+      reinterpret_cast<uintptr_t>(h) % align != 0 ||
+      reinterpret_cast<uintptr_t>(dz) % align != 0 ||
+      (db == nullptr) != (part_db == nullptr) || ticket == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  auto go = [&](auto launch) {
+    return (int)launch(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
+                       cols_t, h, g, dz, s, dw, db, dh, part_dw, part_db,
+                       ticket, max_blk, max_blk_t, n_src, F, N, dh_groups,
+                       dw_groups, st);
+  };
+  switch (vec) {
+    case 4: return go(merged::launch<4>);
+    case 2: return go(merged::launch<2>);
+    default: return go(merged::launch<1>);
+  }
 }
 
 const char* aggregate_fused_bwd_error_string(int status) {

@@ -22,14 +22,33 @@
 //
 // fused_bwd_merged — replaces src/repro/kernels/aggregate.py:
 //   _fused_bwd_merged_kernel (called by _fused_bwd_merged_call), the case of
-//   one destination block, act none and F <= 256. One launch: blocks of
-//   the first kind each take (source block j, 64-column slice) and write
-//   dh = A^T @ dz for block j from the transposed segments (+0.0 when no
-//   slot of cols[0] names j, as the reference masks it); blocks of the
-//   second kind each take (64-column slice of F, 128 output columns) and
-//   write dw = z^T g and db = sum_rows g straight, since one destination
-//   block leaves nothing to reduce.
+//   one destination block, act none and F <= 256: dw = z^T g, db =
+//   sum_rows g and dh = A^T @ dz in one launch of 256-thread blocks in two
+//   roles (see merged::dw_role and fused_bwd_merged_kernel below).
 //
+// What bounds fused_bwd_merged: at the GIN layer it serves (128 targets,
+// 1,153 edges each way, h 3,328 x 128, N 41) it moves 2.4 MB, a bound of
+// 0.7 us at 3.35 TB/s, below the cost of one launch: it is latency-bound,
+// a chain of dependent loads, barriers and one cross-block sum. So the
+// design spreads each role over enough thread blocks that no chain is
+// long, in one launch (the unfused composition it replaces takes 4-5):
+//   * dh role: the row groups of each source block of A^T that
+//     kernels/aggregate.py: fused_bwd_merged_shape sizes as
+//     aggregate_edges_shape does, each aggregate_edges' thread block
+//     (edge_rows.cuh: block) over the transposed segments with dz as h, so
+//     dh is bit for bit what aggregate_edges over A^T gives. A source block
+//     that no slot of cols[0] names has no transposed edge (every
+//     transposed edge's block is named by its forward slot), so it writes
+//     +0.0 and leaves as any empty block does: no scan of cols;
+//   * dw role, launched first: 16-row groups of the destination block.
+//     Each resolves and walks its rows' edges with the same row walk into
+//     a z tile in shared memory (s and the group's g rows land by cp.async
+//     meanwhile), adds s, forms its partial z_R^T g_R on mma.sync m16n8k8
+//     with the 3xTF32 split (mma_tf32.cuh), 128 columns of N a pass, and
+//     the partial of sum_rows g_R; the thread block that finishes last,
+//     picked by an integer ticket (zero before the launch, set back to
+//     zero by that block), adds the partials in group order. No float
+//     atomics: the same bits on every run.
 // What bounds them on an H100: the recompute reads the h rows the edges
 // name and the segments, as the forward does, plus g, and writes dw; the
 // products are 2 * rows * F * N flops over the rows that hold an edge or a
@@ -296,10 +315,6 @@ fused_reduce_kernel(const float* __restrict__ part_dw,
   }
 }
 
-size_t merged_dh_smem_bytes(int max_blk_t) {
-  return sizeof(float) * (size_t)BLK * FB + staging_bytes(max_blk_t);
-}
-
 namespace merged {
 
 using edge_rows::BLK;
@@ -485,7 +500,7 @@ fused_bwd_merged_kernel(const int* __restrict__ tile_off,
                         float* __restrict__ dh, float* __restrict__ part_dw,
                         float* __restrict__ part_db, int* ticket,
                         int max_blk, int max_blk_t, long long n_src, int F,
-                        int N, int dw_groups) {
+                        int N, int dh_groups, int dw_groups) {
   __shared__ Smem sm;
   extern __shared__ __align__(16) float dyn[];
   if ((int)blockIdx.x < dw_groups) {
@@ -493,38 +508,15 @@ fused_bwd_merged_kernel(const int* __restrict__ tile_off,
                ticket, max_blk, n_src, F, N, blockIdx.x, dw_groups, sm, dyn);
     return;
   }
-  // dh role (PR 12's walk): source block j, columns f0 .. f0+FB
-  using edge_walk::FB;
-  using edge_walk::VEC;
-  const int n_fs = (F + FB - 1) / FB;
+  // dh role: row group grp of source block j, aggregate_edges' thread
+  // block over A^T, whose one source block is dz
   const int k = blockIdx.x - dw_groups;
-  const int j = k / n_fs;
-  const int f0 = (k % n_fs) * FB;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  bool named = false;
-  for (int x = threadIdx.x; x < max_blk; x += THREADS)
-    named |= cols[x] == j;
-  const bool covered = __syncthreads_or(named);
-  float* acc = dyn;   // BLK x FB
-  edge_walk::zero(acc, BLK * FB);
-  if (covered) {
-    const edge_walk::Staging st = edge_walk::carve_staging(
-        reinterpret_cast<unsigned char*>(acc + BLK * FB), max_blk_t);
-    edge_walk::load_seg(seg_t, j, max_blk_t, st);
-    __syncthreads();
-    edge_walk::walk_edges(tile_off_t, val_t, cols_t + (long long)j * max_blk_t,
-                          dz, acc, max_blk_t, BLK, F, f0, st);
-  }
-  __syncthreads();
-  for (int r = warp; r < BLK; r += WARPS) {
-    float* orow = dh + ((long long)j * BLK + r) * F;
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const int f = f0 + v * 32 + lane;
-      if (f < F) orow[f] = acc[r * FB + v * 32 + lane];
-    }
-  }
+  const int j = k / dh_groups, grp = k % dh_groups;
+  const int R = BLK / dh_groups, r0 = grp * R;
+  const long long slot0 = (long long)j * max_blk_t;
+  edge_rows::block<V>(tile_off_t, val_t, seg_t + slot0, cols_t + slot0, dz,
+                      dh + ((long long)j * BLK + r0) * F, max_blk_t, BLK, F,
+                      r0, R, sm);
 }
 
 template <int V>
@@ -536,18 +528,16 @@ cudaError_t launch(const int* tile_off, const float* val, const int* seg,
                    int* ticket, int max_blk, int max_blk_t, long long n_src,
                    int F, int N, int dh_groups, int dw_groups,
                    cudaStream_t st) {
-  (void)dh_groups;
-  const size_t smem = std::max(dw_smem_bytes(F, dw_groups),
-                               merged_dh_smem_bytes(max_blk_t));
+  const size_t smem = dw_smem_bytes(F, dw_groups);
   cudaError_t err = cudaFuncSetAttribute(
       fused_bwd_merged_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_dh = (int)(n_src / BLK) * ((F + edge_walk::FB - 1) / edge_walk::FB);
+  const int n_dh = (int)(n_src / BLK) * dh_groups;
   fused_bwd_merged_kernel<V><<<dw_groups + n_dh, THREADS, smem, st>>>(
       tile_off, val, seg, cols, tile_off_t, val_t, seg_t, cols_t, h, g, dz, s,
       dw, db, dh, part_dw, part_db, ticket, max_blk, max_blk_t, n_src, F, N,
-      dw_groups);
+      dh_groups, dw_groups);
   return cudaGetLastError();
 }
 

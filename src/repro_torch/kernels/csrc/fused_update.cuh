@@ -1,24 +1,21 @@
-// fused_update.cuh: the block-level pieces of the fused backward kernels
-// (aggregate_fused_bwd.cu) that still form z a 64-column slice at a time.
+// fused_update.cuh: the block-level piece of the fused backward
+// (aggregate_fused_bwd.cu) that still forms z a 64-column slice at a time.
 //
-// Both recompute, for one destination block i, z_i = A_i @ h [+ s_i] one
-// slice of FB = 64 feature columns at a time into a 128 x 64 fp32 tile in
-// shared memory (edge_walk.cuh's walk_edges), and consume each slice before
-// the next is formed, so the aggregate never reaches device memory and the
-// tile fits whatever F is (a whole 128-row z tile at F = 602 would be
-// 308 KB, more than the 227 KB of shared memory a block may have):
+// dy_block recomputes, for one destination block i, z_i = A_i @ h [+ s_i]
+// one slice of FB = 64 feature columns at a time into a 128 x 64 fp32 tile
+// in shared memory (edge_walk.cuh's walk_edges) and consumes each slice
+// before the next is formed, so the aggregate never reaches device memory
+// and the tile fits whatever F is (a whole 128-row z tile at F = 602 would
+// be 308 KB, more than the 227 KB of shared memory a block may have): y =
+// sum over slices of z[:, fs] @ w[fs, n0:n0+NB], held in registers, then
+// dy = g * act'(y + b) (fused_dy_kernel).
 //
-//   dy_block: y = sum over slices of z[:, fs] @ w[fs, n0:n0+NB], held in
-//     registers, then dy = g * act'(y + b) (fused_dy_kernel);
-//   dw_block: dw[fs, n0:n0+NB] = sum over a run of destination blocks of
-//     z_i[:, fs]^T @ dy_i[:, n0:n0+NB], held in registers
-//     (fused_bwd_merged).
-//
-// The products are plain fp32 FMA loops over register tiles (each thread
-// owns an 8 x 8 or 4 x 8 tile and reads its operands from shared memory).
-// w, b and s come unpadded: rows of w past F and columns past N are staged
-// as zeros, and stores past N are masked. The forward (aggregate_fused.cu)
-// and the dw pass walk edges once a slab instead (fused_walk.cuh).
+// The product is a plain fp32 FMA loop over register tiles (each thread
+// owns an 8 x 8 tile and reads its operands from shared memory). w, b and
+// s come unpadded: rows of w past F and columns past N are staged as
+// zeros, and stores past N are masked. The forward (aggregate_fused.cu)
+// and the dw pass walk edges once a slab instead (fused_walk.cuh), and
+// fused_bwd_merged by aggregate_edges' row walk (edge_rows.cuh).
 
 #pragma once
 
@@ -34,16 +31,10 @@ constexpr int NB = 128;             // output columns per thread block
 constexpr int TX = 16, TY = 16;     // threads of a block as a TY x TX grid
 constexpr int TM = BLK / TY;        // dy_block: rows per thread (8)
 constexpr int TN = NB / TX;         // columns per thread (8)
-constexpr int TF = FB / TY;         // dw_block: rows of dw per thread (4)
 static_assert(TX * TY == THREADS, "one register tile per thread");
 
 __host__ __device__ inline size_t update_smem_bytes(int max_blk) {
   return sizeof(float) * ((size_t)BLK * FB + (size_t)FB * NB)
-         + staging_bytes(max_blk);
-}
-
-__host__ __device__ inline size_t dw_smem_bytes(int max_blk) {
-  return sizeof(float) * ((size_t)BLK * FB + (size_t)BLK * NB)
          + staging_bytes(max_blk);
 }
 
@@ -133,77 +124,6 @@ __device__ void dy_block(const int* __restrict__ tile_off,
       out[o] = g[o] * act_grad(y, act);
     }
   }
-}
-
-// dw_out[f, n] = sum over destination blocks i in [i_begin, i_end), in
-// order, of sum over rows r of z_i[r, f] * dy[i*128 + r, n], for the
-// columns f0 .. f0+FB of z and n0 .. n0+NB of dy (row stride N, masked to
-// f < F, n < N). With db_out, also db_out[n] = the same sum of dy alone.
-__device__ void dw_block(const int* __restrict__ tile_off,
-                         const float* __restrict__ val,
-                         const int* __restrict__ seg,
-                         const int* __restrict__ cols,
-                         const float* __restrict__ h,
-                         const float* __restrict__ s,
-                         const float* __restrict__ dy,
-                         float* __restrict__ dw_out,
-                         float* __restrict__ db_out, int i_begin, int i_end,
-                         int f0, int n0, int max_blk, long long n_src, int F,
-                         int N, unsigned char* smem) {
-  float* zt = reinterpret_cast<float*>(smem);   // BLK x FB
-  float* dys = zt + BLK * FB;                   // BLK x NB
-  const Staging st = carve_staging(
-      reinterpret_cast<unsigned char*>(dys + BLK * NB), max_blk);
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-
-  float acc[TF][TN];
-#pragma unroll
-  for (int t = 0; t < TF; ++t)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[t][j] = 0.f;
-  float db_acc = 0.f;
-
-  for (int i = i_begin; i < i_end; ++i) {
-    zero(zt, BLK * FB);
-    load_seg(seg, i, max_blk, st);
-    const long long row0 = (long long)i * BLK;
-    for (int x = threadIdx.x; x < BLK * NB; x += THREADS) {
-      const int n = n0 + x % NB;
-      dys[x] = n < N ? dy[(row0 + x / NB) * N + n] : 0.f;
-    }
-    __syncthreads();
-    form_z(tile_off, val, cols, h, s, zt, i, max_blk, n_src, F, f0, st);
-#pragma unroll 4
-    for (int r = 0; r < BLK; ++r) {
-      float a[TF], bv[TN];
-#pragma unroll
-      for (int t = 0; t < TF; ++t) a[t] = zt[r * FB + ty + TY * t];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = dys[r * NB + tx + TX * j];
-#pragma unroll
-      for (int t = 0; t < TF; ++t)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[t][j] = fmaf(a[t], bv[j], acc[t][j]);
-    }
-    if (db_out != nullptr && threadIdx.x < NB) {
-      for (int r = 0; r < BLK; ++r) db_acc += dys[r * NB + threadIdx.x];
-    }
-    __syncthreads();  // every thread is done with zt, dys and the seg slice
-  }
-
-#pragma unroll
-  for (int t = 0; t < TF; ++t) {
-    const int f = f0 + ty + TY * t;
-    if (f >= F) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + TX * j;
-      if (n < N) dw_out[(long long)f * N + n] = acc[t][j];
-    }
-  }
-  if (db_out != nullptr && threadIdx.x < NB && n0 + threadIdx.x < N)
-    db_out[n0 + threadIdx.x] = db_acc;
 }
 
 }  // namespace fused

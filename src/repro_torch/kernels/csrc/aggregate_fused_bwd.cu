@@ -365,6 +365,55 @@ __device__ inline void stage_any(float* dst, int ldd, const float* src,
   else stage<1>(dst, ldd, src, lds, row0, rows, c0, cols, width);
 }
 
+// out[x] = the sum over k < groups (at most MAX_GROUPS), in order from
+// zero, of part[k * n + x], by the whole thread block: each thread loads
+// its x from every partial at once (float4 where n allows, the partials
+// then starting on 16-byte boundaries), past L1, as other thread blocks
+// wrote them
+constexpr int MAX_GROUPS = BLK / 8;
+
+template <int V>
+__device__ inline void sum_partials_v(const float* part, float* out,
+                                      long long n, int groups) {
+  const long long nv = n / V;
+  for (long long x = threadIdx.x; x < nv; x += THREADS) {
+    float v[MAX_GROUPS][V];
+#pragma unroll
+    for (int k = 0; k < MAX_GROUPS; ++k) {
+      if (k >= groups) break;
+      if constexpr (V == 4) {
+        const float4 t =
+            __ldcg(reinterpret_cast<const float4*>(part) + k * nv + x);
+        v[k][0] = t.x; v[k][1] = t.y; v[k][2] = t.z; v[k][3] = t.w;
+      } else {
+        v[k][0] = __ldcg(part + k * nv + x);
+      }
+    }
+    float a[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) a[c] = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAX_GROUPS; ++k) {
+      if (k >= groups) break;
+#pragma unroll
+      for (int c = 0; c < V; ++c) a[c] += v[k][c];
+    }
+    if constexpr (V == 4)
+      reinterpret_cast<float4*>(out)[x] = make_float4(a[0], a[1], a[2], a[3]);
+    else
+      out[x] = a[0];
+  }
+}
+
+__device__ inline void sum_partials(const float* part, float* out,
+                                    long long n, int groups) {
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(part) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(out) & 15) == 0)
+    sum_partials_v<4>(part, out, n, groups);
+  else
+    sum_partials_v<1>(part, out, n, groups);
+}
+
 // The dw role's row group grp of `groups`: rows r0 .. r0+R of the one
 // destination block. z_R = A_R @ h (+ s_R) by the shared row walk into a
 // shared-memory tile, its partial z_R^T g_R on mma.sync 3xTF32 into
@@ -466,19 +515,8 @@ __device__ void dw_role(const int* __restrict__ tile_off,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (long long x = tid; x < FN; x += THREADS) {
-    float acc = 0.f;
-    for (int k = 0; k < groups; ++k) acc += __ldcg(part_dw + k * FN + x);
-    dw[x] = acc;
-  }
-  if (part_db != nullptr) {
-    for (int x = tid; x < N; x += THREADS) {
-      float acc = 0.f;
-      for (int k = 0; k < groups; ++k)
-        acc += __ldcg(part_db + (long long)k * N + x);
-      db[x] = acc;
-    }
-  }
+  sum_partials(part_dw, dw, FN, groups);
+  if (part_db != nullptr) sum_partials(part_db, db, N, groups);
   if (tid == 0) *ticket = 0;
 }
 

@@ -123,7 +123,7 @@ _SIGNATURES = {
         "fused_bwd_smem_bytes": ([_I, _I], _L),
         "fused_bwd_launch": ([_P] * 15 + [_I, _I, _L, _I, _I, _I, _I, _I,
                                           _P], _I),
-        "fused_bwd_merged_launch": ([_P] * 18 + [_I, _I, _L] + [_I] * 5
+        "fused_bwd_merged_launch": ([_P] * 17 + [_I, _I, _L] + [_I] * 5
                                     + [_P], _I)},
 }
 
@@ -411,8 +411,9 @@ _BWD_SLABS = (128, 32)
 _BWD_PARTIAL_CAP = 8 << 20
 _BWD_BLOCK_COST = 512
 # fused_bwd_merged (csrc/aggregate_fused_bwd.cu): the destination block's
-# rows a dw thread block takes
-_MERGED_DW_ROWS = 16
+# rows a dw thread block takes; a cluster of 128 / 8 = 16 thread blocks (a
+# size Hopper allows past the portable 8) takes them all
+_MERGED_DW_ROWS = 8
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -685,39 +686,29 @@ def fused_bwd(tile_off, val, seg, cols, h, g, w, b=None, s=None, *,
 def fused_bwd_merged_shape(n_srcb: int, F: int, N: int, sms: int) -> tuple:
     """(dh_groups, dw_groups, thread blocks) of ``fused_bwd_merged`` on a
     card of ``sms`` SMs, from the shapes alone (no host sync). One launch
-    of 256-thread blocks in two roles: ``dw_groups`` thread blocks first,
-    each taking ``_MERGED_DW_ROWS`` rows of the one destination block for
-    dw and db, then ``dh_groups`` row groups of each of the ``n_srcb``
-    source blocks for dh, sized as ``aggregate_edges_shape`` sizes them (the
-    dh role is that kernel's thread block over A^T). N does not change the
-    grid: the dw role takes 128 columns of it a pass."""
+    of 256-thread blocks in clusters of ``dw_groups``: the first cluster
+    takes the dw role, each rank ``_MERGED_DW_ROWS`` rows of the one
+    destination block; then ``dh_groups`` row groups of each of the
+    ``n_srcb`` source blocks take the dh role, sized as
+    ``aggregate_edges_shape`` sizes them (each is that kernel's thread
+    block over A^T), padded to whole clusters. N does not change the
+    grid."""
     del N
     dh_groups = aggregate_edges_shape(n_srcb, F, sms)
     dw_groups = BLK // _MERGED_DW_ROWS
-    return dh_groups, dw_groups, dw_groups + dh_groups * n_srcb
+    return dh_groups, dw_groups, dw_groups * (1 + -(-dh_groups * n_srcb
+                                                   // dw_groups))
 
 
 def fused_bwd_merged_smem_bytes(F: int, dw_groups: int) -> int:
     """Dynamic shared memory of a ``fused_bwd_merged`` thread block: the dw
-    role's z and s tiles (R x ldz, ldz = F rounded up to 32, plus 8) and g
-    tile (R x 136), R = 128 / dw_groups, as ``csrc/aggregate_fused_bwd.cu``'s
-    launcher sizes it. Beside it every thread block holds the row walk's
-    static shared memory (``csrc/edge_rows.cuh``: Smem, ~31 KB)."""
+    role's z and s tiles, R x ldz each (R = 128 / dw_groups rows, ldz = F
+    rounded up to 32, plus 8), and its g tile, R x 136, as
+    ``csrc/aggregate_fused_bwd.cu``'s launcher sizes it. Beside it every
+    thread block holds the row walk's static shared memory
+    (``csrc/edge_rows.cuh``: Smem, ~31 KB)."""
     R = BLK // dw_groups
     return 4 * R * (2 * (-(-F // 32) * 32 + 8) + _NB + 8)
-
-
-# the ticket of each (device, stream) that picks fused_bwd_merged's last dw
-# thread block; the kernel sets it back to zero, so it is zeroed only once
-_MERGED_TICKETS: dict = {}
-
-
-def _merged_ticket(t: torch.Tensor) -> torch.Tensor:
-    key = (t.device.index, stream(t))
-    if key not in _MERGED_TICKETS:
-        _MERGED_TICKETS[key] = torch.zeros(1, dtype=torch.int32,
-                                           device=t.device)
-    return _MERGED_TICKETS[key]
 
 
 def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
@@ -767,9 +758,11 @@ def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
     dh = torch.empty_like(h)
     dh_groups, dw_groups, _ = fused_bwd_merged_shape(n_srcb, F, N,
                                                      sm_count(h))
-    part = torch.empty((dw_groups * (F * N + (N if has_bias else 0)),),
+    # the dw role's partials: D fragments of dw padded to (16 x 8) tiles
+    tiles = dw_groups * -(-F // 16) * 16 * -(-N // 8) * 8
+    part = torch.empty((tiles + (dw_groups * N if has_bias else 0),),
                        dtype=torch.float32, device=dev)
-    part_db = part[dw_groups * F * N:] if has_bias else None
+    part_db = part[tiles:] if has_bias else None
     vec = min(aggregate_edges_vec(h), aggregate_edges_vec(dz))
     with torch.cuda.device(dev):
         status = _lib("aggregate_fused_bwd").fused_bwd_merged_launch(
@@ -777,9 +770,8 @@ def fused_bwd_merged(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
             cols.data_ptr(), tile_off_t.data_ptr(), val_t.data_ptr(),
             seg_t.data_ptr(), cols_t.data_ptr(), h.data_ptr(), g.data_ptr(),
             dz.data_ptr(), _ptr(s), dw.data_ptr(), _ptr(db), dh.data_ptr(),
-            part.data_ptr(), _ptr(part_db), _merged_ticket(h).data_ptr(),
-            max_blk, max_blk_t, h.shape[0], F, N, dh_groups, dw_groups, vec,
-            stream(h))
+            part.data_ptr(), _ptr(part_db), max_blk, max_blk_t, h.shape[0],
+            F, N, dh_groups, dw_groups, vec, stream(h))
     raise_on(status, "aggregate_fused_bwd", "fused_bwd_merged")
     launch_counts["fused_bwd_merged"] += 1
     return dw, db, dh

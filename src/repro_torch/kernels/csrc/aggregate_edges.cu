@@ -29,7 +29,9 @@
 // cost of a launch. chip_smoke.py recomputes these bounds from the batch it
 // runs; PERF.md has the measured times beside them.
 //
-// Design:
+// Design (the thread block's body is edge_rows.cuh, which
+// aggregate_fused_bwd.cu's fused_bwd_merged shares for its dh and dw
+// roles):
 //   * the grid is (row group, destination block): a thread block of 256
 //     threads owns R = 128 / groups rows of one destination block and every
 //     column of them, at most 128 registers a thread so that two fit an SM;

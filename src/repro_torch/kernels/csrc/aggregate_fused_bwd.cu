@@ -40,16 +40,25 @@
 //     that no slot of cols[0] names has no transposed edge (every
 //     transposed edge's block is named by its forward slot), so it writes
 //     +0.0 and leaves as any empty block does: no scan of cols;
-//   * dw role, launched first: 16-row groups of the destination block.
-//     Each resolves and walks its rows' edges with the same row walk into
-//     a z tile in shared memory (s and the group's g rows land by cp.async
-//     meanwhile), adds s, forms its partial z_R^T g_R on mma.sync m16n8k8
-//     with the 3xTF32 split (mma_tf32.cuh), 128 columns of N a pass, and
-//     the partial of sum_rows g_R; the thread block that finishes last,
-//     picked by an integer ticket (zero before the launch, set back to
-//     zero by that block), adds the partials in group order. No float
-//     atomics: the same bits on every run.
-// What bounds them on an H100: the recompute reads the h rows the edges
+//   * dw role, the launch's first cluster of 16 thread blocks (all blocks
+//     run in clusters of 16, the dh ones padded to whole clusters): each
+//     rank takes 8 rows of the destination block, walks their edges with
+//     the same row walk into a zeroed z tile in shared memory (s and the
+//     rows' g land by cp.async meanwhile), forms its partial z_R^T g_R on
+//     mma.sync m16n8k8 with the 3xTF32 split (mma_tf32.cuh), A = z + s, one
+//     A fragment for up to 8 n tiles, and stores it to device memory in
+//     fragment order, whole lines (a partial of sum_rows g_R beside it);
+//     after a cluster barrier, whose release and acquire order those
+//     stores before the loads, each rank adds its share of the elements
+//     over the 16 partials in rank order. No float atomics and no ticket:
+//     the same bits on every run, and nothing to reset between launches.
+//
+// Measured on an H100 (PERF.md): the dw role's chain sets the time,
+// about 2 us to its first barrier, 3.4 us resolving the block's 1,153
+// edges, 2-4 us walking its rows, 1.2 us for the product and 2.5 us for
+// the barrier and the sum; the dh role ends within 5.3 us.
+//
+// What bounds fused_bwd on an H100: the recompute reads the h rows the edges
 // name and the segments, as the forward does, plus g, and writes dw; the
 // products are 2 * rows * F * N flops over the rows that hold an edge or a
 // self term (twice that with an activation, which forms y first). At layer
@@ -84,6 +93,8 @@
 //     the 128 output columns in registers across the group's blocks.
 
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <algorithm>
 
@@ -317,6 +328,7 @@ fused_reduce_kernel(const float* __restrict__ part_dw,
 
 namespace merged {
 
+namespace cg = cooperative_groups;
 using edge_rows::BLK;
 using edge_rows::CHUNK;
 using edge_rows::Smem;
@@ -324,15 +336,18 @@ using edge_rows::THREADS;
 using edge_rows::WARPS;
 using edge_rows::resolve;
 using edge_rows::walk;
-constexpr int NB = 128;       // output columns of one product pass
-constexpr int LDG = NB + 8;   // g tile row stride (B rows: 8 mod 32)
+
+constexpr int NB = 128;          // output columns of one product pass
+constexpr int LDG = NB + 8;      // g tile row stride (B rows: 8 mod 32)
+constexpr int MAX_RANKS = 16;    // the largest cluster (non-portable)
+constexpr int NTC = 8;           // 8-column tiles a warp multiplies at once
 
 // z and s tile row stride: F rounded up to 32, plus 8 (z^T is read as A by
 // rows of z: 8 mod 32), a multiple of 4 floats for the walk's stores
 __host__ __device__ inline int ldz(int F) { return (F + 31) / 32 * 32 + 8; }
 
-// dynamic shared memory of the dw role: the z and s tiles (R x ldz) and the
-// g tile (R x LDG), R = BLK / dw_groups
+// dynamic shared memory of the dw role: the z and s tiles (R x ldz each)
+// and the g tile (R x LDG), R = BLK / dw_groups
 __host__ __device__ inline size_t dw_smem_bytes(int F, int dw_groups) {
   const size_t R = BLK / dw_groups;
   return sizeof(float) * R * (2 * (size_t)ldz(F) + LDG);
@@ -340,11 +355,12 @@ __host__ __device__ inline size_t dw_smem_bytes(int F, int dw_groups) {
 
 // dst[r * ldd + c] = src[(row0 + r) * lds + c0 + c] for r < rows and the
 // columns c < width below cols - c0 rounded up to 8 (those at or past cols
-// zero-filled), by cp.async of V floats
+// zero-filled), by cp.async of the widest copy src's row stride and base
+// allow
 template <int V>
-__device__ inline void stage(float* dst, int ldd, const float* src,
-                             long long lds, int row0, int rows, int c0,
-                             int cols, int width) {
+__device__ inline void stage_v(float* dst, int ldd, const float* src,
+                               long long lds, int row0, int rows, int c0,
+                               int cols, int width) {
   const int per_row = min(width, (cols - c0 + 7) & ~7) / V;
   for (int x = threadIdx.x; x < rows * per_row; x += THREADS) {
     const int r = x / per_row, c = (x % per_row) * V;
@@ -356,70 +372,52 @@ __device__ inline void stage(float* dst, int ldd, const float* src,
   }
 }
 
-__device__ inline void stage_any(float* dst, int ldd, const float* src,
-                                 long long lds, int row0, int rows, int c0,
-                                 int cols, int width) {
+__device__ inline void stage(float* dst, int ldd, const float* src,
+                             long long lds, int row0, int rows, int c0,
+                             int cols, int width) {
   const int v = fused_walk::vec_width(src, lds);
-  if (v == 4) stage<4>(dst, ldd, src, lds, row0, rows, c0, cols, width);
-  else if (v == 2) stage<2>(dst, ldd, src, lds, row0, rows, c0, cols, width);
-  else stage<1>(dst, ldd, src, lds, row0, rows, c0, cols, width);
+  if (v == 4) stage_v<4>(dst, ldd, src, lds, row0, rows, c0, cols, width);
+  else if (v == 2) stage_v<2>(dst, ldd, src, lds, row0, rows, c0, cols, width);
+  else stage_v<1>(dst, ldd, src, lds, row0, rows, c0, cols, width);
 }
 
-// out[x] = the sum over k < groups (at most MAX_GROUPS), in order from
-// zero, of part[k * n + x], by the whole thread block: each thread loads
-// its x from every partial at once (float4 where n allows, the partials
-// then starting on 16-byte boundaries), past L1, as other thread blocks
-// wrote them
-constexpr int MAX_GROUPS = BLK / 8;
-
-template <int V>
-__device__ inline void sum_partials_v(const float* part, float* out,
-                                      long long n, int groups) {
-  const long long nv = n / V;
-  for (long long x = threadIdx.x; x < nv; x += THREADS) {
-    float v[MAX_GROUPS][V];
+// dw = the sum over the ranks' partials, in rank order from zero, for
+// rank `rank`'s share of the fragments: each partial holds, for every
+// (16 x 8) tile (mt, nt) of dw padded to whole tiles, the 32 lanes' D
+// fragments, four floats a lane (mma_tf32.cuh: d0 D[g][2t], d1 D[g][2t+1],
+// d2 D[g+8][2t], d3 D[g+8][2t+1]), so a rank stores whole lines; here each
+// thread loads one float from every partial at once, past L1
+__device__ inline void sum_fragments(const float* part, float* dw, int F,
+                                     int N, int rank, int ranks) {
+  const int NT_ALL = (N + 7) / 8;
+  const long long n1 = (long long)(F + 15) / 16 * NT_ALL * 128;
+  const long long hi = n1 * (rank + 1) / ranks;
+  for (long long x = n1 * rank / ranks + threadIdx.x; x < hi; x += THREADS) {
+    float v[MAX_RANKS];
 #pragma unroll
-    for (int k = 0; k < MAX_GROUPS; ++k) {
-      if (k >= groups) break;
-      if constexpr (V == 4) {
-        const float4 t =
-            __ldcg(reinterpret_cast<const float4*>(part) + k * nv + x);
-        v[k][0] = t.x; v[k][1] = t.y; v[k][2] = t.z; v[k][3] = t.w;
-      } else {
-        v[k][0] = __ldcg(part + k * nv + x);
-      }
-    }
-    float a[V];
+    for (int k = 0; k < MAX_RANKS; ++k)
+      if (k < ranks) v[k] = __ldcg(part + k * n1 + x);
+    float a = 0.f;
 #pragma unroll
-    for (int c = 0; c < V; ++c) a[c] = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAX_GROUPS; ++k) {
-      if (k >= groups) break;
-#pragma unroll
-      for (int c = 0; c < V; ++c) a[c] += v[k][c];
-    }
-    if constexpr (V == 4)
-      reinterpret_cast<float4*>(out)[x] = make_float4(a[0], a[1], a[2], a[3]);
-    else
-      out[x] = a[0];
+    for (int k = 0; k < MAX_RANKS; ++k)
+      if (k < ranks) a += v[k];
+    const int tile = (int)(x / 128), lane = (int)(x / 4 % 32);
+    const int e = (int)(x % 4);
+    const int f = tile / NT_ALL * 16 + (lane >> 2) + 8 * (e >> 1);
+    const int n = tile % NT_ALL * 8 + 2 * (lane & 3) + (e & 1);
+    if (f < F && n < N) dw[(long long)f * N + n] = a;
   }
 }
 
-__device__ inline void sum_partials(const float* part, float* out,
-                                    long long n, int groups) {
-  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(part) & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(out) & 15) == 0)
-    sum_partials_v<4>(part, out, n, groups);
-  else
-    sum_partials_v<1>(part, out, n, groups);
-}
-
-// The dw role's row group grp of `groups`: rows r0 .. r0+R of the one
-// destination block. z_R = A_R @ h (+ s_R) by the shared row walk into a
-// shared-memory tile, its partial z_R^T g_R on mma.sync 3xTF32 into
-// part_dw[grp] (and sum_rows g_R into part_db[grp]); the thread block that
-// finishes last, by an integer ticket, adds the partials in group order
-// into dw (and db) and sets the ticket back to zero.
+// The dw role, rank `rank` of the launch's first cluster of `ranks` thread
+// blocks: rows r0 .. r0+R of the one destination block, R = BLK / ranks.
+// Walks z_R = A_R @ h into its zeroed shared-memory tile with the shared
+// row walk (s's rows and 128 columns of g land by cp.async meanwhile),
+// forms its partial z_R^T g_R (z + s read as A) on mma.sync 3xTF32 into
+// part_dw[rank], in fragment order, and sum_rows g_R into part_db[rank];
+// once every rank's partials are written (a cluster barrier), sums its
+// share of dw's (and db's) elements over the partials in rank order. No
+// float atomics: the same bits on every run.
 template <int V>
 __device__ void dw_role(const int* __restrict__ tile_off,
                         const float* __restrict__ val,
@@ -430,20 +428,25 @@ __device__ void dw_role(const int* __restrict__ tile_off,
                         const float* __restrict__ g,
                         float* __restrict__ part_dw,
                         float* __restrict__ part_db, float* __restrict__ dw,
-                        float* __restrict__ db, int* ticket, int max_blk,
-                        long long n_src, int F, int N, int grp, int groups,
-                        Smem& sm, float* dyn) {
-  __shared__ int last;
-  const int R = BLK / groups, r0 = grp * R;
+                        float* __restrict__ db, int max_blk,
+                        long long n_src, int F, int N, Smem& sm,
+                        float* dyn) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ranks = (int)cluster.num_blocks();
+  const int R = BLK / ranks, r0 = rank * R;
   const int LDZ = ldz(F);
   float* zt = dyn;             // R x LDZ: z
   float* st = zt + R * LDZ;    // R x LDZ: s
   float* gt = st + R * LDZ;    // R x LDG: 128 columns of g
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // s's rows and g's first columns land while the edges resolve
-  if (s != nullptr) stage_any(st, LDZ, s, F, r0, R, 0, F, LDZ);
-  stage_any(gt, LDG, g, N, r0, R, 0, N, NB);
+  if (s != nullptr) stage(st, LDZ, s, F, r0, R, 0, F, LDZ);
+  stage(gt, LDG, g, N, r0, R, 0, N, NB);
   mma_tf32::cp_async_commit();
+  // z starts at zero: the walk stores each row that has an edge
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int x = tid; x < R * LDZ / 4; x += THREADS)
+    reinterpret_cast<float4*>(zt)[x] = zero;
   const int e_begin = __ldg(seg), e_end = __ldg(seg + max_blk);
   if (tid < R) sm.started[tid] = 0;
   if (tid <= R) sm.start[tid] = 0;
@@ -455,69 +458,86 @@ __device__ void dw_role(const int* __restrict__ tile_off,
   }
   mma_tf32::cp_async_wait<0>();
   __syncthreads();
-  // z = the walked sums (zero on a row no chunk gave an edge) + s; the
-  // columns from F to the product's 16 are zeros
-  const int FP = (F + 15) & ~15;
-  for (int x = tid; x < R * FP; x += THREADS) {
-    const int r = x / FP, c = x % FP;
-    float z = 0.f;
-    if (c < F) {
-      if (sm.started[r] || sm.start[r + 1] > sm.start[r]) z = zt[r * LDZ + c];
-      if (s != nullptr) z += st[r * LDZ + c];
-    }
-    zt[r * LDZ + c] = z;
-  }
-  __syncthreads();
-  // z_R^T g_R, 128 columns of N a pass: warp w takes the (16 x 8) tiles
-  // w, w + WARPS, ..., each summed over the R rows 8 at a time (mma_tf32.cuh)
+  // z_R^T g_R, 128 columns of N a pass: warp w takes the 16-row tiles w,
+  // w + WARPS, ... of F, and up to NTC 8-column tiles of the pass at once,
+  // so one A fragment serves NTC independent products; each is summed over
+  // the R rows 8 at a time. A[f][r] = z[r][f] + s[r][f] (mma_tf32.cuh:
+  // load_a_t's fragment)
   const int gq = lane >> 2, tq = lane & 3;
-  const int MT = FP / 16;
-  const long long FN = (long long)F * N;
-  float* pdw = part_dw + grp * FN;
+  const int MT = (F + 15) / 16, NT_ALL = (N + 7) / 8;
+  float4* pdw = reinterpret_cast<float4*>(part_dw) +
+                (long long)rank * MT * NT_ALL * 32;
+  auto a_at = [&](int r, int f) {
+    const float z = zt[r * LDZ + f];
+    return s != nullptr && f < F ? z + st[r * LDZ + f] : z;
+  };
   for (int n0 = 0; n0 < N; n0 += NB) {
     if (n0 > 0) {
       __syncthreads();  // every warp is done with the last g columns
-      stage_any(gt, LDG, g, N, r0, R, n0, N, NB);
+      stage(gt, LDG, g, N, r0, R, n0, N, NB);
       mma_tf32::cp_async_commit();
       mma_tf32::cp_async_wait<0>();
       __syncthreads();
     }
     const int NT = (min(NB, N - n0) + 7) / 8;
-    for (int tile = warp; tile < MT * NT; tile += WARPS) {
-      const int mt = tile / NT, nt = tile % NT;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k0 = 0; k0 < R; k0 += 8) {
-        uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
-        mma_tf32::load_a_t(zt + k0 * LDZ + mt * 16, LDZ, gq, tq, a_hi, a_lo);
-        mma_tf32::load_b(gt + k0 * LDG + nt * 8, LDG, gq, tq, b_hi, b_lo);
-        mma_tf32::mma_step(acc, a_hi, a_lo, b_hi, b_lo);
-      }
+    for (int mt = warp; mt < MT; mt += WARPS) {
+      const int f = mt * 16 + gq;
+      for (int nt0 = 0; nt0 < NT; nt0 += NTC) {
+        float acc[NTC][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int f = mt * 16 + gq + 8 * half;
-        const int n = n0 + nt * 8 + 2 * tq;
-        if (f >= F) continue;
-        float* o = pdw + (long long)f * N + n;
-        if (n < N) o[0] = acc[2 * half];
-        if (n + 1 < N) o[1] = acc[2 * half + 1];
+        for (int j = 0; j < NTC; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        for (int k0 = 0; k0 < R; k0 += 8) {
+          uint32_t a_hi[4], a_lo[4];
+          mma_tf32::split_tf32_fast(a_at(k0 + tq, f), a_hi[0], a_lo[0]);
+          mma_tf32::split_tf32_fast(a_at(k0 + tq, f + 8), a_hi[1], a_lo[1]);
+          mma_tf32::split_tf32_fast(a_at(k0 + tq + 4, f), a_hi[2], a_lo[2]);
+          mma_tf32::split_tf32_fast(a_at(k0 + tq + 4, f + 8), a_hi[3],
+                                    a_lo[3]);
+#pragma unroll
+          for (int j = 0; j < NTC; ++j) {
+            if (nt0 + j >= NT) break;  // the same for the whole warp
+            uint32_t b_hi[2], b_lo[2];
+            mma_tf32::load_b(gt + k0 * LDG + (nt0 + j) * 8, LDG, gq, tq,
+                             b_hi, b_lo);
+            mma_tf32::mma_step(acc[j], a_hi, a_lo, b_hi, b_lo);
+          }
+        }
+        // the D fragments as they lie in the lanes, a float4 a lane
+#pragma unroll
+        for (int j = 0; j < NTC; ++j) {
+          if (nt0 + j >= NT) break;
+          pdw[((long long)mt * NT_ALL + n0 / 8 + nt0 + j) * 32 + lane] =
+              make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        }
       }
     }
     if (part_db != nullptr && tid < NB && n0 + tid < N) {
       float d = 0.f;
       for (int r = 0; r < R; ++r) d += gt[r * LDG + tid];
-      part_db[(long long)grp * N + n0 + tid] = d;
+      part_db[(long long)rank * N + n0 + tid] = d;
     }
   }
-  // the last thread block to finish adds the partials in group order
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(ticket, 1) == groups - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  sum_partials(part_dw, dw, FN, groups);
-  if (part_db != nullptr) sum_partials(part_db, db, N, groups);
-  if (tid == 0) *ticket = 0;
+  // every rank's partials are in device memory: the barrier's arrive has
+  // release and its wait acquire semantics at cluster scope, so the stores
+  // before it are seen by the loads after it
+  cluster.sync();
+  sum_fragments(part_dw, dw, F, N, rank, ranks);
+  if (part_db != nullptr) {  // db likewise, rank `rank`'s share of N
+    for (int n = N * rank / ranks + tid; n < N * (rank + 1) / ranks;
+         n += THREADS) {
+      float v[MAX_RANKS];
+#pragma unroll
+      for (int k = 0; k < MAX_RANKS; ++k)
+        if (k < ranks) v[k] = __ldcg(part_db + (long long)k * N + n);
+      float d = 0.f;
+#pragma unroll
+      for (int k = 0; k < MAX_RANKS; ++k)
+        if (k < ranks) d += v[k];
+      db[n] = d;
+    }
+  }
 }
 
 template <int V>
@@ -536,20 +556,22 @@ fused_bwd_merged_kernel(const int* __restrict__ tile_off,
                         const float* __restrict__ s,
                         float* __restrict__ dw, float* __restrict__ db,
                         float* __restrict__ dh, float* __restrict__ part_dw,
-                        float* __restrict__ part_db, int* ticket,
-                        int max_blk, int max_blk_t, long long n_src, int F,
-                        int N, int dh_groups, int dw_groups) {
+                        float* __restrict__ part_db, int max_blk,
+                        int max_blk_t, long long n_src, int F, int N,
+                        int dh_groups, int dw_groups) {
   __shared__ Smem sm;
   extern __shared__ __align__(16) float dyn[];
-  if ((int)blockIdx.x < dw_groups) {
+  if ((int)blockIdx.x < dw_groups) {  // the first cluster
     dw_role<V>(tile_off, val, seg, cols, h, s, g, part_dw, part_db, dw, db,
-               ticket, max_blk, n_src, F, N, blockIdx.x, dw_groups, sm, dyn);
+               max_blk, n_src, F, N, sm, dyn);
     return;
   }
   // dh role: row group grp of source block j, aggregate_edges' thread
-  // block over A^T, whose one source block is dz
+  // block over A^T, whose one source block is dz; the blocks past the
+  // last source block pad the grid to whole clusters
   const int k = blockIdx.x - dw_groups;
   const int j = k / dh_groups, grp = k % dh_groups;
+  if ((long long)j * BLK >= n_src) return;
   const int R = BLK / dh_groups, r0 = grp * R;
   const long long slot0 = (long long)j * max_blk_t;
   edge_rows::block<V>(tile_off_t, val_t, seg_t + slot0, cols_t + slot0, dz,
@@ -563,20 +585,35 @@ cudaError_t launch(const int* tile_off, const float* val, const int* seg,
                    const int* seg_t, const int* cols_t, const float* h,
                    const float* g, const float* dz, const float* s, float* dw,
                    float* db, float* dh, float* part_dw, float* part_db,
-                   int* ticket, int max_blk, int max_blk_t, long long n_src,
-                   int F, int N, int dh_groups, int dw_groups,
-                   cudaStream_t st) {
+                   int max_blk, int max_blk_t, long long n_src, int F, int N,
+                   int dh_groups, int dw_groups, cudaStream_t st) {
+  auto kernel = fused_bwd_merged_kernel<V>;
   const size_t smem = dw_smem_bytes(F, dw_groups);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_bwd_merged_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && dw_groups > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  const int n_dh = (int)(n_src / BLK) * dh_groups;
-  fused_bwd_merged_kernel<V><<<dw_groups + n_dh, THREADS, smem, st>>>(
-      tile_off, val, seg, cols, tile_off_t, val_t, seg_t, cols_t, h, g, dz, s,
-      dw, db, dh, part_dw, part_db, ticket, max_blk, max_blk_t, n_src, F, N,
-      dh_groups, dw_groups);
-  return cudaGetLastError();
+  // the dw cluster, then the dh row groups in whole clusters
+  const long long n_dh = n_src / BLK * dh_groups;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(dw_groups + (n_dh + dw_groups - 1)
+                                / dw_groups * dw_groups));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = dw_groups;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, tile_off, val, seg, cols,
+                            tile_off_t, val_t, seg_t, cols_t, h, g, dz, s,
+                            dw, db, dh, part_dw, part_db, max_blk, max_blk_t,
+                            n_src, F, N, dh_groups, dw_groups);
 }
 
 }  // namespace merged
@@ -646,39 +683,41 @@ int fused_bwd_launch(const int* tile_off, const float* val, const int* seg,
 // Launches fused_bwd_merged on `stream` (see the top of this file): h is
 // (n_src, F) with n_src = n_srcb*128 = the rows of dh, g (128, N), dz
 // (128, F), s (128, F) or null, db and part_db null without a bias;
-// part_dw holds dw_groups (F, N) partials and part_db dw_groups (N,) ones;
-// ticket is one int, zero before the launch and again after it. dh_groups
-// row groups a source block (a divisor of 128; kernels/aggregate.py:
-// fused_bwd_merged_shape), dw_groups for the destination block (a divisor
-// of 16), loads of `vec` floats (4, 2 or 1; F and the bases of h and dz
-// must allow it). Returns the CUDA status after the launch (0 =
-// launched). Does not synchronise and allocates nothing.
+// part_dw holds dw_groups partials of (F rounded up to 16) x (N rounded
+// up to 8) floats and part_db dw_groups (N,) ones.
+// dh_groups row
+// groups a source block (a divisor of 128; kernels/aggregate.py:
+// fused_bwd_merged_shape), dw_groups for the destination block and the
+// size of the launch's clusters (2, 4, 8 or 16), loads of `vec` floats (4,
+// 2 or 1; F and the bases of h and dz must allow it). Returns the CUDA
+// status of the launch (0 = launched). Does not synchronise and allocates
+// nothing.
 int fused_bwd_merged_launch(const int* tile_off, const float* val,
                             const int* seg, const int* cols,
                             const int* tile_off_t, const float* val_t,
                             const int* seg_t, const int* cols_t,
                             const float* h, const float* g, const float* dz,
                             const float* s, float* dw, float* db, float* dh,
-                            float* part_dw, float* part_db, int* ticket,
-                            int max_blk, int max_blk_t, long long n_src,
-                            int F, int N, int dh_groups, int dw_groups,
-                            int vec, void* stream) {
+                            float* part_dw, float* part_db, int max_blk,
+                            int max_blk_t, long long n_src, int F, int N,
+                            int dh_groups, int dw_groups, int vec,
+                            void* stream) {
   const uintptr_t align = 4 * (uintptr_t)vec;
   if (dh_groups < 1 || dh_groups > BLK || BLK % dh_groups != 0 ||
-      dw_groups < 1 || dw_groups > BLK / 8 || BLK % dw_groups != 0 ||
+      dw_groups < 2 || dw_groups > 16 || BLK % dw_groups != 0 ||
       F < 1 || F > 256 || N < 0 || n_src < BLK || n_src % BLK != 0 ||
       max_blk < 1 || max_blk_t < 1 ||
       (vec != 4 && vec != 2 && vec != 1) || F % vec != 0 ||
       reinterpret_cast<uintptr_t>(h) % align != 0 ||
       reinterpret_cast<uintptr_t>(dz) % align != 0 ||
-      (db == nullptr) != (part_db == nullptr) || ticket == nullptr)
+      (db == nullptr) != (part_db == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   auto go = [&](auto launch) {
     return (int)launch(tile_off, val, seg, cols, tile_off_t, val_t, seg_t,
                        cols_t, h, g, dz, s, dw, db, dh, part_dw, part_db,
-                       ticket, max_blk, max_blk_t, n_src, F, N, dh_groups,
-                       dw_groups, st);
+                       max_blk, max_blk_t, n_src, F, N, dh_groups, dw_groups,
+                       st);
   };
   switch (vec) {
     case 4: return go(merged::launch<4>);

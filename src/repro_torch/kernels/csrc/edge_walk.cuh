@@ -10,11 +10,10 @@
 // of destination block i are the contiguous range
 // seg[i*max_blk] .. seg[(i+1)*max_blk].
 //
-// walk_edges (PR 12's walk, now serving only fused_update.cuh's dy pass)
-// adds columns f0 .. f0+FB of A_i @ h into a 128 x FB fp32 tile in shared
-// memory. The block's edges are staged in chunks, each thread
-// resolving one edge's tile slot by binary search over the seg slice in
-// shared memory. Warp w owns the rows r with r % WARPS == w and walks the
+// walk_edges (now serving only fused_update.cuh's dy pass) adds columns
+// f0 .. f0+FB of A_i @ h into a 128 x FB fp32 tile in shared memory. The
+// block's edges are staged in chunks, each thread resolving one edge's
+// tile slot by binary search over the seg slice in shared memory. Warp w owns the rows r with r % WARPS == w and walks the
 // staged edges in order, so every row is summed by one warp in segment
 // order: no atomics, and the same result on every run. Lanes run over the
 // columns, so each h row load is coalesced, and up to UNROLL edges' loads

@@ -65,6 +65,9 @@ LAYOUTS = {
     # ~5,700 edges in one destination block: more than the 2,048 the dw
     # kernel resolves at once, so it walks the block in three chunks
     "dense_block": (600, 2 * 128, 6000, 0.95, False, (0, 128)),
+    # one destination block whose row 5 holds ~2,850 edges: that row's
+    # group walks it over two 2,048-edge chunks
+    "single_block_dense_row": (3500, 100, 3000, 0.95, False, (5, 6)),
 }
 
 
@@ -533,24 +536,49 @@ def test_fused_fwd_matches_plain_on_card_bitwise_repeatable(
     ("single_block", 200, 41, True, True),
     ("single_block_multi_edge", 101, 130, True, False),
     ("single_block_masked", 64, 41, False, True),
+    ("single_block", 256, 257, True, True),
+    ("single_block", 202, 41, False, True),
+    ("single_block_dense_row", 128, 41, False, True),
+    ("single_block_dense_row", 256, 130, True, False),
+    ("single_block_multi_edge", 128, 41, False, True),
+    ("single_block_masked", 256, 257, True, True),
 ])
 def test_merged_kernel_matches_plain_on_card(lay, F, N, bias, self_term):
+    """fused_bwd_merged against its plain version, in one launch a call,
+    with the same bits from two launches, dh bit for bit the
+    aggregate_edges kernel over A^T, and +0.0 (no sign bit) on the source
+    blocks no slot of cols[0] names."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     coo = _layout(lay)
+    if lay == "single_block_dense_row":  # one row's edges span two chunks
+        valid = coo["tile_off"][:coo["tile_seg"][-1]]
+        assert np.bincount(valid // 128).max() > 2048
     h, w, _, s, g = _cuda(map(_t, _operands(coo, F, N, bias, self_term)))
     dz = (g @ w.T).contiguous()
     lay_c = _cuda(_layout_t(coo, FWD + BWD))
-    before = agg.launch_counts["fused_bwd_merged"]
+    before = dict(agg.launch_counts)
     got = agg.fused_bwd_merged(*lay_c, h, g, dz, s, has_bias=bias)
     torch.cuda.synchronize()
-    assert agg.launch_counts["fused_bwd_merged"] == before + 1
+    assert agg.launch_counts == {**before, "fused_bwd_merged":
+                                 before["fused_bwd_merged"] + 1}
+    again = agg.fused_bwd_merged(*lay_c, h, g, dz, s, has_bias=bias)
+    dh_edges = agg.aggregate_edges(*lay_c[4:], dz)
+    torch.cuda.synchronize()
+    assert agg.launch_counts["fused_bwd_merged"] == (
+        before["fused_bwd_merged"] + 2)
     want = agg.fused_bwd_merged_plain(*lay_c, h, g, dz, s, bias)
-    for a, p in zip(got, want):
-        assert (a is None) == (p is None)
+    for a, b, p in zip(got, again, want):
+        assert (a is None) == (b is None) == (p is None)
         if a is not None:
             torch.testing.assert_close(a, p, rtol=RTOL,
                                        atol=_atol(p.cpu()))
+            assert torch.equal(a, b)
+    assert torch.equal(got[2], dh_edges)
+    for blk in sorted(set(range(coo["n_src_pad"] // 128))
+                      - set(coo["cols"][0].tolist())):
+        rows = got[2][blk * 128:(blk + 1) * 128]
+        assert not rows.any() and not torch.signbit(rows).any()
 
 
 @pytest.mark.gpu

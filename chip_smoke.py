@@ -70,6 +70,13 @@ init. Phases, each of which exits non-zero on failure:
      kernel, its reduce and its plan's PyTorch ops apart
      (``torch.profiler``), and the build report's registers and spill
      bytes; two launches must give bitwise the same dw (and db).
+     ``fused_bwd_merged``'s line gives its shape (``dh_groups``,
+     ``dw_groups``: the dw cluster's ranks, ``ctas``, ``vec``), the build
+     report's registers, spill bytes and static shared memory of the
+     launch's instantiation beside its dynamic shared memory, and its
+     device split, which must hold one kernel a call; two launches must
+     give the same bits, and dh must equal the ``aggregate_edges`` kernel
+     over A^T bit for bit.
      ``aggregate_fused``'s lines give its shape (``slab``, ``cluster``,
      ``rounds``, ``ctas``, ``max_active_clusters``: the clusters the card
      runs at once, ``real_blocks``: the destination blocks that hold an

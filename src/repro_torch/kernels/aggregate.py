@@ -28,9 +28,10 @@ against the JAX reference:
   memory; ``aggregate_fused_shape`` sizes its grid (slabs of z columns
   split over a thread block cluster) from the shapes.
 * ``fused_bwd`` and ``fused_bwd_merged`` (``csrc/aggregate_fused_bwd.cu``):
-  its backward, which recomputes the aggregate per destination block.
-  ``AggregateFused`` is the autograd function and picks between them as
-  the reference's ``_fused_bwd`` does.
+  its backward, which recomputes the aggregate per destination block;
+  ``fused_bwd_merged_shape`` sizes the merged kernel's grid from the
+  shapes. ``AggregateFused`` is the autograd function and picks between
+  them as the reference's ``_fused_bwd`` does.
 
 ``launch_counts`` (``kernels/build.py``) counts wrapper calls that launched
 their kernel (incremented where a launch is made, nowhere else), so a run

@@ -50,13 +50,13 @@
 //     fragment order, whole lines (a partial of sum_rows g_R beside it);
 //     after a cluster barrier, whose release and acquire order those
 //     stores before the loads, each rank adds its share of the elements
-//     over the 16 partials in rank order. No float atomics and no ticket:
-//     the same bits on every run, and nothing to reset between launches.
+//     over the 16 partials in rank order. No float atomics and no state
+//     kept between launches: the same bits on every run.
 //
-// Measured on an H100 (PERF.md): the dw role's chain sets the time,
-// about 2 us to its first barrier, 3.4 us resolving the block's 1,153
-// edges, 2-4 us walking its rows, 1.2 us for the product and 2.5 us for
-// the barrier and the sum; the dh role ends within 5.3 us.
+// On an H100 the dw role's chain sets the time (PERF.md): its first
+// barrier, resolving the block's edges and walking its rows take most of
+// it, then the product, the barrier and the sum; the dh role ends long
+// before.
 //
 // What bounds fused_bwd on an H100: the recompute reads the h rows the edges
 // name and the segments, as the forward does, plus g, and writes dw; the

@@ -117,7 +117,23 @@ init. Phases, each of which exits non-zero on failure:
      batch, and its two losses and updated parameters must be bitwise
      equal. The peak device memory of each backend's run is printed
      beside the aggregate and dense-tile bytes the trainer says it keeps
-     in device memory;
+     in device memory. Beside each GraphSAGE run, the same iterations
+     from the same parameters under ``data_parallel=True`` (the resident
+     feature path: the shard uploaded once, the layer-0 block assembled on
+     the card by ``assemble_device_feats``), whose launch counts must be
+     the host-gather run's and whose first loss must be its first loss
+     bit for bit; then two iterations at p = 4 on ``"pallas_fused"``,
+     host gather and resident, with four times the counts, the same first
+     loss, miss rows shipped, beta below 1 and the same per-device
+     accounting. Iteration lines carry ``gather_s``, ``upload_s``,
+     ``step_s``, ``wall_s``, ``nvtps``, ``beta`` and, resident,
+     ``shard_upload_s`` and ``miss_rows``. ``assemble_device_feats`` at
+     the paper batch (p = 1, and each device at p = 4) must equal
+     ``FeatureStore.gather`` on the card bit for bit; its launch lines
+     give its ms by CUDA events beside its bytes bound (the valid rows
+     read, the block written, the positions). ``peak_memory_resident``
+     gives each resident run's peak beside its host-gather run's and its
+     shard's bytes;
   5. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
      ``ops.aggregate_update`` (fused, and with ``use_pallas=False``) on
      the layer-1 operands, with the counts set to 0 just before and read
@@ -197,6 +213,8 @@ ITERATIONS = 5
 BLOCKCSR_ITERATIONS = 3
 MERGED_TARGETS = 128    # one destination block at the last layer
 MERGED_ITERATIONS = 2
+RESIDENT_P4 = 4         # simulated devices of the resident run with misses
+RESIDENT_P4_ITERATIONS = 2
 SEED = 0
 RTOL, ATOL = 1e-5, 1e-6
 LOSS_RTOL = 1e-4
@@ -851,7 +869,8 @@ def check_update_launch(name, um, x, w, b, act, usage):
 def run_path(label, trainer, groups, expected, agg) -> dict:
     """Drive one path through ``run_iteration`` with every launch count set
     to 0 just before and read just after; fails on any other count per
-    iteration than ``expected`` or on a non-finite loss."""
+    iteration than ``expected`` or on a non-finite loss. Each iteration
+    line carries the store's running ``beta``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     agg.reset_launch_counts()
@@ -863,7 +882,8 @@ def run_path(label, trainer, groups, expected, agg) -> dict:
         wall = time.perf_counter() - t0
         got = {k: agg.launch_counts[k] - before[k] for k in before}
         m.update(path=label, iteration=it, wall_s=wall, launches=got,
-                 nvtps=m["vertices_traversed"] / wall)
+                 nvtps=m["vertices_traversed"] / wall,
+                 beta=trainer.store.beta())
         print("iteration " + json.dumps(m), flush=True)
         if got != expected:
             fail(f"{label}: iteration {it} launched {got}, expected "
@@ -909,6 +929,59 @@ def reference_loss(trainer_cls, graph, cfg, params, group,
         if not same:
             fail("the reference datapath does not repeat its bits")
     return runs[0][0], runs[0][1]
+
+
+def check_resident(label, run, host_run) -> None:
+    """A ``data_parallel`` run against the host-gather run of the same
+    backend and batches: the same first loss bit for bit, the shard
+    uploaded at the first step and never again."""
+    first, host_first = run["steps"][0]["loss"], host_run["steps"][0]["loss"]
+    if first != host_first:
+        fail(f"{label}: first loss {first!r}, host-gather run "
+             f"{host_first!r}")
+    uploads = [m["shard_upload_s"] for m in run["steps"]]
+    if not uploads[0] > 0 or any(uploads[1:]):
+        fail(f"{label}: shard_upload_s {uploads}: one upload, at the first "
+             f"step")
+    print(f"{label}: first loss {first!r}, bitwise the host-gather run's",
+          flush=True)
+
+
+def check_assembly(name, assemble, payload, store, features, mb,
+                   dev) -> dict:
+    """``assemble_device_feats`` at one batch on the card against
+    ``FeatureStore.gather`` (bit for bit), from the trainer's index payload
+    (``payload``: ``core.trainer.resident_payload``), timed by CUDA events.
+    Its bound counts the bytes it must move: the valid rows read (from the
+    shard or the shipped miss rows), the (N_0, f) block written and the
+    index arrays."""
+    ids = np.asarray(mb.nodes[0])
+    valid = np.asarray(mb.node_mask[0], bool)
+    idx = payload(store.core, dev, ids, valid)
+    shard = torch.from_numpy(store.build_shard_matrix()[dev]).cuda()
+    batch = {k: torch.from_numpy(a).cuda() for k, a in idx.items()}
+    batch["miss_rows"] = torch.from_numpy(
+        features[ids[idx["miss_pos"]]]).cuda()
+    batch["node_mask"] = [torch.from_numpy(valid).cuda()]
+    got = assemble(shard, batch)
+    want = torch.from_numpy(store.gather(dev, ids, valid)).cuda()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"{name}: the block assembled on the card differs from "
+             f"FeatureStore.gather")
+    del got, want
+    n, f = ids.shape[0], features.shape[1]
+    n_valid = int(valid.sum())
+    moved = n_valid * f * 4 + n * f * 4 + sum(a.nbytes for a in idx.values())
+    b = bound(moved, 0)
+    row = {"name": name, "kernel": "assemble_device_feats",
+           "route": "pytorch", "device": dev, "rows": n,
+           "valid_rows": n_valid, "hit_rows": len(idx["hit_idx"]),
+           "miss_rows": len(idx["miss_pos"]), "shard_rows": shard.shape[0],
+           "bitwise_equal_gather": True,
+           "ms": time_ms(lambda: assemble(shard, batch)), **b}
+    del shard, batch
+    torch.cuda.empty_cache()
+    return report(row)
 
 
 def check_first_loss(label, run, ref_loss) -> None:
@@ -1249,9 +1322,9 @@ def main() -> None:
         from repro_torch.configs.gnn import GNNModelConfig
         from repro_torch.core import scheduler as sched
         from repro_torch.core.sampler import NeighborSampler
-        from repro_torch.core.trainer import SyncGNNTrainer
+        from repro_torch.core.trainer import SyncGNNTrainer, resident_payload
         from repro_torch.data.graphs import scaled_dataset
-        from repro_torch.gnn.models import AGG_KIND
+        from repro_torch.gnn.models import AGG_KIND, assemble_device_feats
         from repro_torch.kernels import aggregate as agg
         from repro_torch.kernels import build
         from repro_torch.kernels.layout import (block_capacities,
@@ -1427,6 +1500,24 @@ def main() -> None:
     check_first_loss("graphsage/pallas_edges", runs["pallas_edges"],
                      ref_loss)
     del edges_tr
+    # the resident feature path (data_parallel) beside each host-gather run
+    resident = {}
+
+    def run_resident(backend, label, n_iter, expected) -> None:
+        tr = SyncGNNTrainer(
+            graph, dataclasses.replace(cfg, aggregate_backend=backend),
+            num_devices=1, algorithm="distdgl", seed=SEED, device="cuda",
+            params=params0, data_parallel=True)
+        key = f"{backend}_resident"
+        runs[key] = run_path(f"{label}/resident", tr, groups[:n_iter],
+                             expected, agg)
+        check_resident(f"{label}/resident", runs[key], runs[backend])
+        resident[key] = tr.store
+
+    run_resident("pallas_edges", "graphsage/pallas_edges", ITERATIONS,
+                 {**none, "aggregate_edges": 3})
+    check_assembly("paper_batch_p1", assemble_device_feats, resident_payload,
+                   resident["pallas_edges_resident"], graph.features, mb, 0)
     fused_tr = SyncGNNTrainer(
         graph, dataclasses.replace(cfg, aggregate_backend="pallas_fused"),
         num_devices=1, algorithm="distdgl", seed=SEED, device="cuda",
@@ -1438,6 +1529,47 @@ def main() -> None:
     check_first_loss("graphsage/pallas_fused", runs["pallas_fused"],
                      ref_loss)
     del fused_tr
+    fused_counts = {**none, "aggregate_fused": 2, "fused_bwd": 2,
+                    "aggregate_edges": 1}
+    run_resident("pallas_fused", "graphsage/pallas_fused", ITERATIONS,
+                 fused_counts)
+    # p = 4: real miss rows cross the bus; every slot runs a batch (idle
+    # ones at weight 0), so each count is p times the p = 1 count
+    p4 = RESIDENT_P4
+    cfg_f = dataclasses.replace(cfg, aggregate_backend="pallas_fused")
+    p4_stats = {}
+    for key, dp in (("pallas_fused_p4", False),
+                    ("pallas_fused_p4_resident", True)):
+        tr = SyncGNNTrainer(graph, cfg_f, num_devices=p4,
+                            algorithm="distdgl", seed=SEED, device="cuda",
+                            params=params0, data_parallel=dp)
+        groups4 = list(sched.iterations(
+            tr.epoch_schedule()))[:RESIDENT_P4_ITERATIONS]
+        runs[key] = run_path(f"graphsage/pallas_fused/p{p4}"
+                             + ("/resident" if dp else ""), tr, groups4,
+                             {k: p4 * v for k, v in fused_counts.items()},
+                             agg)
+        p4_stats[key] = [dataclasses.astuple(st) for st in tr.store.stats]
+        if dp:
+            resident[key] = tr.store
+        del tr
+    check_resident(f"graphsage/pallas_fused/p{p4}/resident",
+                   runs["pallas_fused_p4_resident"], runs["pallas_fused_p4"])
+    store4 = resident["pallas_fused_p4_resident"]
+    shipped = sum(m["miss_rows"]
+                  for m in runs["pallas_fused_p4_resident"]["steps"])
+    if p4_stats["pallas_fused_p4_resident"] != p4_stats["pallas_fused_p4"]:
+        fail(f"p{p4}: resident accounting {p4_stats} differs from the "
+             f"host gather's")
+    if not shipped or not store4.beta() < 1.0:
+        fail(f"p{p4}: the resident run shipped {shipped} miss rows at beta "
+             f"{store4.beta()}")
+    print(f"graphsage/pallas_fused/p{p4}/resident: {shipped} miss rows "
+          f"shipped, beta {store4.beta()!r}, accounting (local/host rows "
+          f"and bytes per device) equal to the host gather's", flush=True)
+    for dev in range(p4):
+        check_assembly(f"paper_batch_p{p4}", assemble_device_feats,
+                       resident_payload, store4, graph.features, mb, dev)
     blockcsr_tr = SyncGNNTrainer(
         graph, dataclasses.replace(cfg, aggregate_backend="pallas"),
         num_devices=1, algorithm="distdgl", seed=SEED, device="cuda",
@@ -1447,6 +1579,8 @@ def main() -> None:
         {**none, "aggregate_blockcsr": 3}, agg)
     check_first_loss("graphsage/pallas", runs["pallas"], ref_loss)
     del blockcsr_tr
+    run_resident("pallas", "graphsage/pallas", BLOCKCSR_ITERATIONS,
+                 {**none, "aggregate_blockcsr": 3})
     memory = {be: {"peak_bytes": runs[be]["peak_bytes"] if be in runs
                    else peaks[be]}
               | {key: runs[be][key] if be in runs else 0
@@ -1455,6 +1589,14 @@ def main() -> None:
               for be in ("reference", "pallas", "pallas_edges",
                          "pallas_fused")}
     print("peak_memory " + json.dumps(memory), flush=True)
+    print("peak_memory_resident " + json.dumps({
+        key: {"peak_bytes": runs[key]["peak_bytes"],
+              "host_gather_peak_bytes":
+                  runs[key.replace("_resident", "")]["peak_bytes"],
+              "shard_bytes": st.p * st.shard_rows() * st.shard_width() * 4}
+        for key, st in resident.items()}),
+        flush=True)
+    del resident, store4
 
     merged_tr = SyncGNNTrainer(graph, cfg_m, num_devices=1,
                                algorithm="distdgl", seed=SEED, device="cuda")

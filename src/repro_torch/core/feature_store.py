@@ -3,9 +3,10 @@ the in-process path of ``repro.core.feature_store``).
 
 The host always holds the full X (paper §4.2): cache hits are device-HBM
 reads, misses are fetched from host memory, and ``gather`` returns the
-batch's (N, f) block with its per-device Eq. 7 accounting. The
-worker-gathered placement, P3 and mesh-shard paths wait for the sampler
-pool, P3 and data parallelism.
+batch's (N, f) block with its per-device Eq. 7 accounting.
+``build_shard_matrix`` is the host image of every device's HBM-resident
+rows, which the trainer's ``data_parallel`` path keeps on the card. The
+worker-gathered placement and P3 paths wait for the sampler pool and P3.
 """
 from __future__ import annotations
 
@@ -35,6 +36,18 @@ class FeatureStore:
         self.core: ResidencyCore = build_residency(graph, partition,
                                                    strategy)
 
+    # -- residency queries (delegated) ----------------------------------------
+    def num_resident(self, device: int) -> int:
+        """How many vertex rows live in ``device``'s HBM."""
+        return self.core.num_resident(device)
+
+    def resident_ids(self, device: int) -> np.ndarray:
+        """Sorted vertex ids resident on ``device``."""
+        return self.core.resident_ids(device)
+
+    def device_bytes(self, device: int) -> int:
+        return self.core.device_bytes(device)
+
     def account_rows(self, device: int, n_hit: int, n_miss: int) -> None:
         """Fold one batch's hit/miss row counts into ``device``'s Eq. 7
         accounting (rows x the device's feature width x 4 bytes)."""
@@ -57,6 +70,31 @@ class FeatureStore:
         self.account_rows(device, int(hit.sum()), int(miss.sum()))
         out = self.g.features[ids]  # fancy indexing: already a fresh array
         out[~valid] = 0.0
+        return out
+
+    # -- shard materialization ------------------------------------------------
+    def shard_rows(self) -> int:
+        """Row capacity of the per-device HBM shard: the largest resident
+        buffer, so the stacked (p, rows, f) matrix is rectangular."""
+        return max(self.core.capacities) if self.core.capacities else 0
+
+    def shard_width(self) -> int:
+        """Column width of the per-device shard: the full f (row-resident
+        strategies)."""
+        return self.g.features.shape[1]
+
+    def build_shard_matrix(self) -> np.ndarray:
+        """Every device's HBM-resident feature block as one (p, shard_rows,
+        shard_width) float32 matrix: row d holds
+        ``features[resident_ids(d)]`` in sorted-id order, zero-padded to
+        the largest capacity — the order
+        ``ResidencyCore.resident_positions`` indexes into."""
+        rows, width = self.shard_rows(), self.shard_width()
+        out = np.zeros((self.p, rows, width), np.float32)
+        for d in range(self.p):
+            rid = self.core.resident_ids(d)
+            if len(rid):
+                out[d, :len(rid)] = self.g.features[rid]
         return out
 
     def reset_stats(self) -> None:

@@ -14,6 +14,14 @@ Per synchronous iteration (paper Fig. 2 / Alg. 2 + gradient sync):
      fill batches carry weight 0 and contribute nothing;
   4. one AdamW update.
 
+Under ``data_parallel=True`` (the reference's mesh dataflow, with all p
+simulated devices on the one card) step 2 gathers no feature block: every
+device's resident rows live on the card for the trainer's life
+(``FeatureStore.build_shard_matrix``, uploaded once at the first step),
+each batch ships its shard positions and exactly its miss rows (through a
+pinned staging buffer), and step 3 assembles each batch's layer-0 block on
+the card just before its loss (``gnn.models.assemble_device_feats``).
+
 Host stages are bitwise copies of the reference's, so from one seed both
 trainers sample the same batches and build the same layouts. Knobs the port
 does not run yet raise ``NotImplementedError`` naming their ROADMAP.md item.
@@ -33,7 +41,8 @@ from repro_torch.configs.gnn import (CacheConfig, FaultConfig, GNNModelConfig,
 from repro_torch.core import scheduler as sched
 from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.partition import Partition, get_partitioner
-from repro_torch.core.sampler import MiniBatch, NeighborSampler
+from repro_torch.core.sampler import (MiniBatch, NeighborSampler,
+                                      layer_capacities)
 from repro_torch.data.graphs import Graph
 from repro_torch.device import resolve_device
 from repro_torch.gnn import models as gnn_models
@@ -62,13 +71,13 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def batch_to_arrays(mb: MiniBatch, feats: np.ndarray, device,
+def batch_to_arrays(mb: MiniBatch, feats: Optional[np.ndarray], device,
                     layout: Optional[dict] = None) -> dict:
-    """One mini-batch (+ its layer-0 features and, for the kernel path, its
-    edge-segment layout) as a dict of tensors on ``device``. ``weight`` is
-    the batch's loss weight in the synchronous step (fill batches get 0)."""
+    """One mini-batch (+ its layer-0 features, unless ``feats`` is None,
+    and, for the kernel path, its edge-segment layout) as a dict of tensors
+    on ``device``. ``weight`` is the batch's loss weight in the synchronous
+    step (fill batches get 0)."""
     out = {
-        "feats": _to_device(np.asarray(feats, np.float32), device),
         "edge_src": [_to_device(a, device) for a in mb.edge_src],
         "edge_dst": [_to_device(a, device) for a in mb.edge_dst],
         "edge_mask": [_to_device(a, device) for a in mb.edge_mask],
@@ -77,9 +86,26 @@ def batch_to_arrays(mb: MiniBatch, feats: np.ndarray, device,
         "labels": _to_device(np.asarray(mb.labels, np.int32), device),
         "weight": 1.0,
     }
+    if feats is not None:
+        out["feats"] = _to_device(np.asarray(feats, np.float32), device)
     for k, arrs in (layout or {}).items():
         out[k] = [_to_device(a, device) for a in arrs]
     return out
+
+
+def resident_payload(core, dev: int, ids: np.ndarray,
+                     valid: np.ndarray) -> dict:
+    """The index half of a batch's ``data_parallel`` payload for device
+    ``dev`` (int64 arrays for ``gnn.models.assemble_device_feats``):
+    ``hit_idx``, the valid rows resident on ``dev``, ``hit_pos``, their
+    rows in its shard (``ResidencyCore.resident_positions``), and
+    ``miss_pos``, the valid rows that are not resident — the rows
+    ``ResidencyCore.select_ship_rows`` ships, derived from the hit mask
+    without a second search."""
+    pos, hit = core.resident_positions(dev, ids, valid)
+    hit_idx = np.flatnonzero(hit)
+    return {"hit_idx": hit_idx, "hit_pos": pos[hit_idx].astype(np.int64),
+            "miss_pos": np.flatnonzero(valid & ~hit)}
 
 
 @dataclass
@@ -138,6 +164,20 @@ class SyncGNNTrainer:
                           if self.model_cfg.aggregate_backend
                           in gnn_models.KERNEL_BACKENDS else [])
         self._balancer = sched.LoadBalancer(self.num_devices)
+        # data_parallel: the (p, shard_rows, f) resident shards on the card
+        # (uploaded at the first step) and the pinned staging buffer the
+        # miss rows cross the bus from. At most _miss_cap rows miss a batch:
+        # every layer-0 row in the worst case, unless ship_rows_cap says
+        # fewer.
+        self._shard: Optional[torch.Tensor] = None
+        self._miss_cap = 0
+        if self.data_parallel:
+            cap = self.model_cfg.cache.ship_rows_cap
+            self._miss_cap = (cap if cap is not None
+                              else layer_capacities(self.model_cfg)[0][0])
+            self._miss_stage = torch.empty(
+                (self._miss_cap, self.graph.features.shape[1]),
+                dtype=torch.float32, pin_memory=self.device.type == "cuda")
 
     def _check_ported(self) -> None:
         cfg = self.model_cfg
@@ -166,16 +206,23 @@ class SyncGNNTrainer:
         if cfg.fault != FaultConfig():
             raise _unported(f"fault {cfg.fault} (sampler-pool fault "
                             f"tolerance)", "queue A, item A.5")
-        if self.cache_capacity is not None or cfg.cache != CacheConfig():
+        # the ship-rows cap alone is no cache: it bounds data_parallel's
+        # miss rows a batch
+        if self.cache_capacity is not None or dataclasses.replace(
+                cfg.cache, ship_rows_cap=None,
+                auto_ship_rows_cap=True) != CacheConfig():
             raise _unported(f"cache {cfg.cache} / cache_capacity="
                             f"{self.cache_capacity} (the feature cache)",
                             "queue A, item A.6")
+        if cfg.cache.ship_rows_cap is not None and cfg.cache.ship_rows_cap < 1:
+            raise ValueError("ship_rows_cap must be >= 1")
         if self.checkpointer is not None:
             raise _unported("checkpointer", "queue A, item A.7")
         if self.grad_compression:
             raise _unported("grad_compression", "queue A, item A.8")
-        if self.mesh is not None or self.data_parallel:
-            raise _unported("mesh / data_parallel", "queue A, item A.9")
+        if self.mesh is not None:
+            raise _unported("mesh (data parallelism over several cards)",
+                            "queue A, item A.9")
         if self.optimizer_name != "adam":
             raise _unported(f"optimizer {self.optimizer_name!r}",
                             "queue A, item A.11")
@@ -256,30 +303,78 @@ class SyncGNNTrainer:
         return {"minibatch": mb, "layout": layout,
                 "load": mb.work_estimate()}
 
+    def _resident_payload(self, dev: int, mb: MiniBatch,
+                          stage_s: Dict[str, float]) -> dict:
+        """Stage 2 under ``data_parallel`` (the reference's
+        ``_batch_mesh_payload``): in place of the (N_0, f) block, the
+        batch's hit rows and their positions in device ``dev``'s shard
+        (``resident_payload``) and its miss rows, gathered into the pinned
+        staging buffer and copied to the card (``_prepare_group``
+        synchronises after each batch's copies, so the next batch may
+        refill the buffer). Accounting equals ``FeatureStore.gather``'s."""
+        t0 = time.perf_counter()
+        ids = np.asarray(mb.nodes[0])
+        valid = np.asarray(mb.node_mask[0], bool)
+        idx = resident_payload(self.store.core, dev, ids, valid)
+        mpos = idx["miss_pos"]
+        n_miss = len(mpos)
+        self.store.account_rows(dev, int(valid.sum()) - n_miss, n_miss)
+        if n_miss > self._miss_cap:
+            raise ValueError(
+                f"batch ships {n_miss} miss rows to device {dev} but the "
+                f"miss segment holds {self._miss_cap} "
+                f"(ship_rows_cap={self.model_cfg.cache.ship_rows_cap}); "
+                f"raise ship_rows_cap")
+        np.take(self.graph.features, ids[mpos], axis=0, mode="clip",
+                out=self._miss_stage.numpy()[:n_miss])
+        t1 = time.perf_counter()
+        out = {k: _to_device(a, self.device) for k, a in idx.items()}
+        out["miss_rows"] = self._miss_stage[:n_miss].to(
+            self.device, non_blocking=True, copy=True)
+        stage_s["gather_s"] += t1 - t0
+        stage_s["upload_s"] += time.perf_counter() - t1
+        stage_s["miss_rows"] += n_miss
+        return out
+
     def _prepare_group(self, assignments: List[sched.Assignment]) -> dict:
         """Stages 1, 2b and 2 (gather) for one synchronous iteration, then
         the upload of its p batches to the device. Fill batches for idle
-        devices repeat the last real batch with weight 0."""
+        devices repeat the last real batch with weight 0: appended after
+        the real ones, or, under ``data_parallel``, in the empty device
+        slots (slot d runs against device d's shard)."""
         stage_s = {"sample_s": 0.0, "layout_s": 0.0, "gather_s": 0.0,
                    "upload_s": 0.0}
+        if self.data_parallel:
+            stage_s["miss_rows"] = 0
         payloads = [self._local_payload(a.partition, stage_s)
                     for a in assignments]
         devices = self._balancer.assign(assignments,
                                         [p["load"] for p in payloads])
         vertices = 0
         batches = []
+        slots: List[Optional[dict]] = [None] * self.num_devices
         for dev, payload in zip(devices, payloads):
             mb = payload["minibatch"]
             vertices += mb.vertices_traversed()
-            t0 = time.perf_counter()
-            feats = self.store.gather(dev, mb.nodes[0], mb.node_mask[0])
+            if self.data_parallel:
+                feats, resident = None, self._resident_payload(dev, mb,
+                                                               stage_s)
+            else:
+                t0 = time.perf_counter()
+                feats = self.store.gather(dev, mb.nodes[0], mb.node_mask[0])
+                resident = {}
+                stage_s["gather_s"] += time.perf_counter() - t0
             t1 = time.perf_counter()
-            batches.append(batch_to_arrays(mb, feats, self.device,
-                                           payload["layout"]))
+            arrs = batch_to_arrays(mb, feats, self.device, payload["layout"])
+            arrs.update(resident)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            stage_s["gather_s"] += t1 - t0
             stage_s["upload_s"] += time.perf_counter() - t1
+            batches.append(arrs)
+            slots[dev] = arrs
+        if self.data_parallel:
+            batches = [b if b is not None else dict(batches[-1], weight=0.0)
+                       for b in slots]
         while len(batches) < self.num_devices:
             fill = dict(batches[-1])
             fill["weight"] = 0.0
@@ -296,7 +391,12 @@ class SyncGNNTrainer:
                          device=self.device)
         w_sum = w.sum().clamp_min(1.0)
         losses, accs, per_dev = [], [], []
-        for b in batches:
+        for d, b in enumerate(batches):
+            if self.data_parallel:
+                # one (N_0, f) block lives at a time: the next rebinding of
+                # b frees this one
+                b = dict(b, feats=gnn_models.assemble_device_feats(
+                    self._shard[d], b))
             ps = [p.detach().requires_grad_(True) for p in leaves]
             loss, m = gnn_models.loss_fn(self.model_cfg,
                                          unflatten(self.params, ps), b)
@@ -309,8 +409,25 @@ class SyncGNNTrainer:
                  for gs in zip(*per_dev)]
         return loss, acc, grads
 
+    def _upload_shards(self) -> float:
+        """Build every device's resident feature block and put it on the
+        card once, from pinned memory, where it stays for the trainer's
+        life (the reference's ``_upload_shards``). Returns its seconds:
+        the build, the pinning and the copy."""
+        t0 = time.perf_counter()
+        mat = torch.from_numpy(self.store.build_shard_matrix())
+        if self.device.type == "cuda":
+            self._shard = mat.pin_memory().to(self.device, non_blocking=True)
+            torch.cuda.synchronize(self.device)
+        else:
+            self._shard = mat
+        return time.perf_counter() - t0
+
     def _execute(self, prepared: dict) -> dict:
         """Run the step on the prepared batches and read its metrics."""
+        shard_s = None
+        if self.data_parallel:
+            shard_s = self._upload_shards() if self._shard is None else 0.0
         t0 = time.perf_counter()
         loss, acc, grads = self._grads(prepared["batches"])
         new_leaves, self.opt_state, om = self.optimizer.update(
@@ -321,12 +438,17 @@ class SyncGNNTrainer:
         out["vertices_traversed"] = prepared["vertices"]
         out.update(prepared["stage_s"])
         out["step_s"] = time.perf_counter() - t0
+        if shard_s is not None:
+            out["shard_upload_s"] = shard_s
         return out
 
     def run_iteration(self, assignments: List[sched.Assignment]) -> dict:
         """One synchronous iteration: loss, acc, lr, grad_norm, vertices
         traversed, and the seconds of each stage (sample, layout, gather,
-        upload, and the device step up to its metrics being read)."""
+        upload, and the device step up to its metrics being read); under
+        ``data_parallel`` also the miss rows shipped (``miss_rows``) and
+        the seconds of the shard upload (``shard_upload_s``, 0 after the
+        first step)."""
         return self._execute(self._prepare_group(assignments))
 
     def run_epoch(self) -> dict:
@@ -361,6 +483,7 @@ class SyncGNNTrainer:
         return {**metrics, "epoch_time_s": wall, "batches": n_batches,
                 "iterations": n_iter,
                 "utilization": stats["utilization"],
+                "mesh_devices": self.num_devices if self.data_parallel else 0,
                 "fill_slots": stats["fill_slots"],
                 "vertices_traversed": vertices,
                 "nvtps": vertices / wall if wall > 0 else 0.0,

@@ -7,6 +7,8 @@ Models consume a padded mini-batch as a dict of tensors (see
   edge_src[l](E_l,)      local src index into layer l's vertex set
   edge_dst[l](E_l,)      local dst index into layer l+1's vertex set
   edge_mask[l], node_mask[l], self_idx[l], labels
+(under ``data_parallel`` the trainer assembles ``feats`` on the card from
+the batch's hit positions and miss rows: ``assemble_device_feats``),
 plus, under the kernel backends, each layer's layout (``agg_*``).
 ``"pallas"`` densifies the compact triples into 128x128 tiles and
 aggregates through the CUDA block-CSR kernel
@@ -242,6 +244,24 @@ def forward(cfg: GNNModelConfig, params, batch) -> torch.Tensor:
             h = torch.relu(h)
             h = h * batch["node_mask"][l + 1][:, None].to(h.dtype)
     return h
+
+
+def assemble_device_feats(shard: torch.Tensor, batch) -> torch.Tensor:
+    """The layer-0 block of a batch, assembled where ``shard`` lives (the
+    ``data_parallel`` path; counterpart of the reference's
+    ``assemble_device_feats``). ``shard`` is the device's (rows, f)
+    resident block; the batch carries its hit rows, ``hit_idx`` (H,) rows
+    of the block and ``hit_pos`` (H,) their rows in the shard, and exactly
+    its miss rows, ``miss_pos`` (M,) and ``miss_rows`` (M, f). The block
+    has ``node_mask[0]``'s N_0 rows: hit rows read the shard, miss rows are
+    copied in, every other row is +0.0 — the values of
+    ``FeatureStore.gather``. Each row is written once, by unique
+    positions, so no sum and no atomic reaches the result, and the block
+    is written in one pass over the zeros."""
+    out = shard.new_zeros((batch["node_mask"][0].shape[0], shard.shape[1]))
+    out.index_copy_(0, batch["hit_idx"],
+                    shard.index_select(0, batch["hit_pos"]))
+    return out.index_copy_(0, batch["miss_pos"], batch["miss_rows"])
 
 
 def loss_fn(cfg: GNNModelConfig, params, batch):

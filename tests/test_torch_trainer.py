@@ -218,7 +218,10 @@ UNPORTED = {
     "cache_refresh_cfg": dict(cfg=dict(cache=CacheConfig(refresh_every=2))),
     "pipeline": dict(pipeline=True),
     "mesh": dict(mesh=object()),
-    "data_parallel": dict(data_parallel=True),
+    "data_parallel_p3": dict(data_parallel=True, algorithm="p3"),
+    "data_parallel_cache": dict(data_parallel=True, cache_capacity=100),
+    "data_parallel_cache_cfg": dict(data_parallel=True, cfg=dict(
+        cache=CacheConfig(capacity=100, ship_rows_cap=64))),
     "grad_compression": dict(grad_compression=True),
     "checkpointer": dict(checkpointer=object()),
     "sgdm": dict(optimizer_name="sgdm"),
@@ -233,4 +236,17 @@ def test_unported_knobs_raise(knob):
     cfg = TCfg(**{"name": "graphsage", **SMALL, **kw.pop("cfg", {})})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TTrainer(G, cfg, num_devices=1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("data_parallel", [False, True])
+@pytest.mark.parametrize("cache", [CacheConfig(ship_rows_cap=64),
+                                   CacheConfig(auto_ship_rows_cap=False)])
+def test_ship_rows_cap_alone_is_no_cache(cache, data_parallel):
+    """A CacheConfig that only sizes the shipped rows runs: it sets the
+    data_parallel path's miss cap and turns no feature cache on."""
+    cfg = TCfg("graphsage", cache=cache, **SMALL)
+    t = TTrainer(G, cfg, num_devices=1, device="cpu",
+                 data_parallel=data_parallel)
+    m = t.run_iteration(next(tsched.iterations(t.epoch_schedule())))
+    assert np.isfinite(m["loss"])
 

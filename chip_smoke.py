@@ -6,9 +6,11 @@
 Drives the port's main paths — synchronous training at the paper's width
 (2 layers, hidden 128, fanouts (25, 10), 1024 targets per batch) on a
 Reddit-shaped graph of 2^18 vertices (602 features, 41 classes) — through
-their normal entry point, ``SyncGNNTrainer.run_iteration``, and the kernel
-entry points of ``repro_torch.kernels.ops``, and holds every CUDA kernel of
-those paths against its plain PyTorch version. The paths: GraphSAGE on
+their normal entry points, ``SyncGNNTrainer.run_iteration`` and
+``run_epoch`` (sequential, pipelined, and with sampler worker processes),
+and the kernel entry points of ``repro_torch.kernels.ops``, and holds
+every CUDA kernel of those paths against its plain PyTorch version. The
+paths: GraphSAGE on
 ``aggregate_backend="pallas_edges"`` (the ``aggregate_edges`` kernel, then
 the update matmul), GraphSAGE on ``"pallas_fused"`` (``aggregate_fused``
 forward, ``fused_bwd`` and ``aggregate_edges`` backward), GIN on
@@ -134,12 +136,40 @@ init. Phases, each of which exits non-zero on failure:
      read, the block written, the positions). ``peak_memory_resident``
      gives each resident run's peak beside its host-gather run's and its
      shard's bytes;
-  5. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
+  5. the host runtime (``SyncGNNTrainer.run_epoch``): the machine's CPU
+     count and affinity and ``/dev/shm``'s free bytes, which must hold the
+     shared graph and the largest ring a pool here may take (else the
+     phase fails); the host milliseconds of one paper batch's trip
+     through the pool's ring (``pool_codec``: encode, decode and CRC32
+     alone); then, from phase 4's initial parameters, two full epochs a
+     run (26 iterations each) on the resident path at p = 1 for
+     ``"pallas_fused"`` and ``"pallas_edges"``: sequential
+     (``pipeline=False``, the twin), pipelined with in-process sampling,
+     and pipelined with 2, 4 and min(8, usable CPUs - 2) sampler workers;
+     one pooled epoch (2 workers) on ``"pallas_fused"`` with a worker
+     killed at batch 13 of the first epoch, which must be respawned; the
+     host gather on ``"pallas_fused"``, sequential against pipelined;
+     and p = 4 on ``"pallas_fused"`` with the ``"load"`` policy,
+     sequential against 4 workers that gather the miss rows (which must
+     cross the ring). Each run's epoch loss and acc, and its parameters
+     after its last epoch, must equal its twin's bit for bit, and its
+     launch counts must be its iterations times phase 4's counts per
+     iteration (times p). Each ``epoch`` line gives ``epoch_time_s``,
+     ``iteration_s``, ``nvtps``, the host seconds (``host_produce_s``:
+     the prefetch thread preparing groups; ``host_wait_s``: the main
+     thread waiting for one; ``host_fetch_s``: pulling payloads from the
+     pool; ``host_gather_s``; ``host_issue_s``: the main thread launching
+     steps), ``ring_bytes_per_iter`` and the ``pool_*`` counters; the
+     last epoch of a run is traced on the device alone
+     (``torch.profiler`` with CUDA activity only, which keeps it off the
+     host's path) for its kernels, busy milliseconds (the union of the
+     kernels' and copies' intervals) and idle share;
+  6. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
      ``ops.aggregate_update`` (fused, and with ``use_pallas=False``) on
      the layer-1 operands, with the counts set to 0 just before and read
      just after (one launch of each of the four kernels), each result
      held against its plain version;
-  6. the LM kernels vs their plain versions, at the models' shapes:
+  7. the LM kernels vs their plain versions, at the models' shapes:
      ``flash_attention_fwd`` at Llama-3-8B's prefill (4 x 4,096 tokens,
      32 query and 8 kv heads of 128, bf16, causal), in fp32 at 1 x 1,024,
      and non-causal with Sq 1,000 != Sk 1,537 (bf16); ``wkv6_chunk`` at
@@ -175,7 +205,7 @@ init. Phases, each of which exits non-zero on failure:
      name the route, the heads per thread block, the thread blocks, the
      shared memory and the build report's registers and spill bytes. Only
      the main-path launches enter the ``kernels`` line's times;
-  7. serving, each model with every launch count set to 0 just before and
+  8. serving, each model with every launch count set to 0 just before and
      read just after each prefill and each decode step: a 256-token
      warm-up prefill, the prefill of 4 prompts of 4,096 numpy-seeded
      tokens, the KV cache grown by 16 slots (``examples/lm_serve.py``),
@@ -184,12 +214,12 @@ init. Phases, each of which exits non-zero on failure:
      launches of the model's kernel per prefill and none per decode step;
      finite logits. Printed: init, prefill and decode times, tokens/s,
      the peak device memory of the init and of serving;
-  8. prefill/decode consistency in fp32 (TF32 off) at full width and 2
+  9. prefill/decode consistency in fp32 (TF32 off) at full width and 2
      layers: the last logits of a 1,024-token prefill against a
      1,023-token prefill and one decode step, within rtol 1e-4 and atol
      1e-4 times the largest logit (fp32 sums over 4,096 features and 1,024
      positions taken in another order by the two paths);
-  9. summary: one ``{"kernels": [...]}`` line, then the last line
+  10. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -206,7 +236,11 @@ import warnings
 from pathlib import Path
 
 import numpy as np
-import torch
+
+if __name__ == "__main__":
+    # the sampler pool's workers are spawned processes that import this
+    # file as __mp_main__, and a worker must not load torch
+    import torch
 
 SCALE = 18          # 2^18 vertices, Reddit's 602 features and 41 classes
 ITERATIONS = 5
@@ -215,6 +249,14 @@ MERGED_TARGETS = 128    # one destination block at the last layer
 MERGED_ITERATIONS = 2
 RESIDENT_P4 = 4         # simulated devices of the resident run with misses
 RESIDENT_P4_ITERATIONS = 2
+# the host runtime phase: two epochs a run, the resident path at p = 1 on
+# these backends, p = 4 with the "load" policy, and a worker killed at
+# partition 0's batch 13 of the first epoch (epoch 1: every epoch starts
+# with a reset)
+HOST_EPOCHS = 2
+HOST_BACKENDS = ("pallas_fused", "pallas_edges")
+HOST_P4 = 4
+HOST_FAULT = "kill@0.1.13"
 SEED = 0
 RTOL, ATOL = 1e-5, 1e-6
 LOSS_RTOL = 1e-4
@@ -1160,21 +1202,34 @@ def check_wkv6_launch(name, wk, B, S, H, K, dtype, with_state, main_path,
     return report(row)
 
 
-def traced(fn) -> dict:
+def traced(fn, cpu: bool = True) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall time (to a
-    synchronize), the device kernels it ran and their summed time, and the
-    device's idle share of the wall time."""
+    synchronize), the device kernels it ran, the time the device was busy
+    (the union of their intervals, so kernels and copies that overlap on
+    two streams count once) and the device's idle share of the wall time.
+    ``cpu=False`` traces the device alone, which keeps the profiler off the
+    host's critical path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
+                                            else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy_us += hi - lo
+            end = hi
+        elif hi > end:
+            busy_us += hi - end
+            end = hi
+    busy_ms = busy_us / 1e3
     return {"wall_ms": wall_ms, "device_kernels": len(kernels),
             "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if kernels
@@ -1313,6 +1368,199 @@ def consistency(arch) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the host runtime: the prefetch pipeline and the sampler pool
+# ---------------------------------------------------------------------------
+
+EPOCH_KEYS = ("loss", "acc", "iterations", "epoch_time_s", "nvtps",
+              "host_produce_s", "host_wait_s", "host_gather_s",
+              "host_issue_s", "host_fetch_s", "ring_bytes_per_iter",
+              "pool_respawns", "pool_resubmissions", "pool_speculative_hits",
+              "pool_speculative_launched", "pool_stale_results",
+              "pool_crc_failures", "pool_degraded_batches",
+              "pool_recovery_s", "pool_degraded", "beta", "pipeline",
+              "sampler_workers", "balance_policy", "gather_in_workers")
+
+
+def machine_facts(graph, cfg, workers, p_max, layer_capacities,
+                  PayloadCodec, blk_caps) -> dict:
+    """The host's CPUs and ``/dev/shm``, which must hold the shared graph
+    and the largest ring (slots of the worst-case payload: every layer-0
+    row shipped) of any pool this phase starts; fails if it cannot."""
+    import os
+    import shutil
+    from repro_torch.core.sampler_pool import FeatureShipSpec
+    aff = sorted(os.sched_getaffinity(0))
+    shm = shutil.disk_usage("/dev/shm")
+    graph_bytes = sum(getattr(graph, f).nbytes for f in
+                      ("indptr", "indices", "features", "labels",
+                       "train_ids"))
+    rows = layer_capacities(cfg)[0][0]
+    codec = PayloadCodec(cfg, blk_caps, FeatureShipSpec(
+        rows, graph.features.shape[1]))
+    ring_bytes = (2 * max(workers) + 2) * codec.nbytes
+    facts = {"cpu_count": os.cpu_count(), "affinity": aff,
+             "dev_shm": {"total": shm.total, "used": shm.used,
+                         "free": shm.free},
+             "graph_bytes": graph_bytes,
+             "largest_ring_bytes_worst_case": ring_bytes,
+             "workers": list(workers), "max_devices": p_max}
+    print("machine " + json.dumps(facts), flush=True)
+    if shm.free < graph_bytes + ring_bytes:
+        fail(f"/dev/shm has {shm.free} bytes free; the sampler pool needs "
+             f"{graph_bytes} for the graph and up to {ring_bytes} for its "
+             f"ring")
+    return facts
+
+
+def codec_cost(graph, cfg, NeighborSampler, PayloadCodec, blk_caps,
+               build_layer_layouts) -> dict:
+    """Host milliseconds of one paper batch's trip through the sampler
+    pool's ring (``PayloadCodec``, no gathered rows): the worker's encode
+    (copies and the CRC32 stamp) and the consumer's decode (one copy out
+    of the slot and the CRC32 check), and the CRC32 alone; medians of 5."""
+    import statistics
+    import zlib
+    mb = NeighborSampler(graph, cfg, graph.train_ids, 0, SEED).batch_at(1, 0)
+    lay = build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
+                              blk_caps, "mean", edge_stream=True)
+    codec = PayloadCodec(cfg, blk_caps, None)
+    buf = bytearray(codec.nbytes)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    row = {"slot_bytes": codec.nbytes,
+           "encode_ms": median_ms(lambda: codec.encode(mb, lay, None, buf,
+                                                       0)),
+           "decode_ms": median_ms(lambda: codec.decode(buf, 0, 0, 0)),
+           "crc32_ms": median_ms(lambda: zlib.crc32(buf))}
+    print("pool_codec " + json.dumps(row), flush=True)
+    return row
+
+
+def epoch_run(label, make, epochs, per_iter, agg, flatten) -> dict:
+    """Train ``epochs`` epochs with the trainer ``make()`` builds, every
+    launch count set to 0 just before and read just after, the last epoch
+    traced on the device (busy time and idle share). Fails unless the
+    counts are the epochs' iterations times ``per_iter``. Prints one
+    ``epoch`` line an epoch; returns the metrics, the parameters after
+    each epoch (on the host) and the counts."""
+    tr = make()
+    metrics, params = [], []
+    try:
+        torch.cuda.synchronize()
+        agg.reset_launch_counts()
+        trace = None
+        for e in range(epochs):
+            if e == epochs - 1:
+                trace = traced(lambda: metrics.append(tr.run_epoch()),
+                               cpu=False)
+            else:
+                metrics.append(tr.run_epoch())
+            params.append([q.detach().cpu() for q in flatten(tr.params)])
+        torch.cuda.synchronize()
+        launches = dict(agg.launch_counts)
+    finally:
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+    for e, m in enumerate(metrics):
+        line = {"path": label, "epoch": e,
+                **{k: m[k] for k in EPOCH_KEYS},
+                "iteration_s": m["epoch_time_s"] / m["iterations"]}
+        if e == epochs - 1:
+            line.update(trace)
+        print("epoch " + json.dumps(line), flush=True)
+        if not np.isfinite(m["loss"]):
+            fail(f"{label}: epoch {e} loss is {m['loss']}")
+    iters = sum(m["iterations"] for m in metrics)
+    want = {k: iters * v for k, v in per_iter.items()}
+    if launches != want:
+        fail(f"{label}: {iters} iterations launched {launches}, expected "
+             f"{want}")
+    return {"metrics": metrics, "params": params, "launches": launches,
+            "trace": trace}
+
+
+def check_twin(label, run, twin) -> None:
+    """A pipelined or pooled run against its sequential twin: each epoch's
+    loss and acc, and the parameters after its last epoch, bit for bit."""
+    n = len(run["metrics"])
+    for e, (m, t) in enumerate(zip(run["metrics"], twin["metrics"])):
+        if (m["loss"], m["acc"]) != (t["loss"], t["acc"]):
+            fail(f"{label}: epoch {e} loss/acc {m['loss']!r}/{m['acc']!r}, "
+                 f"sequential twin {t['loss']!r}/{t['acc']!r}")
+    same = all(torch.equal(a, b)
+               for a, b in zip(run["params"][-1], twin["params"][n - 1]))
+    if not same:
+        fail(f"{label}: parameters after {n} epoch(s) differ from the "
+             f"sequential twin's")
+    print(f"{label}: {n} epoch(s), loss/acc and parameters bitwise the "
+          f"sequential twin's", flush=True)
+
+
+def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
+                 layer_capacities, PayloadCodec, block_capacities,
+                 NeighborSampler, build_layer_layouts) -> dict:
+    """Phase 5: the pipelined and pooled epochs against their sequential
+    twins, from the same initial parameters (the resident path at p = 1 on
+    ``"pallas_fused"`` and ``"pallas_edges"``, the host gather on
+    ``"pallas_fused"``, p = 4 with the ``"load"`` policy and the gather in
+    the workers, and a worker killed mid-epoch)."""
+    import os
+    workers = sorted({2, 4, min(8, len(os.sched_getaffinity(0)) - 2)})
+    machine_facts(graph, cfg, workers, HOST_P4, layer_capacities,
+                  PayloadCodec, block_capacities(cfg))
+    codec_cost(graph, cfg, NeighborSampler, PayloadCodec,
+               block_capacities(cfg), build_layer_layouts)
+    runs = {}
+
+    def run(key, backend, epochs=HOST_EPOCHS, p=1, **kw):
+        kw.setdefault("data_parallel", True)
+        runs[key] = epoch_run(key, lambda: SyncGNNTrainer(
+            graph, dataclasses.replace(cfg, aggregate_backend=backend),
+            num_devices=p, algorithm="distdgl", seed=SEED, device="cuda",
+            params=params0, **kw), epochs,
+            {k: p * v for k, v in counts[backend].items()}, agg, flatten)
+        return runs[key]
+
+    for backend in HOST_BACKENDS:
+        twin = run(f"{backend}/sequential", backend, pipeline=False)
+        check_twin(f"{backend}/pipelined",
+                   run(f"{backend}/pipelined", backend), twin)
+        for n in workers:
+            key = f"{backend}/pipelined/{n}_workers"
+            check_twin(key, run(key, backend, num_sampler_workers=n), twin)
+        if backend == "pallas_fused":
+            # a worker killed mid-epoch: respawned, its task re-run
+            key = f"{backend}/2_workers/killed"
+            fault = run(key, backend, epochs=1, num_sampler_workers=2,
+                        fault_spec=HOST_FAULT)
+            check_twin(key, fault, twin)
+            if not fault["metrics"][0]["pool_respawns"] >= 1:
+                fail(f"{key}: no worker was respawned "
+                     f"({fault['metrics'][0]})")
+    twin = run("pallas_fused/host_gather/sequential", "pallas_fused",
+               pipeline=False, data_parallel=False)
+    check_twin("pallas_fused/host_gather/pipelined",
+               run("pallas_fused/host_gather/pipelined", "pallas_fused",
+                   data_parallel=False), twin)
+    p4 = dict(p=HOST_P4, balance_policy="load")
+    twin = run(f"pallas_fused/p{HOST_P4}/load/sequential", "pallas_fused",
+               pipeline=False, **p4)
+    key = f"pallas_fused/p{HOST_P4}/load/pipelined/4_workers/gather"
+    check_twin(key, run(key, "pallas_fused", num_sampler_workers=4,
+                        gather_in_workers=True, **p4), twin)
+    if not runs[key]["metrics"][0]["ring_bytes_per_iter"] > 0:
+        fail(f"{key}: no bytes crossed the workers' ring")
+    return runs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
@@ -1321,7 +1569,9 @@ def main() -> None:
     try:
         from repro_torch.configs.gnn import GNNModelConfig
         from repro_torch.core import scheduler as sched
-        from repro_torch.core.sampler import NeighborSampler
+        from repro_torch.core.sampler import (NeighborSampler,
+                                              layer_capacities)
+        from repro_torch.core.sampler_pool import PayloadCodec
         from repro_torch.core.trainer import SyncGNNTrainer, resident_payload
         from repro_torch.data.graphs import scaled_dataset
         from repro_torch.gnn.models import AGG_KIND, assemble_device_feats
@@ -1612,7 +1862,20 @@ def main() -> None:
     check_first_loss(f"gin/pallas_fused/{MERGED_TARGETS}_targets",
                      runs["merged"], ref_loss_m)
 
-    # 5. the kernel entry points, on the layer-1 operands
+    # 5. the host runtime: pipelined and pooled epochs against their twins
+    del merged_tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs.update(host_runtime(
+        SyncGNNTrainer, graph, cfg, params0,
+        {"pallas_edges": {**none, "aggregate_edges": 3},
+         "pallas_fused": fused_counts}, agg, flatten, layer_capacities,
+        PayloadCodec, block_capacities, NeighborSampler,
+        build_layer_layouts))
+    print(f"host runtime phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 6. the kernel entry points, on the layer-1 operands
     seg1 = on_card(layers[1], FWD)
     cols1 = torch.from_numpy(compact[1]["cols"]).cuda()
     blocks1 = agg.densify_tiles(*on_card(compact[1], COMPACT)[:3],
@@ -1641,9 +1904,8 @@ def main() -> None:
     print("ops " + json.dumps({"launches": runs["ops"]["launches"],
                                "max_abs_err": errs}), flush=True)
 
-    # 6. the LM zoo's kernels vs plain, at the models' shapes
+    # 7. the LM zoo's kernels vs plain, at the models' shapes
     del seg1, cols1, blocks1, x1, got, want, fused_plain, h1, w1, b0, b1
-    del merged_tr
     torch.cuda.empty_cache()
     bf16, f32 = torch.bfloat16, torch.float32
     rows["flash_attention_fwd"] = [
@@ -1661,15 +1923,15 @@ def main() -> None:
         check_wkv6_launch("ragged_with_state", wk, 2, 1007, 40, 64, bf16,
                           True, False, usage["wkv6_chunk"])]
 
-    # 7. serving at the published widths and depths
+    # 8. serving at the published widths and depths
     for arch in LM_ARCHS:
         runs[arch] = serve(arch)
 
-    # 8. prefill/decode consistency in fp32 (TF32 is off since the start)
+    # 9. prefill/decode consistency in fp32 (TF32 is off since the start)
     for arch in LM_ARCHS:
         consistency(arch)
 
-    # 9. summary
+    # 10. summary
     kernels = [kernel_entry(name, rows[name], {
         path: run["launches"].get(name, 0) for path, run in runs.items()})
         for name in KERNEL_SOURCES]

@@ -4,10 +4,11 @@ The paper trains 2-layer GCN / GraphSAGE, hidden 128, mini-batch of 1024
 target vertices, neighbor fanouts (25, 10), on Reddit / Yelp / Amazon /
 ogbn-products (paper Tables 4-7). ``GNNModelConfig`` keeps the model and
 datapath fields flat and groups the host runtime knobs into ``host``,
-``cache`` and ``fault``, as the reference does. The port runs each group
-at its defaults only: the trainer raises ``NotImplementedError`` for any
-other value, naming the ROADMAP.md item that ports it (the sampler pool,
-the feature cache). The reference's deprecated flat-kwarg spellings
+``cache`` and ``fault``, as the reference does. The port runs every
+``host`` and ``fault`` value (the sampler pool and its fault tolerance);
+of ``cache`` only the shipped-rows cap, and the trainer raises
+``NotImplementedError`` for a feature cache, naming its ROADMAP.md item.
+The reference's deprecated flat-kwarg spellings
 (``cache_capacity=...`` on the config) are not copied: pass the nested
 groups.
 
@@ -23,10 +24,9 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class HostConfig:
-    """Host sampling-service knobs: sampler worker processes, how batches
-    map to devices, gathering in the workers, and worker CPU pinning. The
-    port samples in-process with the ``round_robin`` policy (the
-    defaults)."""
+    """Host sampling-service knobs: sampler worker processes (0 samples
+    in-process), how batches map to devices (``"round_robin"`` or
+    ``"load"``), gathering in the workers, and worker CPU pinning."""
 
     num_sampler_workers: int = 0
     balance_policy: str = "round_robin"
@@ -37,8 +37,9 @@ class HostConfig:
 @dataclass(frozen=True)
 class CacheConfig:
     """Per-device feature cache: row capacity (None = off), refresh
-    cadence, and the ring's shipped-rows cap. The port runs with the cache
-    off (the defaults)."""
+    cadence, and the shipped-rows cap (of the resident path's miss rows
+    and of the sampler pool's ring slot; measured when unset and
+    ``auto_ship_rows_cap``). The port runs with the cache off."""
 
     capacity: Optional[int] = None
     refresh_every: int = 0
@@ -49,8 +50,8 @@ class CacheConfig:
 @dataclass(frozen=True)
 class FaultConfig:
     """Sampler-pool fault tolerance: respawn budget, straggler
-    speculation, and fault injection. Meaningful with the sampler pool
-    only; the port runs the defaults."""
+    speculation, and fault injection (``core/faults.py``'s grammar).
+    Meaningful with the sampler pool only."""
 
     max_respawns: int = 2
     straggler_timeout_s: Optional[float] = None

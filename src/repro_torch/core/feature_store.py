@@ -5,8 +5,9 @@ The host always holds the full X (paper §4.2): cache hits are device-HBM
 reads, misses are fetched from host memory, and ``gather`` returns the
 batch's (N, f) block with its per-device Eq. 7 accounting.
 ``build_shard_matrix`` is the host image of every device's HBM-resident
-rows, which the trainer's ``data_parallel`` path keeps on the card. The
-worker-gathered placement and P3 paths wait for the sampler pool and P3.
+rows, which the trainer's ``data_parallel`` path keeps on the card, and
+``place_gathered`` places the miss rows a sampler-pool worker gathered
+(``gather_in_workers``). The P3 paths wait for P3.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import numpy as np
 
 from repro_torch.core.partition import Partition
 from repro_torch.core.residency import (GatherStats, ResidencyCore,
-                                        build_residency)
+                                        assemble_rows, build_residency)
 from repro_torch.data.graphs import Graph
 
 STRATEGY_BY_ALGORITHM = {
@@ -71,6 +72,30 @@ class FeatureStore:
         out = self.g.features[ids]  # fancy indexing: already a fresh array
         out[~valid] = 0.0
         return out
+
+    def place_gathered(self, device: int, vertex_ids: np.ndarray,
+                       mask: np.ndarray, pos: np.ndarray, rows: np.ndarray,
+                       shipped_for: Optional[int] = None) -> np.ndarray:
+        """Device placement for rows gathered INSIDE a sampler worker
+        (``ResidencyCore.select_ship_rows``): the shipped rows land by
+        memcpy, the remaining valid rows are resident HBM reads, and beta is
+        accounted for THIS device. ``shipped_for`` names the device the
+        worker gathered for: when it matches (always under round_robin),
+        the shipped row count IS this device's miss count and no residency
+        probe runs here; when the dynamic balancer moved the batch, the
+        accounting is re-derived for the actual placement (the values are
+        device-independent, so the output stays bitwise identical to the
+        in-process ``gather`` either way)."""
+        ids = np.asarray(vertex_ids)
+        valid = np.asarray(mask, bool)
+        n_valid = int(valid.sum())
+        if shipped_for == device:
+            self.account_rows(device, n_valid - len(pos), len(pos))
+        else:
+            res = self.core.is_resident(device, ids)
+            n_hit = int((res & valid).sum())
+            self.account_rows(device, n_hit, n_valid - n_hit)
+        return assemble_rows(self.g.features, ids, valid, pos, rows)
 
     # -- shard materialization ------------------------------------------------
     def shard_rows(self) -> int:

@@ -4,8 +4,10 @@ producing static-shape padded mini-batches.
 HitGNN task split (paper §4.2): sampling runs on the host CPU over the full
 topology; the device consumes a MiniBatch of padded per-layer blocks. The
 RNG streams are the reference's, so the same (seed, partition, epoch,
-index) gives the bitwise-same batch in both packages. The serving path's
-explicit-target batches wait for the serving runtime.
+index) gives the bitwise-same batch in both packages, in any process (the
+sampler pool's workers materialize batches by their coordinates).
+``request_batch`` and ``pad_minibatch`` are the serving path's explicit-
+target batches, which the sampler pool's task format carries.
 """
 from __future__ import annotations
 
@@ -114,8 +116,9 @@ class NeighborSampler:
         return (len(self._epoch_order) - self._cursor
                 + self.cfg.batch_targets - 1) // self.cfg.batch_targets
 
-    def epoch_batches(self) -> int:
+    def epoch_batches(self, epoch: int | None = None) -> int:
         """Total batches one full epoch yields (independent of the cursor)."""
+        del epoch  # every epoch permutes the same train set
         return (len(self.train_ids) + self.cfg.batch_targets - 1) \
             // self.cfg.batch_targets
 
@@ -159,10 +162,36 @@ class NeighborSampler:
         self._seq += 1
         return mb
 
+    def request_batch(self, epoch: int, index: int,
+                      targets: np.ndarray) -> MiniBatch:
+        """Materialize an EXPLICIT-TARGET batch at the targets' own shape.
+
+        The serving frontend's twin of :meth:`batch_at`: ``(epoch, index)``
+        are pure RNG coordinates (the runtime reserves an epoch value
+        disjoint from training epochs and a monotonically increasing
+        micro-batch index), so a resubmitted or speculatively re-executed
+        request task re-samples the bit-identical neighborhood — the fault
+        tolerance contract carries over to serving unchanged. The batch is
+        padded to capacities derived from ``len(targets)`` (the bucket
+        size), NOT ``cfg.batch_targets``, so each bucket keeps one
+        fixed-shape compiled forward."""
+        targets = np.asarray(targets, np.int32)
+        if not 1 <= len(targets) <= self.cfg.batch_targets:
+            raise ValueError(
+                f"request batch carries {len(targets)} targets; expected "
+                f"1..{self.cfg.batch_targets} (= batch_targets)")
+        n_caps, e_caps = layer_capacities_for(len(targets), self.cfg.fanouts)
+        return self._materialize(targets, self._stream(epoch, index + 1),
+                                 seq_no=index, node_caps=n_caps,
+                                 edge_caps=e_caps)
+
     def _materialize(self, targets: np.ndarray, rng: np.random.Generator,
-                     seq_no: int = 0) -> MiniBatch:
+                     seq_no: int = 0,
+                     node_caps: List[int] | None = None,
+                     edge_caps: List[int] | None = None) -> MiniBatch:
         cfg = self.cfg
-        node_caps, edge_caps = self.node_caps, self.edge_caps
+        if node_caps is None:
+            node_caps, edge_caps = self.node_caps, self.edge_caps
         targets = np.asarray(targets, np.int32)
         target_cap = node_caps[-1]  # top-layer frontier = the targets
         if len(targets) < target_cap:  # pad tail batch
@@ -216,3 +245,55 @@ class NeighborSampler:
         return MiniBatch(nodes, node_mask, edge_src, edge_dst, edge_mask,
                          self_idx, targets, self.g.labels[targets],
                          self.partition_id, seq_no)
+
+
+# ---------------------------------------------------------------------------
+# Bucket-shape adapters (serving path)
+# ---------------------------------------------------------------------------
+# Request batches are materialized at BUCKET capacities (see
+# NeighborSampler.request_batch) but the sampler-pool ring carries exactly
+# one codec geometry — the full training shape. A worker therefore
+# zero-pads a bucket batch up to the codec's capacities before encode, and
+# the serving consumer slices the decoded batch back down to the bucket
+# before the bucket's compiled forward sees it. Padding is all-zeros with
+# all-False masks, so slice(pad(mb)) == mb bitwise.
+
+def _pad1(arr: np.ndarray, cap: int) -> np.ndarray:
+    out = np.zeros(cap, arr.dtype)
+    out[:len(arr)] = arr
+    return out
+
+
+def pad_minibatch(mb: MiniBatch, node_caps: Sequence[int],
+                  edge_caps: Sequence[int]) -> MiniBatch:
+    """Zero-pad a bucket-shaped batch up to ``node_caps``/``edge_caps``
+    (the codec's full training geometry). Real content stays a prefix;
+    the padding rows carry False masks so every consumer ignores them."""
+    t_cap = node_caps[-1]
+    return MiniBatch(
+        nodes=[_pad1(a, c) for a, c in zip(mb.nodes, node_caps)],
+        node_mask=[_pad1(a, c) for a, c in zip(mb.node_mask, node_caps)],
+        edge_src=[_pad1(a, c) for a, c in zip(mb.edge_src, edge_caps)],
+        edge_dst=[_pad1(a, c) for a, c in zip(mb.edge_dst, edge_caps)],
+        edge_mask=[_pad1(a, c) for a, c in zip(mb.edge_mask, edge_caps)],
+        self_idx=[_pad1(a, c) for a, c in zip(mb.self_idx, node_caps[1:])],
+        targets=_pad1(mb.targets, t_cap),
+        labels=_pad1(mb.labels, t_cap),
+        partition_id=mb.partition_id, seq_no=mb.seq_no)
+
+
+def slice_minibatch(mb: MiniBatch, node_caps: Sequence[int],
+                    edge_caps: Sequence[int]) -> MiniBatch:
+    """Inverse of :func:`pad_minibatch`: take the bucket-sized prefix of
+    every array. Exact because the pad was a pure suffix of zeros."""
+    t_cap = node_caps[-1]
+    return MiniBatch(
+        nodes=[a[:c] for a, c in zip(mb.nodes, node_caps)],
+        node_mask=[a[:c] for a, c in zip(mb.node_mask, node_caps)],
+        edge_src=[a[:c] for a, c in zip(mb.edge_src, edge_caps)],
+        edge_dst=[a[:c] for a, c in zip(mb.edge_dst, edge_caps)],
+        edge_mask=[a[:c] for a, c in zip(mb.edge_mask, edge_caps)],
+        self_idx=[a[:c] for a, c in zip(mb.self_idx, node_caps[1:])],
+        targets=mb.targets[:t_cap],
+        labels=mb.labels[:t_cap],
+        partition_id=mb.partition_id, seq_no=mb.seq_no)

@@ -4,7 +4,10 @@
 Stage 1: while every partition still has batches, device i executes
 batches sampled from partition i. Stage 2: once some partitions are
 exhausted, idle devices take extra batches from the remaining partitions
-round-robin, so every synchronous iteration still runs p batches.
+round-robin, so every synchronous iteration still runs p batches. The
+``LoadBalancer`` then places each batch of an iteration on a device:
+statically (``"round_robin"``) or by greedy LPT over the running loads
+(``"load"``).
 """
 from __future__ import annotations
 
@@ -87,22 +90,65 @@ def iterations(schedule: List[Assignment]) -> Iterator[List[Assignment]]:
         yield b
 
 
-class LoadBalancer:
-    """Per-device work accounting under the ``round_robin`` policy: each
-    batch runs on the schedule's static device, and the running per-device
-    load (paper Eq. 5 estimate) feeds the ``load_imbalance`` metric. The
-    reference's ``"load"`` policy waits for the sampler pool."""
+BALANCE_POLICIES = ("round_robin", "load")
 
-    def __init__(self, num_devices: int):
+
+class LoadBalancer:
+    """Dynamic per-device work balancer (paper §4.2, Eq. 5).
+
+    The two-stage scheduler fixes WHICH batches run together in a
+    synchronous iteration; this balancer decides WHERE each lands once its
+    sampled size is known. ``"round_robin"`` keeps the schedule's static
+    device assignment. ``"load"`` runs greedy LPT over the epoch's running
+    per-device load totals: the iteration's heaviest batch (by the
+    :meth:`batch_load` estimate) goes to the least-loaded device,
+    deterministic ties broken by index, so the assignment is a pure function
+    of the batch stream and stays identical for any sampler-worker count or
+    gather placement.
+    """
+
+    def __init__(self, num_devices: int, policy: str = "round_robin"):
+        if policy not in BALANCE_POLICIES:
+            raise ValueError(f"unknown balance_policy {policy!r}; "
+                             f"expected one of {BALANCE_POLICIES}")
         self.num_devices = num_devices
+        self.policy = policy
         self.load = [0.0] * num_devices
+
+    @staticmethod
+    def batch_load(work_estimate: float, miss_rows: int,
+                   feat_dim: int) -> float:
+        """Eq. 5 per-batch load including stage 2: the device step scales
+        with the vertices updated + edges traversed
+        (``MiniBatch.work_estimate``), and the batch additionally costs the
+        gathered-feature elements that must cross the bus to its device —
+        ``miss_rows * feat_dim`` (rows non-resident on the target device x
+        the feature width). ``miss_rows`` comes from
+        ``ResidencyCore.miss_count`` (or the worker's shipped-row count),
+        so with a feature cache configured the term follows CACHE
+        residency, not the static partition: load assignment tracks the
+        real bus traffic as admissions move hot rows on-device. Without
+        this term a batch landing on a device that caches none of its rows
+        looks as cheap as one landing on the device that caches them
+        all."""
+        return float(work_estimate) + float(miss_rows) * float(feat_dim)
 
     def assign(self, assignments: Sequence[Assignment],
                loads: Sequence[float]) -> List[int]:
-        """Device id per assignment for ONE synchronous iteration."""
+        """Device id per assignment for ONE synchronous iteration (at most
+        one batch per device)."""
         if len(assignments) > self.num_devices:
             raise ValueError("more batches than devices in one iteration")
-        devices = [a.device for a in assignments]
+        if self.policy == "round_robin":
+            devices = [a.device for a in assignments]
+        else:
+            by_weight = sorted(range(len(assignments)),
+                               key=lambda j: (-loads[j], j))
+            free = sorted(range(self.num_devices),
+                          key=lambda d: (self.load[d], d))
+            devices = [0] * len(assignments)
+            for j, d in zip(by_weight, free):
+                devices[j] = d
         for j, d in enumerate(devices):
             self.load[d] += loads[j]
         return devices

@@ -3,12 +3,16 @@ RMAT generation and the scaled stand-ins for the paper's datasets.
 
 Every function here is a bitwise copy of its counterpart: the same numpy
 RNG calls in the same order, so a seed gives the same graph in both
-packages. The shared-memory residency of the reference (``to_shared``)
-waits for the sampler pool.
+packages. ``Graph.to_shared`` copies the arrays once into named
+shared-memory segments that the sampler pool's worker processes attach
+zero-copy (``Graph.from_shared``), as the reference does.
 """
 from __future__ import annotations
 
+import uuid
 from dataclasses import dataclass
+from multiprocessing import shared_memory
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -36,11 +40,168 @@ class Graph:
     def num_edges(self) -> int:
         return len(self.indices)
 
+    def in_degree(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
     def out_degree(self) -> np.ndarray:
         return np.bincount(self.indices, minlength=self.num_vertices)
 
     def neighbors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v]:self.indptr[v + 1]]
+
+    # -- shared-memory residency (multi-process sampling service) ------------
+    def to_shared(self) -> "SharedGraph":
+        """Copy the graph's arrays ONCE into named shared-memory segments.
+
+        Returns the owning :class:`SharedGraph` handle; its picklable
+        ``spec`` travels to sampler worker processes, which attach the same
+        physical pages zero-copy via :meth:`from_shared`. The handle is a
+        context manager — exiting (or ``close(unlink=True)``) releases the
+        segments even on error paths."""
+        return SharedGraph(self)
+
+    @classmethod
+    def from_shared(cls, spec: "SharedGraphSpec") -> "Graph":
+        """Attach a :class:`Graph` whose arrays are zero-copy views over the
+        shared segments described by ``spec`` (created by :meth:`to_shared`).
+
+        The returned graph keeps the attachments alive for its lifetime via
+        ``_shm_handles``. Attaching re-registers the segment name with the
+        (shared, set-backed) resource tracker — an idempotent no-op — and
+        attachers never unlink or unregister: ownership stays with the
+        :class:`SharedGraph`, whose ``unlink`` removes the single tracker
+        entry, and the tracker still reclaims the segments if the owner
+        process dies without cleanup."""
+        handles, arrays = attach_arrays(spec.arrays)
+        g = cls(arrays["indptr"], arrays["indices"], arrays["features"],
+                arrays["labels"], arrays["train_ids"], spec.num_classes,
+                spec.name)
+        g._shm_handles = handles  # keep the mappings alive with the Graph
+        return g
+
+
+_SHARED_FIELDS = ("indptr", "indices", "features", "labels", "train_ids")
+
+
+@dataclass(frozen=True)
+class SharedArraySpec:
+    """One shared segment: its POSIX name plus the numpy view geometry."""
+
+    name: str
+    shape: Tuple[int, ...]
+    dtype: str
+
+
+@dataclass(frozen=True)
+class SharedGraphSpec:
+    """Picklable descriptor of a shared-memory-resident Graph (what the
+    parent ships to each sampler worker at spawn)."""
+
+    arrays: Dict[str, SharedArraySpec]
+    num_classes: int
+    name: str
+
+
+def share_arrays(arrays: Dict[str, np.ndarray]
+                 ) -> Tuple[list, Dict[str, SharedArraySpec]]:
+    """Copy named numpy arrays ONCE into fresh shared-memory segments.
+
+    The generic half of the shared stores (graph topology+features,
+    feature residency): returns ``(segments, specs)`` where ``segments``
+    are the owning ``SharedMemory`` handles (caller closes/unlinks) and
+    ``specs`` the picklable attachment descriptors. On any failure the
+    already-created segments are released and unlinked before re-raising,
+    so a half-built store never leaks."""
+    uid = uuid.uuid4().hex[:12]
+    segments: list = []
+    specs: Dict[str, SharedArraySpec] = {}
+    try:
+        for fld, arr in arrays.items():
+            arr = np.ascontiguousarray(arr)
+            # field-keyed names, capped so the whole name stays inside the
+            # 31-char POSIX floor (macOS); the uid keeps them unique
+            shm = shared_memory.SharedMemory(
+                create=True, size=max(1, arr.nbytes),
+                name=f"hitgnn_{fld[:10]}_{uid}")
+            segments.append(shm)
+            np.ndarray(arr.shape, arr.dtype, buffer=shm.buf)[...] = arr
+            specs[fld] = SharedArraySpec(shm.name, tuple(arr.shape),
+                                         str(arr.dtype))
+    except BaseException:
+        for shm in segments:
+            try:
+                shm.close()
+                shm.unlink()
+            except Exception:
+                pass
+        raise
+    return segments, specs
+
+
+def attach_arrays(specs: Dict[str, SharedArraySpec]
+                  ) -> Tuple[list, Dict[str, np.ndarray]]:
+    """Attach zero-copy numpy views over segments created by
+    ``share_arrays``. Returns ``(handles, arrays)``; the handles must stay
+    referenced as long as the views are alive (attachers never unlink —
+    ownership stays with the creator)."""
+    handles: list = []
+    arrays: Dict[str, np.ndarray] = {}
+    try:
+        for fld, aspec in specs.items():
+            shm = shared_memory.SharedMemory(name=aspec.name)
+            handles.append(shm)
+            arrays[fld] = np.ndarray(aspec.shape, np.dtype(aspec.dtype),
+                                     buffer=shm.buf)
+    except BaseException:
+        for shm in handles:
+            shm.close()
+        raise
+    return handles, arrays
+
+
+class SharedGraph:
+    """Owner handle for a graph copied into shared memory.
+
+    Creates one named segment per array in ``_SHARED_FIELDS``; ``spec`` is
+    the picklable attachment descriptor. Idempotent ``close``; the context
+    manager (and ``__del__`` as a last resort) unlinks on every exit path —
+    including KeyboardInterrupt — so no segments outlive the pool."""
+
+    def __init__(self, graph: Graph):
+        self._segments, specs = share_arrays(
+            {fld: getattr(graph, fld) for fld in _SHARED_FIELDS})
+        self.spec = SharedGraphSpec(specs, graph.num_classes, graph.name)
+        self._closed = False
+
+    def nbytes(self) -> int:
+        return sum(s.size for s in self._segments)
+
+    def close(self, unlink: bool = True) -> None:
+        if getattr(self, "_closed", False):
+            return
+        self._closed = True
+        for shm in self._segments:
+            try:
+                shm.close()
+            except Exception:
+                pass
+            if unlink:
+                try:
+                    shm.unlink()
+                except FileNotFoundError:
+                    pass
+
+    def __enter__(self) -> "SharedGraph":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close(unlink=True)
+
+    def __del__(self):
+        try:
+            self.close(unlink=True)
+        except Exception:
+            pass
 
 
 def sample_in_neighbors(indptr: np.ndarray, indices: np.ndarray,

@@ -326,7 +326,9 @@ def test_epoch_accounting_equals_host_gather(algo, p):
 def test_miss_cap_defaults_to_the_layer0_capacity():
     _, res = _pair("reference", 2)
     assert res._miss_cap == 32 * 4 * 5
-    assert res._miss_stage.shape == (res._miss_cap, G.features.shape[1])
+    # the miss rows cross the bus from the staging ring: a slot a batch of
+    # the groups in flight, sized by the batches it carries
+    assert len(res._ring) == (res.prefetch_depth + 2) * 2
     cfg = TCfg("graphsage", cache=CacheConfig(ship_rows_cap=500), **SMALL)
     tr = TTrainer(G, cfg, num_devices=2, device="cpu", data_parallel=True)
     assert tr._miss_cap == 500

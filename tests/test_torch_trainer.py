@@ -4,8 +4,8 @@ parameters: three iterations of GraphSAGE on ``"pallas_edges"`` under
 DistDGL and PaGraph with 1 and 2 devices, and of GraphSAGE, GCN and GIN on
 ``"pallas_fused"`` and on ``"pallas"`` (the reference's fused datapath and
 GIN under the test-local ``jax_shims``), plus the ``train()`` facade, the
-device rule, the layout and aggregate bytes of each datapath, and the knobs
-the port does not run yet."""
+device rule, the layout and aggregate bytes of each datapath, the knobs
+the port does not run yet, and the host runtime's knobs, which run."""
 import dataclasses
 
 import jax
@@ -206,17 +206,9 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 UNPORTED = {
-    "sampler_pool": dict(num_sampler_workers=2),
-    "sampler_pool_cfg": dict(cfg=dict(host=HostConfig(num_sampler_workers=1))),
-    "gather_in_workers_cfg": dict(cfg=dict(
-        host=HostConfig(gather_in_workers=True))),
-    "load_policy": dict(balance_policy="load"),
-    "load_policy_cfg": dict(cfg=dict(host=HostConfig(balance_policy="load"))),
-    "fault_cfg": dict(cfg=dict(fault=FaultConfig(max_respawns=5))),
     "cache": dict(cache_capacity=100),
     "cache_cfg": dict(cfg=dict(cache=CacheConfig(capacity=100))),
     "cache_refresh_cfg": dict(cfg=dict(cache=CacheConfig(refresh_every=2))),
-    "pipeline": dict(pipeline=True),
     "mesh": dict(mesh=object()),
     "data_parallel_p3": dict(data_parallel=True, algorithm="p3"),
     "data_parallel_cache": dict(data_parallel=True, cache_capacity=100),
@@ -236,6 +228,54 @@ def test_unported_knobs_raise(knob):
     cfg = TCfg(**{"name": "graphsage", **SMALL, **kw.pop("cfg", {})})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TTrainer(G, cfg, num_devices=1, device="cpu", **kw)
+
+
+# the host runtime's knobs (ROADMAP A.4 and A.5), which raised until the
+# prefetch pipeline and the sampler pool were ported: each now runs
+HOST_KNOBS = {
+    "sampler_pool": dict(num_sampler_workers=2),
+    "sampler_pool_cfg": dict(cfg=dict(host=HostConfig(num_sampler_workers=1))),
+    "gather_in_workers_cfg": dict(cfg=dict(
+        host=HostConfig(gather_in_workers=True))),
+    "load_policy": dict(balance_policy="load"),
+    "load_policy_cfg": dict(cfg=dict(host=HostConfig(balance_policy="load"))),
+    "fault_cfg": dict(cfg=dict(fault=FaultConfig(max_respawns=5))),
+    "pipeline": dict(pipeline=True),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(HOST_KNOBS))
+def test_ported_host_knobs_run(knob):
+    """Each knob set runs one epoch on the CPU and reports itself in the
+    epoch's metrics; the trainer-level fields override the config's."""
+    kw = dict(HOST_KNOBS[knob])
+    cfg = TCfg(**{"name": "graphsage", **SMALL, **kw.pop("cfg", {})})
+    with TTrainer(G, cfg, num_devices=2, device="cpu", **kw) as t:
+        m = t.run_epoch()
+        host = t.model_cfg.host
+        assert np.isfinite(m["loss"]) and 0.0 <= m["acc"] <= 1.0
+        assert m["batches"] == sum(s.epoch_batches() for s in t.samplers)
+        assert m["sampler_workers"] == host.num_sampler_workers
+        assert m["balance_policy"] == host.balance_policy
+        assert m["pipeline"] is True
+        # gathering in the workers needs workers
+        assert m["gather_in_workers"] is False
+        assert t.model_cfg.fault.max_respawns == (5 if knob == "fault_cfg"
+                                                  else 2)
+        # the pool's payloads cross its shared-memory ring
+        assert (m["ring_bytes_per_iter"] > 0) == bool(
+            host.num_sampler_workers)
+        assert (t._pool is not None) == bool(host.num_sampler_workers)
+        assert not m["pool_degraded"]
+    assert t._pool is None
+
+
+def test_unknown_host_knob_values_raise():
+    cfg = TCfg("graphsage", **SMALL)
+    with pytest.raises(ValueError, match="balance_policy"):
+        TTrainer(G, cfg, num_devices=1, device="cpu", balance_policy="lpt")
+    with pytest.raises(ValueError, match="num_sampler_workers"):
+        TTrainer(G, cfg, num_devices=1, device="cpu", num_sampler_workers=-1)
 
 
 @pytest.mark.parametrize("data_parallel", [False, True])

@@ -5,7 +5,8 @@
 
 Drives the port's main paths — synchronous training at the paper's width
 (2 layers, hidden 128, fanouts (25, 10), 1024 targets per batch) on a
-Reddit-shaped graph of 2^18 vertices (602 features, 41 classes) — through
+Reddit-shaped graph of 2^18 vertices (602 features, 41 classes), under
+DistDGL and P3, GraphSAGE, GIN and GAT — through
 their normal entry points, ``SyncGNNTrainer.run_iteration`` and
 ``run_epoch`` (sequential, pipelined, and with sampler worker processes),
 and the kernel entry points of ``repro_torch.kernels.ops``, and holds
@@ -133,9 +134,26 @@ init. Phases, each of which exits non-zero on failure:
      the paper batch (p = 1, and each device at p = 4) must equal
      ``FeatureStore.gather`` on the card bit for bit; its launch lines
      give its ms by CUDA events beside its bytes bound (the valid rows
+     read, the block written, the positions). Then P3 at p = 4 (hash
+     partition, every device a 151-feature slice of every row) on
+     ``"pallas_fused"`` and ``"pallas_edges"``, two iterations each, host
+     gather (``gather_p3_full``) and resident (the (4, V, 151) slice
+     matrix on the card, the block assembled by ``assemble_p3_feats``):
+     four times the p = 1 counts, the same first loss on both feature
+     paths bit for bit, beta exactly 1, no miss row and the same
+     per-device accounting; ``assemble_p3_feats`` at the paper batch must
+     equal ``gather_p3_full`` on the card bit for bit, its line giving its
+     ms by CUDA events beside its bytes bound (each valid row's slices
      read, the block written, the positions). ``peak_memory_resident``
      gives each resident run's peak beside its host-gather run's and its
-     shard's bytes;
+     shard's bytes. Last, GAT (no kernel on any backend: its attention
+     weights are computed on the card) at the paper width, five
+     iterations on the host gather, resident and configured
+     ``"pallas_fused"``, each with every count 0; finite losses; its
+     first iteration twice from the same parameters and batch, bitwise;
+     the resident and ``"pallas_fused"`` runs' losses and final
+     parameters bitwise the host gather's; the first loss within rtol
+     1e-4 of the same iteration run by the port on the CPU;
   5. the host runtime (``SyncGNNTrainer.run_epoch``): the machine's CPU
      count and affinity and ``/dev/shm``'s free bytes, which must hold the
      shared graph and the largest ring a pool here may take (else the
@@ -149,9 +167,12 @@ init. Phases, each of which exits non-zero on failure:
      one pooled epoch (2 workers) on ``"pallas_fused"`` with a worker
      killed at batch 13 of the first epoch, which must be respawned; the
      host gather on ``"pallas_fused"``, sequential against pipelined;
-     and p = 4 on ``"pallas_fused"`` with the ``"load"`` policy,
+     p = 4 on ``"pallas_fused"`` with the ``"load"`` policy,
      sequential against 4 workers that gather the miss rows (which must
-     cross the ring). Each run's epoch loss and acc, and its parameters
+     cross the ring); P3 at p = 4 on ``"pallas_fused"``, resident,
+     sequential against 2 workers that sample only (gathering, they would
+     ship every valid row's full 602 features); and GAT at p = 1,
+     resident, sequential against 4 workers. Each run's epoch loss and acc, and its parameters
      after its last epoch, must equal its twin's bit for bit, and its
      launch counts must be its iterations times phase 4's counts per
      iteration (times p). Each ``epoch`` line gives ``epoch_time_s``,
@@ -249,6 +270,8 @@ MERGED_TARGETS = 128    # one destination block at the last layer
 MERGED_ITERATIONS = 2
 RESIDENT_P4 = 4         # simulated devices of the resident run with misses
 RESIDENT_P4_ITERATIONS = 2
+P3_DEVICES, P3_ITERATIONS = 4, 2    # P3: every device a feature slice
+GAT_ITERATIONS = 5
 # the host runtime phase: two epochs a run, the resident path at p = 1 on
 # these backends, p = 4 with the "load" policy, and a worker killed at
 # partition 0's batch 13 of the first epoch (epoch 1: every epoch starts
@@ -1026,6 +1049,137 @@ def check_assembly(name, assemble, payload, store, features, mb,
     return report(row)
 
 
+def check_p3_assembly(name, assemble, payload, store, features,
+                      mb) -> dict:
+    """``assemble_p3_feats`` at one batch on the card against
+    ``FeatureStore.gather_p3_full`` (bit for bit), from the trainer's index
+    payload and the (p, V, chunk) slice matrix, timed by CUDA events. Its
+    bound counts the bytes it must move: each valid row's p slices read,
+    the (N_0, f) block written and the index arrays."""
+    ids = np.asarray(mb.nodes[0])
+    valid = np.asarray(mb.node_mask[0], bool)
+    idx = payload(store.core, 0, ids, valid)
+    keys = ("hit_idx", "hit_pos")
+    shards = torch.from_numpy(store.build_shard_matrix()).cuda()
+    batch = {k: torch.from_numpy(idx[k]).cuda() for k in keys}
+    batch["node_mask"] = [torch.from_numpy(valid).cuda()]
+    f = features.shape[1]
+    got = assemble(shards, batch, f)
+    want = torch.from_numpy(store.gather_p3_full(ids, valid)).cuda()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"{name}: the block assembled on the card differs from "
+             f"FeatureStore.gather_p3_full")
+    del got, want
+    p, _, chunk = shards.shape
+    n, n_valid = ids.shape[0], int(valid.sum())
+    moved = (n_valid * p * chunk * 4 + n * f * 4
+             + sum(idx[k].nbytes for k in keys))
+    row = {"name": name, "kernel": "assemble_p3_feats", "route": "pytorch",
+           "devices": p, "chunk": chunk, "rows": n, "valid_rows": n_valid,
+           "shard_bytes": shards.numel() * 4,
+           "bitwise_equal_gather_p3_full": True,
+           "ms": time_ms(lambda: assemble(shards, batch, f)),
+           **bound(moved, 0)}
+    del shards, batch
+    torch.cuda.empty_cache()
+    return report(row)
+
+
+def p3_paths(SyncGNNTrainer, sched, graph, cfg, params0, per_iter, runs,
+             resident, agg) -> None:
+    """P3 at p = 4 on each backend of ``per_iter`` ({backend: the p = 1
+    path's launches an iteration}), host gather and resident: each count
+    p times the p = 1 one, the same first loss on both feature paths bit
+    for bit, beta exactly 1, no miss row shipped and the same per-device
+    accounting."""
+    p = P3_DEVICES
+    for backend, counts in per_iter.items():
+        stats = {}
+        for dp in (False, True):
+            key = f"p3_{backend}" + ("_resident" if dp else "")
+            tr = SyncGNNTrainer(
+                graph, dataclasses.replace(cfg, aggregate_backend=backend),
+                num_devices=p, algorithm="p3", seed=SEED, device="cuda",
+                params=params0, data_parallel=dp)
+            groups = list(sched.iterations(
+                tr.epoch_schedule()))[:P3_ITERATIONS]
+            runs[key] = run_path(
+                f"graphsage/{backend}/p3/p{p}" + ("/resident" if dp else ""),
+                tr, groups, {k: p * v for k, v in counts.items()}, agg)
+            stats[dp] = [dataclasses.astuple(st) for st in tr.store.stats]
+            if tr.store.beta() != 1.0:
+                fail(f"{key}: beta {tr.store.beta()!r}, P3 misses nothing")
+            if dp:
+                resident[key] = tr.store
+            del tr
+        label = f"graphsage/{backend}/p3/p{p}/resident"
+        check_resident(label, runs[f"p3_{backend}_resident"],
+                       runs[f"p3_{backend}"])
+        shipped = sum(m["miss_rows"]
+                      for m in runs[f"p3_{backend}_resident"]["steps"])
+        if shipped:
+            fail(f"{label}: {shipped} miss rows shipped, P3 ships none")
+        if stats[True] != stats[False]:
+            fail(f"{label}: resident accounting {stats[True]} differs from "
+                 f"the host gather's {stats[False]}")
+        print(f"{label}: beta 1.0, no miss row, accounting (local rows and "
+              f"bytes per device) equal to the host gather's", flush=True)
+        torch.cuda.empty_cache()
+
+
+def gat_paths(SyncGNNTrainer, sched, graph, cfg, none, runs, agg, flatten,
+              params_to_numpy) -> dict:
+    """GAT at the paper width, p = 1: ``GAT_ITERATIONS`` iterations on the
+    host gather and resident, and configured ``"pallas_fused"``, each with
+    no launch; finite losses; the first iteration twice from the same
+    parameters and batch, bitwise; the resident and the ``"pallas_fused"``
+    runs bitwise the host gather's (every loss, and the parameters after);
+    the first loss within rtol 1e-4 of the same iteration on the CPU.
+    Returns its initial parameters (numpy), for phase 5."""
+    cfg_g = dataclasses.replace(cfg, name="gat", aggregate_backend=
+                                "reference")
+    tr = SyncGNNTrainer(graph, cfg_g, num_devices=1, algorithm="distdgl",
+                        seed=SEED, device="cuda")
+    params0 = params_to_numpy(tr.params)
+    groups = list(sched.iterations(tr.epoch_schedule()))[:GAT_ITERATIONS]
+    first, _ = reference_loss(SyncGNNTrainer, graph, cfg_g, params0,
+                              groups[0], flatten)
+    runs["gat"] = run_path("gat/reference", tr, groups, none, agg)
+    final = [q.detach().cpu() for q in flatten(tr.params)]
+    del tr
+    if runs["gat"]["steps"][0]["loss"] != first:
+        fail(f"gat: first loss {runs['gat']['steps'][0]['loss']!r}, the "
+             f"repeated iteration's {first!r}")
+    for key, kw in (("gat_resident", dict(data_parallel=True)),
+                    ("gat_pallas_fused", dict(cfg=dataclasses.replace(
+                        cfg_g, aggregate_backend="pallas_fused")))):
+        tr = SyncGNNTrainer(graph, kw.pop("cfg", cfg_g), num_devices=1,
+                            algorithm="distdgl", seed=SEED, device="cuda",
+                            params=params0, **kw)
+        if tr._blk_caps:
+            fail(f"{key}: GAT built a kernel layout")
+        runs[key] = run_path(f"gat/{key[4:]}", tr, groups, none, agg)
+        got = [m["loss"] for m in runs[key]["steps"]]
+        want = [m["loss"] for m in runs["gat"]["steps"]]
+        same = all(torch.equal(q.detach().cpu(), r)
+                   for q, r in zip(flatten(tr.params), final))
+        del tr
+        if got != want or not same:
+            fail(f"{key}: losses {got}, host gather {want}; parameters "
+                 f"{'equal' if same else 'different'}")
+        print(f"gat/{key[4:]}: {len(got)} losses and the parameters after "
+              f"bitwise the host-gather run's, no launch", flush=True)
+    check_resident("gat/resident", runs["gat_resident"], runs["gat"])
+    cpu = SyncGNNTrainer(graph, cfg_g, num_devices=1, algorithm="distdgl",
+                         seed=SEED, device="cpu", params=params0)
+    cpu_loss = cpu.run_iteration(groups[0])["loss"]
+    del cpu
+    check_first_loss("gat (card vs the port on the CPU)", runs["gat"],
+                     cpu_loss)
+    torch.cuda.empty_cache()
+    return params0
+
+
 def check_first_loss(label, run, ref_loss) -> None:
     first = run["steps"][0]["loss"]
     if not np.isclose(first, ref_loss, rtol=LOSS_RTOL, atol=0):
@@ -1508,10 +1662,12 @@ def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
                  layer_capacities, PayloadCodec, block_capacities,
                  NeighborSampler, build_layer_layouts) -> dict:
     """Phase 5: the pipelined and pooled epochs against their sequential
-    twins, from the same initial parameters (the resident path at p = 1 on
-    ``"pallas_fused"`` and ``"pallas_edges"``, the host gather on
-    ``"pallas_fused"``, p = 4 with the ``"load"`` policy and the gather in
-    the workers, and a worker killed mid-epoch)."""
+    twins, from the same initial parameters (``params0``: {model: numpy
+    parameters}; the resident path at p = 1 on ``"pallas_fused"`` and
+    ``"pallas_edges"``, the host gather on ``"pallas_fused"``, p = 4 with
+    the ``"load"`` policy and the gather in the workers, a worker killed
+    mid-epoch, P3 at p = 4 resident against 2 workers that do not gather,
+    and GAT resident against 4 workers)."""
     import os
     workers = sorted({2, 4, min(8, len(os.sched_getaffinity(0)) - 2)})
     machine_facts(graph, cfg, workers, HOST_P4, layer_capacities,
@@ -1520,12 +1676,14 @@ def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
                block_capacities(cfg), build_layer_layouts)
     runs = {}
 
-    def run(key, backend, epochs=HOST_EPOCHS, p=1, **kw):
+    def run(key, backend, epochs=HOST_EPOCHS, p=1, algorithm="distdgl",
+            model="graphsage", **kw):
         kw.setdefault("data_parallel", True)
         runs[key] = epoch_run(key, lambda: SyncGNNTrainer(
-            graph, dataclasses.replace(cfg, aggregate_backend=backend),
-            num_devices=p, algorithm="distdgl", seed=SEED, device="cuda",
-            params=params0, **kw), epochs,
+            graph, dataclasses.replace(cfg, name=model,
+                                       aggregate_backend=backend),
+            num_devices=p, algorithm=algorithm, seed=SEED, device="cuda",
+            params=params0[model], **kw), epochs,
             {k: p * v for k, v in counts[backend].items()}, agg, flatten)
         return runs[key]
 
@@ -1558,6 +1716,21 @@ def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
                         gather_in_workers=True, **p4), twin)
     if not runs[key]["metrics"][0]["ring_bytes_per_iter"] > 0:
         fail(f"{key}: no bytes crossed the workers' ring")
+    # P3's workers sample only: gathering they would ship every valid row
+    p3 = dict(p=P3_DEVICES, algorithm="p3")
+    twin = run(f"pallas_fused/p3/p{P3_DEVICES}/sequential", "pallas_fused",
+               pipeline=False, **p3)
+    key = f"pallas_fused/p3/p{P3_DEVICES}/pipelined/2_workers"
+    check_twin(key, run(key, "pallas_fused", num_sampler_workers=2, **p3),
+               twin)
+    for m in runs[key]["metrics"]:
+        if m["beta"] != 1.0:
+            fail(f"{key}: beta {m['beta']!r}, P3 misses nothing")
+    gat = dict(model="gat")
+    twin = run("gat/sequential", "reference", pipeline=False, **gat)
+    check_twin("gat/pipelined/4_workers",
+               run("gat/pipelined/4_workers", "reference",
+                   num_sampler_workers=4, **gat), twin)
     return runs
 
 
@@ -1574,7 +1747,8 @@ def main() -> None:
         from repro_torch.core.sampler_pool import PayloadCodec
         from repro_torch.core.trainer import SyncGNNTrainer, resident_payload
         from repro_torch.data.graphs import scaled_dataset
-        from repro_torch.gnn.models import AGG_KIND, assemble_device_feats
+        from repro_torch.gnn.models import (AGG_KIND, assemble_device_feats,
+                                            assemble_p3_feats)
         from repro_torch.kernels import aggregate as agg
         from repro_torch.kernels import build
         from repro_torch.kernels.layout import (block_capacities,
@@ -1831,6 +2005,13 @@ def main() -> None:
     del blockcsr_tr
     run_resident("pallas", "graphsage/pallas", BLOCKCSR_ITERATIONS,
                  {**none, "aggregate_blockcsr": 3})
+    p3_paths(SyncGNNTrainer, sched, graph, cfg, params0,
+             {"pallas_fused": fused_counts,
+              "pallas_edges": {**none, "aggregate_edges": 3}},
+             runs, resident, agg)
+    check_p3_assembly(f"paper_batch_p3_p{P3_DEVICES}", assemble_p3_feats,
+                      resident_payload, resident["p3_pallas_fused_resident"],
+                      graph.features, mb)
     memory = {be: {"peak_bytes": runs[be]["peak_bytes"] if be in runs
                    else peaks[be]}
               | {key: runs[be][key] if be in runs else 0
@@ -1861,16 +2042,18 @@ def main() -> None:
          "fused_bwd_merged": 1}, agg)
     check_first_loss(f"gin/pallas_fused/{MERGED_TARGETS}_targets",
                      runs["merged"], ref_loss_m)
-
-    # 5. the host runtime: pipelined and pooled epochs against their twins
     del merged_tr
     torch.cuda.empty_cache()
+    params_gat = gat_paths(SyncGNNTrainer, sched, graph, cfg, none, runs,
+                           agg, flatten, params_to_numpy)
+
+    # 5. the host runtime: pipelined and pooled epochs against their twins
     t0 = time.perf_counter()
     runs.update(host_runtime(
-        SyncGNNTrainer, graph, cfg, params0,
+        SyncGNNTrainer, graph, cfg, {"graphsage": params0, "gat": params_gat},
         {"pallas_edges": {**none, "aggregate_edges": 3},
-         "pallas_fused": fused_counts}, agg, flatten, layer_capacities,
-        PayloadCodec, block_capacities, NeighborSampler,
+         "pallas_fused": fused_counts, "reference": none}, agg, flatten,
+        layer_capacities, PayloadCodec, block_capacities, NeighborSampler,
         build_layer_layouts))
     print(f"host runtime phase: {time.perf_counter() - t0:.1f} s",
           flush=True)

@@ -14,7 +14,9 @@ groups.
 
 The port runs every ``aggregate_backend`` of the reference: "reference",
 "pallas", "pallas_edges" and "pallas_fused" (the backend names are kept:
-they name a layout and datapath, not Pallas).
+they name a layout and datapath, not Pallas), for GraphSAGE, GCN, GIN and
+GAT. GAT's attention weights are computed on the device, so it takes the
+plain "reference" datapath under every backend, as in the reference.
 """
 from __future__ import annotations
 
@@ -85,7 +87,8 @@ class GNNModelConfig:
     "pallas_edges" (per-tile edge segments through the hand-written CUDA
     aggregation kernel, then the update matmul) or "pallas_fused"
     (aggregation and update matmul in one hand-written CUDA kernel,
-    forward and backward).
+    forward and backward). GAT runs the "reference" datapath whatever
+    the backend says (no layout, no kernel).
     The reference's ``kernel_interpret`` (Pallas execution mode) has no
     counterpart here.
     """

@@ -4,9 +4,12 @@
   vertex- and train-vertex-balance constraints (DistDGL's stand-in).
 * ``pagraph`` — PaGraph's greedy: balance TRAIN vertices across partitions
   while maximizing neighbor affinity.
+* ``p3`` — P3: topology hash-partitioned, FEATURES partitioned along the
+  feature dimension (intra-layer model parallelism).
+* ``hash`` — baseline random/hash partition.
 
 Bitwise copies of the reference: the same permutation streams give the same
-assignment. The hash and P3 partitioners wait for the P3 algorithm.
+assignment.
 """
 from __future__ import annotations
 
@@ -24,9 +27,17 @@ class Partition:
     assignment: np.ndarray           # (V,) int32 in [0, p)
     num_parts: int
     strategy: str
+    # P3 only: feature-dim ownership (device i owns feature slice i)
+    feature_dim_partitioned: bool = False
 
     def part_vertices(self, i: int) -> np.ndarray:
         return np.where(self.assignment == i)[0].astype(np.int32)
+
+
+def hash_partition(g: Graph, p: int, seed: int = 0) -> Partition:
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, p, g.num_vertices).astype(np.int32)
+    return Partition(a, p, "hash")
 
 
 def metis_like_partition(g: Graph, p: int, seed: int = 0,
@@ -98,9 +109,19 @@ def pagraph_partition(g: Graph, p: int, seed: int = 0) -> Partition:
     return Partition(assign.astype(np.int32), p, "pagraph")
 
 
+def p3_partition(g: Graph, p: int, seed: int = 0) -> Partition:
+    """P3: hash-partitioned topology; features split along the feature dim
+    (marked so the feature store and the trainer serve each device's
+    feature-dimension slice)."""
+    part = hash_partition(g, p, seed)
+    return Partition(part.assignment, p, "p3", feature_dim_partitioned=True)
+
+
 PARTITIONERS = {
+    "hash": hash_partition,
     "metis_like": metis_like_partition,
     "pagraph": pagraph_partition,
+    "p3": p3_partition,
 }
 
 

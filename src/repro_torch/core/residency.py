@@ -1,16 +1,17 @@
-"""Feature residency (copy of the row-resident half of
-``repro.core.residency``).
+"""Feature residency (copy of ``repro.core.residency``).
 
 Which feature rows live in each device's memory (paper Table 1 placement),
 as a sorted int32 id array per device, with one vectorized
 ``searchsorted`` membership test per batch, each batch row's position in
-its device's resident shard, and the miss rows that must cross the bus.
+its device's resident shard, and the miss rows that must cross the bus;
+or, under P3, the ``all_resident`` flag (every row resident as the
+device's feature-dimension slice, ``feature_slice``).
 The core is numpy only, so the sampler pool's worker processes import it
 next to the sampler: ``to_shared`` copies the id arrays once into named
 shared-memory segments (with a generation-stamped meta header for a
 mutable cache) and ``from_shared`` attaches them zero-copy in a worker,
 whose ``select_ship_rows`` then picks the rows that must cross the bus.
-P3's feature-dimension slices wait for the P3 algorithm.
+A P3 core shares its flags and slices only, no id buffer.
 """
 from __future__ import annotations
 
@@ -57,6 +58,8 @@ class SharedResidencySpec:
     segment: "object"               # data.graphs.SharedArraySpec (ids)
     meta: "object"                  # data.graphs.SharedArraySpec (int64 hdr)
     offsets: Tuple[int, ...]        # capacity offsets into ids_cat
+    all_resident: Tuple[bool, ...]
+    slices: Tuple[Tuple[int, int], ...]
     num_vertices: int
     feat_dim: int
 
@@ -64,7 +67,9 @@ class SharedResidencySpec:
 class ResidencyCore:
     """Which feature rows live in each device's HBM — numpy only.
 
-    The id sets are MUTABLE and generation-stamped: :meth:`set_resident`
+    Each device keeps a SORTED int32 array of its resident vertex ids
+    (O(cache size) memory), or the ``all_resident`` flag (P3 — every row
+    resident as a feature-dimension slice, O(1)). The id sets are MUTABLE and generation-stamped: :meth:`set_resident`
     replaces a device's set between iterations and
     :meth:`publish_generation` makes the new contents visible, and
     ``capacities`` bound each device's id buffer so the shared-memory twin
@@ -76,11 +81,20 @@ class ResidencyCore:
 
     def __init__(self, num_vertices: int, feat_dim: int,
                  resident_ids: Sequence[np.ndarray],
+                 all_resident: Optional[Sequence[bool]] = None,
+                 slices: Optional[Sequence[Tuple[int, int]]] = None,
                  capacities: Optional[Sequence[int]] = None):
+        """``all_resident`` and ``slices`` default to row residency: no
+        device all-resident, every slice the full width."""
         self.num_vertices = num_vertices
         self.feat_dim = feat_dim
         self._resident_ids: List[np.ndarray] = [
             np.asarray(r, np.int32) for r in resident_ids]
+        p = len(self._resident_ids)
+        self._all_resident = (list(all_resident) if all_resident is not None
+                              else [False] * p)
+        self._slices = [tuple(s) for s in (slices if slices is not None
+                                           else [(0, feat_dim)] * p)]
         self.capacities: List[int] = (
             [len(r) for r in self._resident_ids] if capacities is None
             else [int(c) for c in capacities])
@@ -94,7 +108,7 @@ class ResidencyCore:
 
     @property
     def num_devices(self) -> int:
-        return len(self._resident_ids)
+        return len(self._all_resident)
 
     # -- mutation (the feature cache's write path) ----------------------------
     def set_resident(self, device: int, sorted_ids: np.ndarray) -> None:
@@ -128,14 +142,21 @@ class ResidencyCore:
     # -- residency queries ----------------------------------------------------
     def num_resident(self, device: int) -> int:
         """How many vertex rows live in ``device``'s HBM."""
+        if self._all_resident[device]:
+            return self.num_vertices
         return len(self._resident_ids[device])
 
     def resident_ids(self, device: int) -> np.ndarray:
+        """Sorted vertex ids resident on ``device`` (materialized for P3)."""
+        if self._all_resident[device]:
+            return np.arange(self.num_vertices, dtype=np.int32)
         return self._resident_ids[device]
 
     def is_resident(self, device: int, vertex_ids: np.ndarray) -> np.ndarray:
         """Vectorized membership: bool mask of which ids are device-local."""
         ids = np.asarray(vertex_ids)
+        if self._all_resident[device]:
+            return np.ones(len(ids), bool)
         r = self._resident_ids[device]
         if len(r) == 0:
             return np.zeros(len(ids), bool)
@@ -152,10 +173,14 @@ class ResidencyCore:
         in the device's sorted resident-id array (its row in the shard
         built by ``FeatureStore.build_shard_matrix``) and ``hit[i]`` is
         True where the id is resident AND valid. Where ``hit`` is False,
-        ``pos`` is 0, so the placeholder index is always in bounds."""
+        ``pos`` is 0, so the placeholder index is always in bounds.
+        ``all_resident`` devices (P3) index the full feature matrix
+        directly: pos == id."""
         ids = np.asarray(vertex_ids)
         valid = (np.ones(len(ids), bool) if mask is None
                  else np.asarray(mask, bool))
+        if self._all_resident[device]:
+            return (np.where(valid, ids, 0).astype(np.int32), valid.copy())
         r = self._resident_ids[device]
         if len(r) == 0:
             return (np.zeros(len(ids), np.int32),
@@ -173,9 +198,14 @@ class ResidencyCore:
         valid = np.ones(len(ids), bool) if mask is None else np.asarray(mask)
         return int(((~self.is_resident(device, ids)) & valid).sum())
 
+    # -- P3 slice math --------------------------------------------------------
+    def feature_slice(self, device: int) -> slice:
+        start, stop = self._slices[device]
+        return slice(start, stop)
+
     def slice_width(self, device: int) -> int:
-        del device  # row-resident strategies hold full rows
-        return self.feat_dim
+        start, stop = self._slices[device]
+        return max(0, min(stop, self.feat_dim) - start)
 
     def device_bytes(self, device: int) -> int:
         return self.num_resident(device) * self.slice_width(device) * 4
@@ -189,7 +219,8 @@ class ResidencyCore:
         is valid and not resident, ``rows`` the (M, f) float32 block of
         those rows. Resident rows are device-HBM reads. ``p3_full`` ships
         every valid row (the reference's P3 all-to-all shipping, which the
-        sampler pool's codec keeps)."""
+        sampler pool's codec keeps): the p slices tile the feature
+        dimension, so the rows are the reconstructed full rows."""
         ids = np.asarray(vertex_ids)
         valid = np.asarray(mask, bool)
         if p3_full:
@@ -229,7 +260,8 @@ class ResidencyCore:
         ids = [cat[off[i]:off[i] + int(meta[1 + i])]
                for i in range(len(off) - 1)]
         caps = [off[i + 1] - off[i] for i in range(len(off) - 1)]
-        core = cls(spec.num_vertices, spec.feat_dim, ids, capacities=caps)
+        core = cls(spec.num_vertices, spec.feat_dim, ids, spec.all_resident,
+                   spec.slices, capacities=caps)
         core._shm_handles = handles
         core._shared_cat = cat
         core._shared_meta = meta
@@ -299,8 +331,10 @@ class SharedResidency:
 
     def __init__(self, core: ResidencyCore):
         p = core.num_devices
-        caps = list(core.capacities)
-        lengths = [len(r) for r in core._resident_ids]
+        caps = [0 if core._all_resident[i] else core.capacities[i]
+                for i in range(p)]
+        lengths = [0 if core._all_resident[i] else len(core._resident_ids[i])
+                   for i in range(p)]
         offsets = np.concatenate([[0], np.cumsum(caps)]).astype(np.int64)
         cat = np.zeros(int(offsets[-1]), np.int32)
         for i in range(p):
@@ -322,6 +356,7 @@ class SharedResidency:
         self.spec = SharedResidencySpec(
             specs["resident_cat"], specs["resident_meta"],
             tuple(int(o) for o in offsets),
+            tuple(core._all_resident), tuple(core._slices),
             core.num_vertices, core.feat_dim)
         self._closed = False
 
@@ -385,10 +420,15 @@ def build_residency(graph, partition, strategy: str) -> ResidencyCore:
     * DistDGL : X_i = rows owned by partition i.
     * PaGraph : X_i = partition rows + highest OUT-degree rows up to a cache
                 budget (replicated hot set).
+    * P3      : every device holds ALL rows but only a 1/p slice of the
+                feature DIMENSION (chunk ceil(f/p), the last slice short).
     """
     p = partition.num_parts
     V = graph.num_vertices
     f = graph.features.shape[1]
+    resident: List[np.ndarray] = [np.empty(0, np.int32) for _ in range(p)]
+    all_res = [False] * p
+    slices: List[Tuple[int, int]] = [(0, f)] * p
     if strategy in ("distdgl", "metis_like"):
         resident = [np.sort(partition.part_vertices(i)).astype(np.int32)
                     for i in range(p)]
@@ -397,9 +437,13 @@ def build_residency(graph, partition, strategy: str) -> ResidencyCore:
         hot = np.argsort(-graph.out_degree())[:budget]
         resident = [np.union1d(partition.part_vertices(i), hot).astype(np.int32)
                     for i in range(p)]
+    elif strategy == "p3":
+        chunk = (f + p - 1) // p
+        all_res = [True] * p
+        slices = [(i * chunk, min(f, (i + 1) * chunk)) for i in range(p)]
     else:
         raise ValueError(f"unknown feature-storing strategy {strategy!r}")
-    return ResidencyCore(V, f, resident)
+    return ResidencyCore(V, f, resident, all_res, slices)
 
 
 def assemble_rows(features: np.ndarray, vertex_ids: np.ndarray,
@@ -409,7 +453,7 @@ def assemble_rows(features: np.ndarray, vertex_ids: np.ndarray,
     the remaining valid rows are resident reads out of ``features`` (the
     simulated device HBM — the host holds the full X, paper §4.2), invalid
     (padding) rows stay zero. Bitwise identical to the in-process
-    ``FeatureStore.gather`` output for the same batch,
+    ``FeatureStore.gather`` / ``gather_p3_full`` output for the same batch,
     whichever device the rows were selected for."""
     ids = np.asarray(vertex_ids)
     valid = np.asarray(mask, bool)

@@ -39,6 +39,15 @@ straight into its staging slot), and step 3 assembles each batch's layer-0
 block on the card just before its loss
 (``gnn.models.assemble_device_feats``).
 
+P3 (``algorithm="p3"``) partitions the topology by hash and the features
+along their dimension: every device holds its slice of every row, so no
+row misses (beta is 1). On the host-gather path each batch's block is the
+full rows its p slices tile (``FeatureStore.gather_p3_full``, the
+reference's non-mesh path); under ``data_parallel`` the (p, V, chunk)
+slice matrix stays on the card and each slot's block is the concatenation
+of every device's slice of its valid rows (``gnn.models.assemble_p3_feats``,
+the reference's layer-1 all-to-all as an index on one card).
+
 Host stages are bitwise copies of the reference's, so from one seed both
 trainers sample the same batches and build the same layouts. Knobs the port
 does not run yet raise ``NotImplementedError`` naming their ROADMAP.md item.
@@ -83,6 +92,7 @@ ALGORITHMS = {
     # name: (partitioner, feature-storing strategy)
     "distdgl": ("metis_like", "distdgl"),
     "pagraph": ("pagraph", "pagraph"),
+    "p3": ("p3", "p3"),
 }
 
 
@@ -222,8 +232,7 @@ class SyncGNNTrainer:
         self.opt_state = self.optimizer.init(flatten(self.params))
         # static per-layer layout capacities: one shape per config
         self._blk_caps = (block_capacities(self.model_cfg)
-                          if self.model_cfg.aggregate_backend
-                          in gnn_models.KERNEL_BACKENDS else [])
+                          if self._use_kernel_layout() else [])
         self._balancer = sched.LoadBalancer(self.num_devices,
                                             self.balance_policy)
         self._pstats = PipelineStats()
@@ -256,13 +265,12 @@ class SyncGNNTrainer:
 
     def _check_ported(self) -> None:
         cfg = self.model_cfg
-        if self.algorithm == "p3":
-            raise _unported("algorithm 'p3'", "queue A, item A.2")
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {self.algorithm!r}; "
                              f"expected one of {tuple(ALGORITHMS)}")
         if cfg.name not in gnn_models.MODELS:
-            raise _unported(f"model {cfg.name!r}", "queue A, item A.1")
+            raise ValueError(f"unknown model {cfg.name!r}; expected one of "
+                             f"{gnn_models.MODELS}")
         backend = cfg.aggregate_backend
         if backend not in gnn_models.BACKENDS:
             raise ValueError(f"unknown aggregate_backend {backend!r}; "
@@ -306,6 +314,13 @@ class SyncGNNTrainer:
         fn = (sched.two_stage_schedule if self.workload_balancing
               else sched.naive_schedule)
         return fn(counts)
+
+    def _use_kernel_layout(self) -> bool:
+        """A kernel backend and a model whose aggregation it can run (GAT's
+        weights are computed on the device: no layout, no kernel)."""
+        return (self.model_cfg.aggregate_backend
+                in gnn_models.KERNEL_BACKENDS
+                and gnn_models.AGG_KIND[self.model_cfg.name] is not None)
 
     def _edge_stream(self) -> bool:
         return self.model_cfg.aggregate_backend in EDGE_STREAM_BACKENDS
@@ -388,7 +403,9 @@ class SyncGNNTrainer:
         if self.balance_policy == "round_robin":
             return payload["load"]
         fpay = payload.get("features")
-        if fpay is not None and fpay["device"] == a.device:
+        if self.algorithm == "p3":
+            miss = 0  # every row resident (sliced): nothing crosses
+        elif fpay is not None and fpay["device"] == a.device:
             miss = len(fpay["pos"])
         else:
             mb = payload["minibatch"]
@@ -398,16 +415,20 @@ class SyncGNNTrainer:
             payload["load"], miss, self.graph.features.shape[1])
 
     def _batch_features(self, dev: int, payload: dict) -> np.ndarray:
-        """Stage 2 on the host-gather path: the in-process gather, or — when
-        the payload carries worker-gathered rows — their placement
+        """Stage 2 on the host-gather path: the in-process gather (under P3
+        the full rows of ``gather_p3_full``), or — when the payload carries
+        worker-gathered rows — their placement
         (``FeatureStore.place_gathered``). Timed into ``gather_s``."""
         mb = payload["minibatch"]
         t0 = time.perf_counter()
         fpay = payload.get("features")
+        p3 = self.algorithm == "p3"
         if fpay is not None:
             feats = self.store.place_gathered(
                 dev, mb.nodes[0], mb.node_mask[0], fpay["pos"], fpay["rows"],
-                shipped_for=fpay["device"])
+                p3_full=p3, shipped_for=fpay["device"])
+        elif p3:
+            feats = self.store.gather_p3_full(mb.nodes[0], mb.node_mask[0])
         else:
             feats = self.store.gather(dev, mb.nodes[0], mb.node_mask[0])
         self._pstats.gather_s += time.perf_counter() - t0
@@ -422,13 +443,22 @@ class SyncGNNTrainer:
         (``resident_payload``) and its miss rows go into ``pack``. The miss
         rows are the worker's (``gather_in_workers``) when it gathered for
         ``dev``, else gathered here, straight into the staging slot.
-        Accounting equals ``FeatureStore.gather``'s. Returns the miss
-        count."""
+        Accounting equals ``FeatureStore.gather``'s. Under P3 every valid
+        row is a hit (pos = id): no miss row ships (a worker's full rows are
+        not needed) and the accounting is ``gather_p3_full``'s. Returns the
+        miss count."""
         mb = payload["minibatch"]
         t0 = time.perf_counter()
         ids = np.asarray(mb.nodes[0])
         valid = np.asarray(mb.node_mask[0], bool)
         idx = resident_payload(self.store.core, dev, ids, valid)
+        if self.algorithm == "p3":
+            self.store.account_p3_full(int(valid.sum()))
+            pack.add("hit_idx", idx["hit_idx"])
+            pack.add("hit_pos", idx["hit_pos"])
+            self._pstats.gather_s += time.perf_counter() - t0
+            self._pstats.ring_bytes += payload.get("ring_bytes", 0)
+            return 0
         fpay = payload.get("features")
         shipped = fpay is not None and fpay["device"] == dev
         if shipped:
@@ -542,9 +572,12 @@ class SyncGNNTrainer:
         w_sum = w.sum().clamp_min(1.0)
         losses, accs, per_dev = [], [], []
         for d, b in enumerate(batches):
-            if self.data_parallel:
-                # one (N_0, f) block lives at a time: the next rebinding of
-                # b frees this one
+            # one (N_0, f) block lives at a time: the next rebinding of b
+            # frees this one
+            if self.data_parallel and self.algorithm == "p3":
+                b = dict(b, feats=gnn_models.assemble_p3_feats(
+                    self._shard, b, self.graph.features.shape[1]))
+            elif self.data_parallel:
                 b = dict(b, feats=gnn_models.assemble_device_feats(
                     self._shard[d], b))
             ps = [p.detach().requires_grad_(True) for p in leaves]
@@ -562,7 +595,8 @@ class SyncGNNTrainer:
     def _upload_shards(self) -> float:
         """Build every device's resident feature block and put it on the
         card once, from pinned memory, where it stays for the trainer's
-        life (the reference's ``_upload_shards``). Returns its seconds:
+        life (the reference's ``_upload_shards``): (p, shard_rows, f), or
+        under P3 the (p, V, chunk) slice matrix. Returns its seconds:
         the build, the pinning and the copy. Runs on the main thread before
         the first step; its synchronize runs once a trainer."""
         t0 = time.perf_counter()
@@ -640,6 +674,7 @@ class SyncGNNTrainer:
                 blk_caps=self._blk_caps if self._blk_caps else None,
                 residency=(self.store.core if self.gather_in_workers
                            else None),
+                p3_full=self.algorithm == "p3",
                 feat_rows_cap=self._ring_rows_cap(),
                 worker_affinity=self.worker_affinity,
                 max_respawns=fault.max_respawns,
@@ -654,7 +689,8 @@ class SyncGNNTrainer:
         ``auto_ship_rows_cap`` on (the default) the cap is measured: the
         next three epochs' schedules are replayed through the pure
         ``batch_at`` streams, each batch's miss rows for its scheduled
-        device counted, and the slot sized by ``suggest_ship_rows_cap``
+        device counted (every valid row under P3, whose workers ship the
+        full rows), and the slot sized by ``suggest_ship_rows_cap``
         (the largest count plus 25%, at most the layer-0 node cap). A batch
         that outgrows it fails in ``PayloadCodec.encode`` naming the
         knob."""
@@ -672,9 +708,12 @@ class SyncGNNTrainer:
             for a in schedule:
                 mb = self.samplers[a.partition].batch_at(epoch,
                                                          a.batch_index)
-                counts.append(self.store.core.miss_count(
-                    a.device, np.asarray(mb.nodes[0]),
-                    np.asarray(mb.node_mask[0], bool)))
+                valid = np.asarray(mb.node_mask[0], bool)
+                if self.algorithm == "p3":
+                    counts.append(int(valid.sum()))
+                else:
+                    counts.append(self.store.core.miss_count(
+                        a.device, np.asarray(mb.nodes[0]), valid))
         cap = suggest_ship_rows_cap(counts, percentile=100.0, margin=1.25)
         return min(cap, layer_capacities(cfg)[0][0])
 

@@ -9,11 +9,14 @@ counterpart of ``repro.gnn.api.train``:
     result = train(cfg, PlatformConfig(num_devices=1), algorithm="distdgl",
                    graph=g, epochs=1)
 
-The platform's ``num_devices`` sizes the partition and schedule, whose p
-batches per iteration run in sequence on one card;
+``algorithm`` is "distdgl", "pagraph" or "p3", the model "graphsage",
+"gcn", "gin" or "gat". The platform's ``num_devices`` sizes the partition
+and schedule, whose p batches per iteration run in sequence on one card;
 ``PlatformConfig(data_parallel=True)`` keeps the p devices' feature shards
-on that card (several cards wait for torch.distributed data parallelism,
-ROADMAP.md queue A, item A.9). A trainer with sampler workers
+on that card; under P3 that is every device's feature-dimension slice of
+every row, and the exchange among the p devices is an index on the card
+(several cards wait for torch.distributed data parallelism, ROADMAP.md
+queue A, item A.9). A trainer with sampler workers
 (``num_sampler_workers=N``) holds processes and shared-memory segments:
 close the result (or use it as a context manager) when done.
 """

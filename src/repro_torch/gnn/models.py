@@ -1,5 +1,5 @@
 """GNN models in the aggregate-update paradigm (paper Alg. 1, §5.3);
-counterpart of ``repro.gnn.models`` for GraphSAGE, GCN and GIN.
+counterpart of ``repro.gnn.models`` for GraphSAGE, GCN, GIN and GAT.
 
 Models consume a padded mini-batch as a dict of tensors (see
 ``core/trainer.batch_to_arrays``):
@@ -8,7 +8,8 @@ Models consume a padded mini-batch as a dict of tensors (see
   edge_dst[l](E_l,)      local dst index into layer l+1's vertex set
   edge_mask[l], node_mask[l], self_idx[l], labels
 (under ``data_parallel`` the trainer assembles ``feats`` on the card from
-the batch's hit positions and miss rows: ``assemble_device_feats``),
+the batch's hit positions and miss rows: ``assemble_device_feats``, or,
+under P3, from every device's feature slice: ``assemble_p3_feats``),
 plus, under the kernel backends, each layer's layout (``agg_*``).
 ``"pallas"`` densifies the compact triples into 128x128 tiles and
 aggregates through the CUDA block-CSR kernel
@@ -19,7 +20,9 @@ after it. ``"pallas_fused"`` runs aggregate and update matmul in one CUDA
 kernel (``kernels/aggregate.AggregateFused``), so the aggregate never
 reaches device memory. ``"reference"`` aggregates with a masked segment sum
 in plain PyTorch, whose sums run in one order on every run (no atomics),
-forward and backward. GAT waits (ROADMAP.md queue A, item A.1).
+forward and backward. GAT computes its attention weights on the device
+(``segment_softmax``), so it takes that plain path under every backend,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -36,62 +39,93 @@ from repro_torch.nn.param import PSpec
 # a kernel (and so need the layout arrays in the batch)
 KERNEL_BACKENDS = ("pallas", "pallas_edges", "pallas_fused")
 BACKENDS = ("reference",) + KERNEL_BACKENDS
-MODELS = ("graphsage", "gcn", "gin")
+MODELS = ("graphsage", "gcn", "gin", "gat")
 
 # aggregation semantics per model; "mean" bakes 1/deg into the layout's
-# edge values host-side
+# edge values host-side. GAT's weights are computed on the device, so it
+# takes no kernel and no layout.
 AGG_KIND = {"graphsage": "mean", "gcn": "mean", "gin": "sum", "gat": None}
 
 
-def _segments(index: torch.Tensor, n: int):
-    """(stable order of ``index``, length of each of its n segments)."""
+# rows past n that the card's segment sums spread masked entries over
+SPREAD_ROWS = 4096
+
+
+def _segments(index: torch.Tensor, n: int,
+              mask: torch.Tensor | None = None) -> tuple:
+    """What a segment sum over ``index`` (int64) into n rows needs: on the
+    card the index, with each entry that ``mask`` leaves out sent to one of
+    ``SPREAD_ROWS`` rows past n in turn, and n; elsewhere the stable order
+    of ``index`` and the length of each of its n segments. The caller
+    passes ``mask`` only where every left-out entry is +-0 (a masked
+    message, or a padding row whose gradient the model zeroes): padding
+    points at row 0, and one run of ~30,000 equal indices at the paper
+    batch would be summed by one warp on the card, in order."""
+    if index.is_cuda:
+        if mask is not None:
+            spread = n + torch.arange(len(index), device=index.device
+                                      ) % SPREAD_ROWS
+            index = torch.where(mask.bool(), index, spread)
+        return index, n
     return (torch.argsort(index, stable=True),
             torch.bincount(index, minlength=n))
 
 
-def _segment_sum(x: torch.Tensor, order, lengths) -> torch.Tensor:
-    """Rows of ``x`` summed per segment, each segment in ``order``: one
-    summation order on every run (``index_add`` uses atomics on CUDA)."""
+def _segment_sum(x: torch.Tensor, segs: tuple) -> torch.Tensor:
+    """Rows of ``x`` summed per segment in edge order: one summation order
+    on every run (``index_add`` uses atomics on CUDA). On the card,
+    ``index_put_`` with ``accumulate``: a stable sort of the index, then
+    each run of equal indices summed by one warp, in order, without
+    atomics; the spread rows are dropped. Elsewhere
+    ``torch.segment_reduce`` over the sorted rows (whose CUDA kernels run
+    a thread per segment and column, ~100x slower at the paper batch)."""
+    if x.is_cuda:
+        index, n = segs
+        return x.new_zeros((n + SPREAD_ROWS, *x.shape[1:])).index_put_(
+            (index,), x, accumulate=True)[:n]
+    order, lengths = segs
     return torch.segment_reduce(x[order], "sum", lengths=lengths, axis=0,
                                 unsafe=True)
 
 
 class _SegmentSum(torch.autograd.Function):
-    """out[d] = sum of x[e] over the e with index[e] == d, in edge order;
-    the backward gathers, ``dx = g[index]``."""
+    """out[d] = sum of x[e] over the e with index[e] == d, in edge order
+    (``segs``: ``_segments(index, n)``); the backward gathers,
+    ``dx = g[index]``."""
 
     @staticmethod
-    def forward(ctx, x, index, order, lengths):
+    def forward(ctx, x, index, segs):
         ctx.save_for_backward(index)
-        return _segment_sum(x, order, lengths)
+        return _segment_sum(x, segs)
 
     @staticmethod
     def backward(ctx, g):
         (index,) = ctx.saved_tensors
-        return g[index], None, None, None
+        return g[index], None, None
 
 
 class _GatherRows(torch.autograd.Function):
     """h[index], whose backward adds the rows of g that gather from one row
-    of h by a sorted segment sum in edge order, not by an atomic
-    scatter-add."""
+    of h by a segment sum in edge order (``segs``: ``_segments(index,
+    h.shape[0])``), not by an atomic scatter-add."""
 
     @staticmethod
-    def forward(ctx, h, index, order, lengths):
-        ctx.save_for_backward(order, lengths)
+    def forward(ctx, h, index, segs):
+        ctx.segs = segs
         return h[index]
 
     @staticmethod
     def backward(ctx, g):
-        order, lengths = ctx.saved_tensors
-        return _segment_sum(g, order, lengths), None, None, None
+        return _segment_sum(g, ctx.segs), None, None
 
 
-def gather_rows(h: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+def gather_rows(h: torch.Tensor, index: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
     """``h[index]`` with a backward that gives the same bits on every
-    run."""
+    run; ``mask``: the rows whose gradient the caller makes +-0
+    (``_segments``)."""
     index = index.long()
-    return _GatherRows.apply(h, index, *_segments(index, h.shape[0]))
+    return _GatherRows.apply(h, index, _segments(index, h.shape[0], mask))
 
 
 def aggregate(h_src: torch.Tensor, edge_src: torch.Tensor,
@@ -101,16 +135,63 @@ def aggregate(h_src: torch.Tensor, edge_src: torch.Tensor,
     rows. Every sum, forward and backward, is a sorted segment sum in edge
     order, so a run repeats its bits on the card."""
     mask = edge_mask.to(h_src.dtype)
-    msg = gather_rows(h_src, edge_src) * mask[:, None]
+    msg = gather_rows(h_src, edge_src, edge_mask) * mask[:, None]
     dst = edge_dst.long()
-    segs = _segments(dst, n_dst)
-    agg = _SegmentSum.apply(msg, dst, *segs)
+    segs = _segments(dst, n_dst, edge_mask)
+    agg = _SegmentSum.apply(msg, dst, segs)
     if kind == "sum":
         return agg
     if kind == "mean":
-        deg = _segment_sum(mask[:, None], *segs)
+        deg = _segment_sum(mask[:, None], segs)
         return agg / deg.clamp_min(1.0)
     raise ValueError(kind)
+
+
+def segment_softmax(scores: torch.Tensor, seg: torch.Tensor,
+                    mask: torch.Tensor, n_seg: int,
+                    segs=None) -> torch.Tensor:
+    """Numerically stable per-segment softmax over edges (GAT): masked
+    scores are -1e30, each segment's max comes off before ``exp``, and the
+    sum is clamped at 1e-9. Both sums are segment sums in edge order
+    (``segs``: ``_segments(seg, n_seg)``, or computed here) and the max is
+    exact in any order (``scatter_reduce``, -inf in an empty segment, its
+    gradient split evenly among ties, as ``jax.ops.segment_max``'s), so a
+    run repeats its bits on the card."""
+    seg = seg.long()
+    segs = segs if segs is not None else _segments(seg, n_seg, mask)
+    maskf = mask.to(scores.dtype)
+    neg = torch.where(mask.bool(), scores, scores.new_tensor(-1e30))
+    smax = scores.new_full((n_seg,), float("-inf")).scatter_reduce(
+        0, seg, neg, "amax", include_self=False)
+    ex = torch.exp(neg - _GatherRows.apply(smax, seg, segs)) * maskf
+    den = _SegmentSum.apply(ex, seg, segs)
+    return ex / _GatherRows.apply(den, seg, segs).clamp_min(1e-9)
+
+
+def _leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """The reference's leaky relu: x where x >= 0 (gradient 1 at 0)."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _gat_layer(p, h, batch, l: int, n_dst: int) -> torch.Tensor:
+    """One GAT layer: ``hw = h @ w``, a leaky-relu(0.2) score per edge from
+    its source and destination rows, the per-destination softmax, and the
+    attention-weighted sum of the source rows plus ``b``. Every gather's
+    backward and every sum is a sorted segment reduction in edge order."""
+    hw = h @ p["w"]
+    src = batch["edge_src"][l].long()
+    dst = batch["edge_dst"][l].long()
+    emask = batch["edge_mask"][l]
+    segs = _segments(dst, n_dst, emask)
+    hw_src = gather_rows(hw, src, emask)
+    # a padding row of hw_dst is named by no edge: its gradient is +0
+    hw_dst = _GatherRows.apply(gather_rows(hw, batch["self_idx"][l],
+                                           batch["node_mask"][l + 1]),
+                               dst, segs)
+    e = _leaky_relu((hw_src * p["a_src"]).sum(-1)
+                    + (hw_dst * p["a_dst"]).sum(-1), 0.2)
+    alpha = segment_softmax(e, dst, emask, n_dst, segs)
+    return _SegmentSum.apply(hw_src * alpha[:, None], dst, segs) + p["b"]
 
 
 def _dims(cfg: GNNModelConfig, f_in: int, n_classes: int) -> list:
@@ -118,10 +199,6 @@ def _dims(cfg: GNNModelConfig, f_in: int, n_classes: int) -> list:
 
 
 def param_spec(cfg: GNNModelConfig, f_in: int, n_classes: int):
-    if cfg.name not in MODELS:
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported yet (ROADMAP.md queue A, "
-            f"item A.1); the port runs {MODELS}")
     dims = _dims(cfg, f_in, n_classes)
     layers = []
     for l in range(cfg.num_layers):
@@ -133,12 +210,19 @@ def param_spec(cfg: GNNModelConfig, f_in: int, n_classes: int):
         elif cfg.name == "gcn":
             layers.append({"w": PSpec((fi, fo)),
                            "b": PSpec((fo,), init="zeros")})
-        else:
+        elif cfg.name == "gat":
+            layers.append({"w": PSpec((fi, fo)),
+                           "a_src": PSpec((fo,)),
+                           "a_dst": PSpec((fo,)),
+                           "b": PSpec((fo,), init="zeros")})
+        elif cfg.name == "gin":
             layers.append({"eps": PSpec((), init="zeros"),
                            "w1": PSpec((fi, fo)),
                            "b1": PSpec((fo,), init="zeros"),
                            "w2": PSpec((fo, fo)),
                            "b2": PSpec((fo,), init="zeros")})
+        else:
+            raise ValueError(cfg.name)
     return {"layers": layers}
 
 
@@ -202,8 +286,12 @@ def _fused_aggregate_update(batch, l: int, h: torch.Tensor, n_dst: int,
 
 
 def _layer(cfg: GNNModelConfig, p, h, batch, l: int, n_dst: int):
-    h_self = gather_rows(h, batch["self_idx"][l])
+    if cfg.name == "gat":
+        return _gat_layer(p, h, batch, l, n_dst)
+    # forward() zeroes a padding node's output row, so its gradient is +-0
+    h_self = gather_rows(h, batch["self_idx"][l], batch["node_mask"][l + 1])
     use_kernel = (cfg.aggregate_backend in KERNEL_BACKENDS
+                  and AGG_KIND.get(cfg.name) is not None
                   and "agg_tile_off" in batch)
     fused = use_kernel and cfg.aggregate_backend == "pallas_fused"
 
@@ -228,9 +316,7 @@ def _layer(cfg: GNNModelConfig, p, h, batch, l: int, n_dst: int):
         hs = (1.0 + p["eps"]) * h_self
         y = _fused(p["w1"], hs) if fused else (hs + _agg()) @ p["w1"]
         return torch.relu(y + p["b1"]) @ p["w2"] + p["b2"]
-    raise NotImplementedError(
-        f"model {cfg.name!r} is not ported yet (ROADMAP.md queue A, item "
-        f"A.1)")
+    raise ValueError(cfg.name)
 
 
 def forward(cfg: GNNModelConfig, params, batch) -> torch.Tensor:
@@ -262,6 +348,25 @@ def assemble_device_feats(shard: torch.Tensor, batch) -> torch.Tensor:
     out.index_copy_(0, batch["hit_idx"],
                     shard.index_select(0, batch["hit_pos"]))
     return out.index_copy_(0, batch["miss_pos"], batch["miss_rows"])
+
+
+def assemble_p3_feats(shards: torch.Tensor, batch,
+                      feat_dim: int) -> torch.Tensor:
+    """P3's layer-0 block assembled on the card from every device's
+    feature-dimension slice: the one-card counterpart of the reference's
+    ``p3_all_to_all_feats``, whose exchange among the p simulated devices
+    is an index here. ``shards`` is the (p, V, chunk) slice matrix
+    (``FeatureStore.build_shard_matrix``); the batch carries its valid rows
+    ``hit_idx`` (H,) and their vertex ids ``hit_pos`` (H,). Each valid row
+    is the concatenation of its p slices, cut to ``feat_dim``, written once
+    at its unique position over ``node_mask[0]``'s N_0 zero rows: the
+    values of ``FeatureStore.gather_p3_full``, +0.0 rows included (no mask
+    multiply, which would keep a negative row's signed zeros)."""
+    p, _, chunk = shards.shape
+    rows = shards.index_select(1, batch["hit_pos"])       # (p, H, chunk)
+    rows = rows.transpose(0, 1).reshape(-1, p * chunk)[:, :feat_dim]
+    out = shards.new_zeros((batch["node_mask"][0].shape[0], feat_dim))
+    return out.index_copy_(0, batch["hit_idx"], rows)
 
 
 def loss_fn(cfg: GNNModelConfig, params, batch):

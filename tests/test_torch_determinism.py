@@ -99,3 +99,62 @@ def test_reference_trainer_repeats_its_bits_on_card(name):
     assert l0 == l1
     for a, b in zip(p0, p1):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 24, 128, 602])
+def test_segment_sum_repeats_its_bits_on_card(F):
+    """The card's segment sum (``index_put_`` with ``accumulate``: a stable
+    sort of the index, each run of equal indices summed in order by one
+    warp) at each width its kernels split on (one column, up to a warp,
+    wider), over runs of up to a few hundred rows and empty segments: the
+    same bits on every call, and within the summation error bound
+    (n u sum|x|, n the longest run, u = 2^-24) of the float64 sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(F)
+    n, E = 3_000, 300_000
+    index = torch.from_numpy(rng.integers(0, n - 500, E)).cuda()
+    x = torch.from_numpy(rng.standard_normal((E, F)).astype(
+        np.float32)).cuda()
+    segs = tm._segments(index, n)
+    first = tm._segment_sum(x, segs)
+    for _ in range(3):
+        assert torch.equal(tm._segment_sum(x, segs), first)
+    idx, xd = index.cpu(), x.cpu().double()
+    exact = torch.zeros(n, F, dtype=torch.float64).index_add_(0, idx, xd)
+    mag = torch.zeros(n, F, dtype=torch.float64).index_add_(0, idx, xd.abs())
+    runs = int(torch.bincount(idx, minlength=n).max())
+    err = (first.cpu().double() - exact).abs()
+    assert bool((err <= runs * 2.0 ** -24 * mag).all())
+    assert not first[n - 500:].any()   # the empty segments
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 128])
+def test_masked_segment_sum_on_card_spreads_the_padding(F):
+    """Masked entries (+-0, as a masked message is) all naming row 0, as a
+    batch's padding does, are summed into the spread rows past n and
+    dropped: the sums equal the CPU's (which keeps them in row 0) within
+    the error bound, repeat their bits, and the output has n rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(F)
+    n, E, pad = 2_000, 200_000, 40_000
+    index = torch.from_numpy(rng.integers(0, n, E))
+    mask = torch.ones(E, dtype=torch.bool)
+    mask[-pad:] = False
+    index[-pad:] = 0
+    x = torch.from_numpy(rng.standard_normal((E, F)).astype(np.float32))
+    x[-pad:] = 0.0
+    segs = tm._segments(index.cuda(), n, mask.cuda())
+    first = tm._segment_sum(x.cuda(), segs)
+    assert first.shape == (n, F)
+    assert torch.equal(tm._segment_sum(x.cuda(), segs), first)
+    cpu = tm._segment_sum(x, tm._segments(index, n, mask))
+    xd = x.double()
+    mag = torch.zeros(n, F, dtype=torch.float64).index_add_(0, index,
+                                                             xd.abs())
+    runs = int(torch.bincount(index[mask], minlength=n).max())
+    err = (first.cpu().double() - cpu.double()).abs()
+    assert bool((err <= 2 * runs * 2.0 ** -24 * mag).all())

@@ -5,7 +5,8 @@ DistDGL and PaGraph with 1 and 2 devices, and of GraphSAGE, GCN and GIN on
 ``"pallas_fused"`` and on ``"pallas"`` (the reference's fused datapath and
 GIN under the test-local ``jax_shims``), plus the ``train()`` facade, the
 device rule, the layout and aggregate bytes of each datapath, the knobs
-the port does not run yet, and the host runtime's knobs, which run."""
+the port does not run yet, and the host runtime's knobs, GAT and P3, which
+run."""
 import dataclasses
 
 import jax
@@ -210,15 +211,12 @@ UNPORTED = {
     "cache_cfg": dict(cfg=dict(cache=CacheConfig(capacity=100))),
     "cache_refresh_cfg": dict(cfg=dict(cache=CacheConfig(refresh_every=2))),
     "mesh": dict(mesh=object()),
-    "data_parallel_p3": dict(data_parallel=True, algorithm="p3"),
     "data_parallel_cache": dict(data_parallel=True, cache_capacity=100),
     "data_parallel_cache_cfg": dict(data_parallel=True, cfg=dict(
         cache=CacheConfig(capacity=100, ship_rows_cap=64))),
     "grad_compression": dict(grad_compression=True),
     "checkpointer": dict(checkpointer=object()),
     "sgdm": dict(optimizer_name="sgdm"),
-    "p3": dict(algorithm="p3"),
-    "gat": dict(cfg=dict(name="gat")),
 }
 
 
@@ -228,6 +226,32 @@ def test_unported_knobs_raise(knob):
     cfg = TCfg(**{"name": "graphsage", **SMALL, **kw.pop("cfg", {})})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TTrainer(G, cfg, num_devices=1, device="cpu", **kw)
+
+
+# the algorithm and model of the paper's matrix that raised until GAT and
+# P3 were ported (ROADMAP A.1 and A.2): each now runs
+PORTED_MATRIX = {
+    "data_parallel_p3": dict(data_parallel=True, algorithm="p3"),
+    "p3": dict(algorithm="p3"),
+    "gat": dict(cfg=dict(name="gat")),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(PORTED_MATRIX))
+def test_ported_matrix_cells_run(knob):
+    """Each former ``NotImplementedError`` cell runs one epoch on the CPU
+    at p = 2: finite metrics, every batch trained, finite parameters, and
+    P3's beta exactly 1."""
+    kw = dict(PORTED_MATRIX[knob])
+    cfg = TCfg(**{"name": "graphsage", **SMALL, **kw.pop("cfg", {})})
+    with TTrainer(G, cfg, num_devices=2, device="cpu", **kw) as t:
+        m = t.run_epoch()
+        assert np.isfinite(m["loss"]) and 0.0 <= m["acc"] <= 1.0
+        assert m["batches"] == sum(s.epoch_batches() for s in t.samplers)
+        if t.algorithm == "p3":
+            assert m["beta"] == 1.0 and m["miss_bytes"] == 0
+        for leaf in flatten(t.params):
+            assert torch.isfinite(leaf).all()
 
 
 # the host runtime's knobs (ROADMAP A.4 and A.5), which raised until the

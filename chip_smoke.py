@@ -185,12 +185,33 @@ init. Phases, each of which exits non-zero on failure:
      (``torch.profiler`` with CUDA activity only, which keeps it off the
      host's path) for its kernels, busy milliseconds (the union of the
      kernels' and copies' intervals) and idle share;
-  6. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
+  6. data parallelism over ranks (``SyncGNNTrainer(mesh=...)``, one
+     process a rank, started by ``distributed.launch.spawn_data_parallel``
+     with the graph attached from shared memory): GraphSAGE on
+     ``"pallas_fused"``, resident, from phase 4's initial parameters; NCCL
+     at p = 1 (DistDGL: three ``run_iteration`` calls, then one pipelined
+     epoch) and gloo at p = 2 with both ranks on the one card (NCCL
+     refuses two ranks on one card; DistDGL likewise, and P3 three
+     iterations, its layer-1 exchange an ``all_to_all_single``). The same
+     jobs run first in this process on the one-process
+     ``data_parallel=True`` trainer. Every rank's losses, final parameters
+     and epoch (each key that holds no time, the accounting among them)
+     must equal that run's bit for bit, and each rank must launch the
+     per-slot counts (2 ``aggregate_fused``, 2 ``fused_bwd``, 1
+     ``aggregate_edges`` an iteration) where that run launches p times
+     them. ``mesh_rank`` lines give each rank's seconds an iteration, the
+     pipelined epoch's seconds an iteration, peak device memory and each
+     collective's calls, bytes and ms (host clock with the card
+     synchronized before and after, so the wait for the slower rank
+     counts); ``mesh_one_process`` lines give the yardstick. Two ranks on
+     one card share its SMs and memory: their times say nothing of two
+     cards;
+  7. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
      ``ops.aggregate_update`` (fused, and with ``use_pallas=False``) on
      the layer-1 operands, with the counts set to 0 just before and read
      just after (one launch of each of the four kernels), each result
      held against its plain version;
-  7. the LM kernels vs their plain versions, at the models' shapes:
+  8. the LM kernels vs their plain versions, at the models' shapes:
      ``flash_attention_fwd`` at Llama-3-8B's prefill (4 x 4,096 tokens,
      32 query and 8 kv heads of 128, bf16, causal), in fp32 at 1 x 1,024,
      and non-causal with Sq 1,000 != Sk 1,537 (bf16); ``wkv6_chunk`` at
@@ -226,7 +247,7 @@ init. Phases, each of which exits non-zero on failure:
      name the route, the heads per thread block, the thread blocks, the
      shared memory and the build report's registers and spill bytes. Only
      the main-path launches enter the ``kernels`` line's times;
-  8. serving, each model with every launch count set to 0 just before and
+  9. serving, each model with every launch count set to 0 just before and
      read just after each prefill and each decode step: a 256-token
      warm-up prefill, the prefill of 4 prompts of 4,096 numpy-seeded
      tokens, the KV cache grown by 16 slots (``examples/lm_serve.py``),
@@ -235,12 +256,12 @@ init. Phases, each of which exits non-zero on failure:
      launches of the model's kernel per prefill and none per decode step;
      finite logits. Printed: init, prefill and decode times, tokens/s,
      the peak device memory of the init and of serving;
-  9. prefill/decode consistency in fp32 (TF32 off) at full width and 2
+  10. prefill/decode consistency in fp32 (TF32 off) at full width and 2
      layers: the last logits of a 1,024-token prefill against a
      1,023-token prefill and one decode step, within rtol 1e-4 and atol
      1e-4 times the largest logit (fp32 sums over 4,096 features and 1,024
      positions taken in another order by the two paths);
-  10. summary: one ``{"kernels": [...]}`` line, then the last line
+  11. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -280,6 +301,18 @@ HOST_EPOCHS = 2
 HOST_BACKENDS = ("pallas_fused", "pallas_edges")
 HOST_P4 = 4
 HOST_FAULT = "kill@0.1.13"
+# the mesh phase: one process a rank under torch.distributed, GraphSAGE on
+# "pallas_fused", resident; (backend, ranks, (algorithm, with an epoch)):
+# NCCL at p = 1, and gloo at p = 2 with both ranks on the one card (NCCL
+# refuses two ranks on one card)
+MESH_ITERATIONS = 3
+MESH_RUNS = (("nccl", 1, (("distdgl", True),)),
+             ("gloo", 2, (("distdgl", True), ("p3", False))))
+MESH_EPOCH_KEYS = ("loss", "acc", "lr", "grad_norm", "batches",
+                   "iterations", "utilization", "mesh_devices",
+                   "fill_slots", "vertices_traversed", "beta",
+                   "load_imbalance", "ring_bytes", "cache_hit_rate",
+                   "miss_bytes", "miss_bytes_per_iter")
 SEED = 0
 RTOL, ATOL = 1e-5, 1e-6
 LOSS_RTOL = 1e-4
@@ -1734,6 +1767,218 @@ def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# data parallelism over ranks: one process a slot under torch.distributed
+# ---------------------------------------------------------------------------
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def mesh_job(job, graph, cfg, params0, device, mesh=None) -> dict:
+    """One mesh-phase job (``job``: algorithm, p, whether an epoch
+    follows) on ``device``: a trainer over ``mesh`` (this process one rank)
+    or, without one, the one-process ``data_parallel=True`` trainer of the
+    p slots; ``MESH_ITERATIONS`` iterations of the epoch's first groups,
+    then one pipelined epoch if asked, with the launch counts of each, the
+    losses, the seconds of each iteration (host clock, ending in the
+    metrics' read) and of its host stages, the epoch's keys that hold no
+    time and its host seconds (this process's), the final
+    parameters and the peak device memory. Module-level, with its imports
+    inside: a spawned rank runs it."""
+    import torch
+    from repro_torch.core import scheduler as sched
+    from repro_torch.core.trainer import SyncGNNTrainer
+    from repro_torch.kernels import aggregate as agg
+    from repro_torch.nn.param import flatten
+    cuda = torch.device(device).type == "cuda"
+    tr = SyncGNNTrainer(graph, cfg, num_devices=job["p"],
+                        algorithm=job["algo"], seed=SEED, device=str(device),
+                        params=params0, mesh=mesh,
+                        data_parallel=mesh is None)
+    try:
+        groups = list(sched.iterations(
+            tr.epoch_schedule()))[:MESH_ITERATIONS]
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        agg.reset_launch_counts()
+        losses, walls, stages = [], [], []
+        for g in groups:
+            t0 = time.perf_counter()
+            m = tr.run_iteration(g)
+            walls.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            stages.append({k: m[k] for k in (
+                "sample_s", "layout_s", "gather_s", "upload_s", "step_s",
+                "miss_rows")})
+        res = {"losses": losses, "iteration_s": walls, "stages": stages,
+               "iterations": len(groups), "launches": dict(agg.launch_counts)}
+        if job["epoch"]:
+            agg.reset_launch_counts()
+            m = tr.run_epoch()
+            res.update(epoch={k: m[k] for k in MESH_EPOCH_KEYS},
+                       epoch_time_s=m["epoch_time_s"],
+                       epoch_host={k: m[k] for k in (
+                           "host_produce_s", "host_wait_s", "host_issue_s",
+                           "host_gather_s")},
+                       epoch_launches=dict(agg.launch_counts))
+        res["params"] = [q.detach().cpu().numpy() for q in flatten(tr.params)]
+        res["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                             if cuda else None)
+        return res
+    finally:
+        tr.close()
+
+
+def mesh_rank(rank, mesh, device, graph_spec, cfg, params0, jobs) -> dict:
+    """One rank of a mesh run (``spawn_data_parallel``'s function): the
+    graph attached from the parent's shared memory, TF32 off as in the
+    parent, and each of ``jobs`` through ``mesh_job`` with every
+    all-gather and ``all_to_all_single`` timed: host clock,
+    the device synchronized before and after, so a call's time includes
+    waiting for the slower rank. Returns {job: result with its
+    ``collectives``: calls, bytes a call (what the rank receives) and ms,
+    by collective and size}."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.graphs import Graph
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    graph = Graph.from_shared(graph_spec)
+    log = []
+
+    def timed(name, fn):
+        def call(out, inp, *args, **kwargs):
+            sync(device)
+            t0 = time.perf_counter()
+            work = fn(out, inp, *args, **kwargs)
+            sync(device)
+            log.append((name, out.numel() * out.element_size(),
+                        (time.perf_counter() - t0) * 1e3))
+            return work
+        return call
+
+    # the all-gather is all_gather_single, or all_gather_into_tensor in a
+    # PyTorch before 2.13 (``distributed.sharding.all_gather_flat``)
+    for name, label in (("all_gather_single", "all_gather"),
+                        ("all_gather_into_tensor", "all_gather"),
+                        ("all_to_all_single", "all_to_all")):
+        if hasattr(dist, name):
+            setattr(dist, name, timed(label, getattr(dist, name)))
+    out = {}
+    for key, job in jobs.items():
+        log.clear()
+        res = mesh_job(job, graph, cfg, params0, device, mesh)
+        coll = {}
+        for name, nbytes, ms in log:
+            coll.setdefault(f"{name}/{nbytes}", []).append(ms)
+        res["collectives"] = {
+            k: {"calls": len(v), "bytes": int(k.split("/")[1]),
+                "ms_median": statistics.median(v), "ms_min": min(v),
+                "ms_max": max(v)} for k, v in coll.items()}
+        out[key] = res
+    return out
+
+
+def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
+               ) -> None:
+    """The mesh phase: for each of ``MESH_RUNS``, its jobs in one process
+    (``data_parallel=True``, the p slots in turn) and over p spawned ranks
+    (``spawn_data_parallel``, every rank on ``device``), from the same
+    initial parameters. Every rank's losses, final parameters and epoch
+    (every key that holds no time) must equal the one-process run's bit
+    for bit, and each rank must launch ``per_slot`` kernels an iteration
+    where the one-process run launches p times that. Prints one
+    ``mesh_one_process`` line a job and one ``mesh_rank`` line a rank and
+    job; adds each rank's launches to ``runs``."""
+    import functools
+    from repro_torch.distributed.launch import spawn_data_parallel
+    with graph.to_shared() as shared:
+        for backend, p, spec in MESH_RUNS:
+            run = f"{backend}/p{p}"
+            jobs = {algo: {"algo": algo, "p": p, "epoch": epoch}
+                    for algo, epoch in spec}
+            one = {k: mesh_job(j, graph, cfg, params0, device)
+                   for k, j in jobs.items()}
+            t0 = time.perf_counter()
+            ranks = spawn_data_parallel(
+                functools.partial(mesh_rank, graph_spec=shared.spec,
+                                  cfg=cfg, params0=params0, jobs=jobs),
+                p, backend=backend, devices=[device] * p)
+            launch_s = time.perf_counter() - t0
+            for key, want in one.items():
+                print("mesh_one_process " + json.dumps({
+                    "run": run, "job": key, **{
+                        k: want.get(k) for k in (
+                            "losses", "iteration_s", "stages",
+                            "epoch_time_s", "epoch_host", "peak_bytes",
+                            "launches")}}), flush=True)
+            for rank, res in enumerate(ranks):
+                for key, want in one.items():
+                    got = res[key]
+                    line = {"run": run, "rank": rank, "job": key,
+                            "backend": backend, "ranks": p,
+                            "launch_s": launch_s, **{
+                                k: got.get(k) for k in (
+                                    "losses", "iteration_s", "stages",
+                                    "epoch_time_s", "epoch_host",
+                                    "peak_bytes", "launches",
+                                    "epoch_launches", "collectives")}}
+                    if got.get("epoch_time_s") is not None:
+                        line["epoch_iteration_s"] = (
+                            got["epoch_time_s"] / got["epoch"]["iterations"])
+                    print("mesh_rank " + json.dumps(line), flush=True)
+                    label = f"mesh/{run}/rank{rank}/{key}"
+                    runs[label] = {"launches": {
+                        k: got["launches"].get(k, 0)
+                        + got.get("epoch_launches", {}).get(k, 0)
+                        for k in got["launches"]}}
+                    if got["losses"] != want["losses"]:
+                        fail(f"{label}: losses {got['losses']} against the "
+                             f"one-process run's {want['losses']}")
+                    if not all(np.array_equal(a.view(np.uint32),
+                                              b.view(np.uint32))
+                               for a, b in zip(got["params"],
+                                               want["params"])):
+                        fail(f"{label}: final parameters differ from the "
+                             f"one-process run's")
+                    if got.get("epoch") != want.get("epoch"):
+                        fail(f"{label}: epoch {got.get('epoch')} against "
+                             f"the one-process run's {want.get('epoch')}")
+                    n = got["iterations"]
+                    counts = [(got["launches"], want["launches"], n)]
+                    if "epoch" in got:
+                        counts.append((got["epoch_launches"],
+                                       want["epoch_launches"],
+                                       got["epoch"]["iterations"]))
+                    for mine, theirs, iters in counts:
+                        # a rank imports fewer kernel modules: compare the
+                        # kernels that launched
+                        if (nonzero(mine) != nonzero({
+                                k: iters * v for k, v in per_slot.items()})
+                                or nonzero(theirs) != nonzero({
+                                    k: p * iters * v
+                                    for k, v in per_slot.items()})):
+                            fail(f"{label}: launched {mine} over {iters} "
+                                 f"iterations, the one-process run "
+                                 f"{theirs}; expected {nonzero(per_slot)} "
+                                 f"a slot "
+                                 f"and iteration")
+                    print(f"{label}: losses, parameters"
+                          + (", epoch" if "epoch" in got else "")
+                          + " bitwise the one-process run's; launches "
+                          f"{nonzero(per_slot)} a slot and iteration",
+                          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
@@ -2058,7 +2303,15 @@ def main() -> None:
     print(f"host runtime phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # 6. the kernel entry points, on the layer-1 operands
+    # 6. data parallelism over ranks, against the one-process runs
+    t0 = time.perf_counter()
+    print(f"card: {card}", flush=True)
+    mesh_phase(graph, dataclasses.replace(cfg, aggregate_backend=
+                                          "pallas_fused"),
+               params0, fused_counts, runs)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 7. the kernel entry points, on the layer-1 operands
     seg1 = on_card(layers[1], FWD)
     cols1 = torch.from_numpy(compact[1]["cols"]).cuda()
     blocks1 = agg.densify_tiles(*on_card(compact[1], COMPACT)[:3],
@@ -2087,7 +2340,7 @@ def main() -> None:
     print("ops " + json.dumps({"launches": runs["ops"]["launches"],
                                "max_abs_err": errs}), flush=True)
 
-    # 7. the LM zoo's kernels vs plain, at the models' shapes
+    # 8. the LM zoo's kernels vs plain, at the models' shapes
     del seg1, cols1, blocks1, x1, got, want, fused_plain, h1, w1, b0, b1
     torch.cuda.empty_cache()
     bf16, f32 = torch.bfloat16, torch.float32
@@ -2106,15 +2359,15 @@ def main() -> None:
         check_wkv6_launch("ragged_with_state", wk, 2, 1007, 40, 64, bf16,
                           True, False, usage["wkv6_chunk"])]
 
-    # 8. serving at the published widths and depths
+    # 9. serving at the published widths and depths
     for arch in LM_ARCHS:
         runs[arch] = serve(arch)
 
-    # 9. prefill/decode consistency in fp32 (TF32 is off since the start)
+    # 10. prefill/decode consistency in fp32 (TF32 is off since the start)
     for arch in LM_ARCHS:
         consistency(arch)
 
-    # 10. summary
+    # 11. summary
     kernels = [kernel_entry(name, rows[name], {
         path: run["launches"].get(name, 0) for path, run in runs.items()})
         for name in KERNEL_SOURCES]

@@ -48,6 +48,24 @@ slice matrix stays on the card and each slot's block is the concatenation
 of every device's slice of its valid rows (``gnn.models.assemble_p3_feats``,
 the reference's layer-1 all-to-all as an index on one card).
 
+With ``mesh=`` (a ``DeviceMesh`` with a ``"data"`` axis of extent p, from
+``distributed.sharding.make_data_mesh``; ``distributed.launch.
+spawn_data_parallel`` starts the ranks) the p slots are p processes, as
+the reference's ``shard_map`` step places slot d on mesh device d: rank d
+holds only device d's shard (under P3 its slice), samples and uploads only
+its slot's batch, and runs only its slot's loss and gradients. One
+``all_gather`` brings every slot's ``[weight, loss, acc, gradients]`` to
+every rank, and each rank combines them in slot order exactly as the
+one-card path does, so every replica applies the same AdamW update to the
+same bits. P3's layer-1 exchange is a real ``all_to_all``
+(``gnn.models.p3_all_to_all_feats``). Every collective runs on the main
+thread, in step order. An epoch's counters (vertices, the store's
+accounting, ring bytes, the balancer's loads) are summed over the ranks at
+the epoch's end, so every rank reports the one-card run's epoch. With
+``grad_compression`` the combined gradient goes through int8 compression
+with error feedback (``distributed.compression``) on either path, as in
+the reference.
+
 Host stages are bitwise copies of the reference's, so from one seed both
 trainers sample the same batches and build the same layouts. Knobs the port
 does not run yet raise ``NotImplementedError`` naming their ROADMAP.md item.
@@ -63,6 +81,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.gnn import CacheConfig, GNNModelConfig
 from repro_torch.core import scheduler as sched
@@ -72,10 +91,15 @@ from repro_torch.core.pipeline import PipelineStats, PrefetchExecutor
 from repro_torch.core.sampler import (MiniBatch, NeighborSampler,
                                       layer_capacities)
 from repro_torch.core.sampler_pool import SamplerPool, suggest_ship_rows_cap
-from repro_torch.core.scheduling import BatchTask, EpochSource, SchedulingCore
+from repro_torch.core.residency import GatherStats
+from repro_torch.core.scheduling import (BatchTask, EpochSource,
+                                         IterableSource, SchedulingCore)
 from repro_torch.core.staging import StagingRing, UploadPack
 from repro_torch.data.graphs import Graph
 from repro_torch.device import resolve_device
+from repro_torch.distributed import compression
+from repro_torch.distributed.sharding import (all_gather_flat,
+                                               require_data_axis)
 from repro_torch.gnn import models as gnn_models
 from repro_torch.kernels.layout import (BLK, EDGE_STREAM_BACKENDS,
                                         block_capacities, build_layer_layouts,
@@ -157,6 +181,24 @@ def resident_payload(core, dev: int, ids: np.ndarray,
             "miss_pos": np.flatnonzero(valid & ~hit)}
 
 
+def combine_slots(slots: torch.Tensor, leaves: List[torch.Tensor]):
+    """The synchronous step's combine, from the (p, 3 + n) slot matrix
+    whose row d is slot d's ``[weight, loss, acc, gradients in flatten
+    order]``: (loss, acc, gradients shaped like ``leaves``), each the
+    loss-weighted mean ``sum_d w_d x_d / max(sum_d w_d, 1)`` over the slots
+    in slot order. The one-card path stacks its slots' rows and the mesh
+    path all-gathers them, so both run this one function on the same bits
+    and give the same bits."""
+    w = slots[:, 0]
+    w_sum = w.sum().clamp_min(1.0)
+    loss = (slots[:, 1] * w).sum() / w_sum
+    acc = (slots[:, 2] * w).sum() / w_sum
+    flat = torch.tensordot(w, slots[:, 3:], dims=1) / w_sum
+    grads = [g.view_as(p) for g, p in
+             zip(flat.split([p.numel() for p in leaves]), leaves)]
+    return loss, acc, grads
+
+
 @dataclass
 class SyncGNNTrainer:
     graph: Graph
@@ -212,7 +254,24 @@ class SyncGNNTrainer:
                                   and host.num_sampler_workers > 0)
         self.worker_affinity = host.worker_affinity
         self._check_ported()
+        # the mesh: this process is the rank of one device slot, which
+        # holds only that slot's shard (the reference's shard_map step)
+        self._rank: Optional[int] = None
+        self._group = None
+        if self.mesh is not None:
+            require_data_axis(self.mesh, self.num_devices)
+            self.data_parallel = True
+            self._rank = self.mesh.get_local_rank("data")
+            self._group = self.mesh.get_group("data")
+            if (self.device is None and self.mesh.device_type == "cuda"
+                    and torch.cuda.is_available()):
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
         self.device = resolve_device(self.device)
+        if self.mesh is not None and self.device.type != self.mesh.device_type:
+            raise ValueError(
+                f"device {self.device} is not of the mesh's device type "
+                f"{self.mesh.device_type!r}")
         part_name, store_name = ALGORITHMS[self.algorithm]
         self.partition: Partition = get_partitioner(part_name)(
             self.graph, self.num_devices, self.seed)
@@ -230,6 +289,7 @@ class SyncGNNTrainer:
         # the reference's schedule: 10 warmup steps of a 100k-step cosine
         self.optimizer = AdamW(cosine(self.lr, 10, 100_000), weight_decay=0.0)
         self.opt_state = self.optimizer.init(flatten(self.params))
+        self._err = None  # compression's error feedback, flatten order
         # static per-layer layout capacities: one shape per config
         self._blk_caps = (block_capacities(self.model_cfg)
                           if self._use_kernel_layout() else [])
@@ -239,7 +299,8 @@ class SyncGNNTrainer:
         self._pool: Optional[SamplerPool] = None
         self._pool_stats0: Dict[str, float] = {}
         # data_parallel: the (p, shard_rows, f) resident shards on the card
-        # (uploaded at the first step). At most _miss_cap rows miss a
+        # (under a mesh, this rank's (shard_rows, f) shard alone; uploaded
+        # at the first step). At most _miss_cap rows miss a
         # batch: every layer-0 row in the worst case, unless ship_rows_cap
         # says fewer.
         self._shard: Optional[torch.Tensor] = None
@@ -251,10 +312,11 @@ class SyncGNNTrainer:
         # every batch crosses the bus from a slot of the staging ring, in
         # one copy on the upload stream: a slot per batch of the groups
         # the prefetch queue holds, the one being filled and the one the
-        # step is reading
+        # step is reading (a rank uploads one batch a group)
         self._upload_stream = (torch.cuda.Stream(self.device)
                                if self.device.type == "cuda" else None)
-        self._ring = StagingRing((self.prefetch_depth + 2) * self.num_devices,
+        per_group = 1 if self.mesh is not None else self.num_devices
+        self._ring = StagingRing((self.prefetch_depth + 2) * per_group,
                                  self.device)
         # main-thread seconds spent launching device steps (up to the last
         # launch, before any metric is read): what a producer thread that
@@ -295,11 +357,6 @@ class SyncGNNTrainer:
             raise ValueError("ship_rows_cap must be >= 1")
         if self.checkpointer is not None:
             raise _unported("checkpointer", "queue A, item A.7")
-        if self.grad_compression:
-            raise _unported("grad_compression", "queue A, item A.8")
-        if self.mesh is not None:
-            raise _unported("mesh (data parallelism over several cards)",
-                            "queue A, item A.9")
         if self.optimizer_name != "adam":
             raise _unported(f"optimizer {self.optimizer_name!r}",
                             "queue A, item A.11")
@@ -374,9 +431,13 @@ class SyncGNNTrainer:
         """The scheduling core's workers=0 runner: stage 1 through the
         partition's cursor-stateful sampler (bitwise ``batch_at(task.epoch,
         task.index)``, because the schedule visits each partition's batches
-        in index order) plus stage 2b (the layout build), each timed."""
+        in index order) plus stage 2b (the layout build), each timed. A
+        rank of a mesh samples only some of the batches, so it addresses
+        each by ``batch_at``."""
         t0 = time.perf_counter()
-        mb = self.samplers[task.partition].next_batch()
+        sampler = self.samplers[task.partition]
+        mb = (sampler.batch_at(task.epoch, task.index)
+              if self.mesh is not None else sampler.next_batch())
         t1 = time.perf_counter()
         layout = (build_layer_layouts(mb.edge_src, mb.edge_dst, mb.edge_mask,
                                       self._blk_caps,
@@ -387,11 +448,45 @@ class SyncGNNTrainer:
                 "load": mb.work_estimate(), "sample_s": t1 - t0,
                 "layout_s": time.perf_counter() - t1}
 
+    def _task(self, a: sched.Assignment) -> BatchTask:
+        return BatchTask(a.partition, self.samplers[a.partition].epoch,
+                         a.batch_index, a.device)
+
     def _sample_payload(self, a: sched.Assignment) -> dict:
         """In-process twin of one SamplerPool task for assignment ``a``."""
-        return self._local_payload(
-            BatchTask(a.partition, self.samplers[a.partition].epoch,
-                      a.batch_index, a.device))
+        return self._local_payload(self._task(a))
+
+    def _rank_indices(self, group: List[sched.Assignment]) -> List[int]:
+        """Under a mesh, the indices into ``group`` of the batches this
+        rank samples: under ``"load"`` every one (the balancer needs each
+        batch's load), under ``"round_robin"`` the one the schedule places
+        on this rank or, when none is, the group's last, which this rank
+        runs as its slot's weight-0 fill."""
+        if self.balance_policy == "load":
+            return list(range(len(group)))
+        mine = [j for j, a in enumerate(group) if a.device == self._rank]
+        return mine or [len(group) - 1]
+
+    def _rank_slot(self, group: List[sched.Assignment],
+                   payloads: List[dict]) -> tuple:
+        """Under a mesh, this rank's slot of the group from the payloads of
+        ``_rank_indices(group)``: (device, payload, weight) of the batch
+        the balancer places on this rank, or, when none lands here, of the
+        group's last real batch at weight 0 with the device it was placed
+        on — the one-card path's fill, whose payload this rank assembles
+        against its own shard as that path does. The balancer sees only
+        real batches placed here (``"load"``: every batch, on every
+        rank)."""
+        sub = [group[j] for j in self._rank_indices(group)]
+        loads = [self._batch_load(a, p) for a, p in zip(sub, payloads)]
+        if self.balance_policy == "load" or sub[0].device == self._rank:
+            devices = self._balancer.assign(sub, loads)
+        else:
+            devices = [sub[0].device]
+        if self._rank in devices:
+            j = devices.index(self._rank)
+            return self._rank, payloads[j], 1.0
+        return devices[-1], payloads[-1], 0.0
 
     def _batch_load(self, a: sched.Assignment, payload: dict) -> float:
         """Eq. 5 load estimate for the dynamic balancer, including stage 2:
@@ -436,7 +531,7 @@ class SyncGNNTrainer:
         return feats
 
     def _resident_payload(self, dev: int, payload: dict,
-                          pack: UploadPack) -> int:
+                          pack: UploadPack, account: bool = True) -> int:
         """Stage 2 under ``data_parallel`` (the reference's
         ``_batch_mesh_payload``): in place of the (N_0, f) block, the
         batch's hit rows and their positions in device ``dev``'s shard
@@ -445,19 +540,22 @@ class SyncGNNTrainer:
         ``dev``, else gathered here, straight into the staging slot.
         Accounting equals ``FeatureStore.gather``'s. Under P3 every valid
         row is a hit (pos = id): no miss row ships (a worker's full rows are
-        not needed) and the accounting is ``gather_p3_full``'s. Returns the
-        miss count."""
+        not needed) and the accounting is ``gather_p3_full``'s. A mesh
+        rank's fill (``account=False``) ships the same payload and adds
+        nothing to the accounting. Returns the miss count."""
         mb = payload["minibatch"]
         t0 = time.perf_counter()
         ids = np.asarray(mb.nodes[0])
         valid = np.asarray(mb.node_mask[0], bool)
         idx = resident_payload(self.store.core, dev, ids, valid)
+        ring_bytes = payload.get("ring_bytes", 0) if account else 0
         if self.algorithm == "p3":
-            self.store.account_p3_full(int(valid.sum()))
+            if account:
+                self.store.account_p3_full(int(valid.sum()))
             pack.add("hit_idx", idx["hit_idx"])
             pack.add("hit_pos", idx["hit_pos"])
             self._pstats.gather_s += time.perf_counter() - t0
-            self._pstats.ring_bytes += payload.get("ring_bytes", 0)
+            self._pstats.ring_bytes += ring_bytes
             return 0
         fpay = payload.get("features")
         shipped = fpay is not None and fpay["device"] == dev
@@ -465,7 +563,8 @@ class SyncGNNTrainer:
             idx["miss_pos"] = fpay["pos"].astype(np.int64)
         mpos = idx["miss_pos"]
         n_miss = len(mpos)
-        self.store.account_rows(dev, int(valid.sum()) - n_miss, n_miss)
+        if account:
+            self.store.account_rows(dev, int(valid.sum()) - n_miss, n_miss)
         if n_miss > self._miss_cap:
             raise ValueError(
                 f"batch ships {n_miss} miss rows to device {dev} but the "
@@ -483,7 +582,7 @@ class SyncGNNTrainer:
                           lambda out: np.take(self.graph.features, miss_ids,
                                               axis=0, mode="clip", out=out))
         self._pstats.gather_s += time.perf_counter() - t0
-        self._pstats.ring_bytes += payload.get("ring_bytes", 0)
+        self._pstats.ring_bytes += ring_bytes
         return n_miss
 
     def _assemble_group(self, assignments: List[sched.Assignment],
@@ -495,9 +594,11 @@ class SyncGNNTrainer:
         host-gather path the batches keep group order with idle-device
         fills appended, otherwise slot d holds device d's batch (the
         resident path needs it: slot d runs against device d's shard) and
-        empty slots repeat the last real batch at weight 0. All copies run
-        on the upload stream and the group records one event after them;
-        no kernel is launched here."""
+        empty slots repeat the last real batch at weight 0. Under a mesh
+        ``payloads`` are those of ``_rank_indices(assignments)`` and only
+        this rank's slot is built (``_rank_slot``). All copies run on the
+        upload stream and the group records one event after them; no
+        kernel is launched here."""
         gather0, fill0 = self._pstats.gather_s, self._ring.fill_s
         stage_s = {"sample_s": sum(p.get("sample_s", 0.0) for p in payloads),
                    "layout_s": sum(p.get("layout_s", 0.0) for p in payloads),
@@ -505,8 +606,13 @@ class SyncGNNTrainer:
         if self.data_parallel:
             stage_s["miss_rows"] = 0
         t_start = time.perf_counter()
-        loads = [self._batch_load(a, p) for a, p in zip(assignments, payloads)]
-        devices = self._balancer.assign(assignments, loads)
+        if self.mesh is not None:
+            placed = [self._rank_slot(assignments, payloads)]
+        else:
+            loads = [self._batch_load(a, p)
+                     for a, p in zip(assignments, payloads)]
+            placed = [(dev, payload, 1.0) for dev, payload in zip(
+                self._balancer.assign(assignments, loads), payloads)]
         vertices = 0
         slots: List[Optional[dict]] = [None] * self.num_devices
         order: List[dict] = []
@@ -515,21 +621,22 @@ class SyncGNNTrainer:
         with (torch.cuda.stream(self._upload_stream)
               if self._upload_stream is not None
               else contextlib.nullcontext()):
-            for dev, payload in zip(devices, payloads):
+            for dev, payload, weight in placed:
                 mb = payload["minibatch"]
-                vertices += mb.vertices_traversed()
+                if weight:
+                    vertices += mb.vertices_traversed()
                 pack = UploadPack()
                 if self.data_parallel:
                     feats = None
                     stage_s["miss_rows"] += self._resident_payload(
-                        dev, payload, pack)
+                        dev, payload, pack, account=weight > 0)
                 else:
                     feats = self._batch_features(dev, payload)
                 for k, v in batch_host_arrays(mb, feats,
                                               payload["layout"]).items():
                     pack.add(k, v)
                 arrs, base = self._ring.upload(pack)
-                arrs["weight"] = 1.0
+                arrs["weight"] = weight
                 uploaded.append(base)
                 slots[dev] = arrs
                 order.append(arrs)
@@ -541,7 +648,9 @@ class SyncGNNTrainer:
         stage_s["gather_s"] = self._pstats.gather_s - gather0
         stage_s["upload_s"] = (time.perf_counter() - t_start
                                - stage_s["gather_s"])
-        if self.balance_policy == "round_robin" and not self.data_parallel:
+        if self.mesh is not None:
+            batches = order
+        elif self.balance_policy == "round_robin" and not self.data_parallel:
             batches = order
             while len(batches) < self.num_devices:
                 batches.append(dict(batches[-1], weight=0.0))
@@ -554,53 +663,73 @@ class SyncGNNTrainer:
 
     def _prepare_group(self, assignments: List[sched.Assignment]) -> dict:
         """Stages 1, 2b and 2 and the upload for one synchronous iteration,
-        sampled in-process."""
+        sampled in-process (under a mesh, the batches this rank needs)."""
+        tasks = [self._task(a) for a in assignments]
+        if self.mesh is not None:
+            tasks = [tasks[j] for j in self._rank_indices(assignments)]
         return self._assemble_group(
-            assignments, [self._sample_payload(a) for a in assignments])
+            assignments, [self._local_payload(t) for t in tasks])
 
     # -- stage 3: the device step -------------------------------------------------
-    def _grads(self, batches: List[dict]):
-        """Per-batch loss and gradients, combined by loss weight: returns
-        (loss, acc, grads in ``flatten`` order)."""
-        leaves = flatten(self.params)
-        # the weights are written on the device (no copy from pageable host
+    def _slot_feats(self, b: dict, d: int) -> torch.Tensor:
+        """Slot ``d``'s layer-0 block, assembled where the shard lives:
+        from device d's shard, or under P3 from every device's slice of
+        the batch's rows (on one card an index, under a mesh the
+        all-to-all among the ranks)."""
+        f = self.graph.features.shape[1]
+        if self.algorithm == "p3" and self.mesh is not None:
+            return gnn_models.p3_all_to_all_feats(self._shard, b, f,
+                                                  self._group)
+        if self.algorithm == "p3":
+            return gnn_models.assemble_p3_feats(self._shard, b, f)
+        return gnn_models.assemble_device_feats(
+            self._shard if self.mesh is not None else self._shard[d], b)
+
+    def _slot_row(self, leaves: List[torch.Tensor], b: dict,
+                  d: int) -> torch.Tensor:
+        """Slot ``d``'s row of the combine: ``[weight, loss, acc,
+        gradients in flatten order]``, fp32. Its (N_0, f) block lives only
+        inside this call."""
+        if self.data_parallel:
+            b = dict(b, feats=self._slot_feats(b, d))
+        ps = [p.detach().requires_grad_(True) for p in leaves]
+        loss, m = gnn_models.loss_fn(self.model_cfg,
+                                     unflatten(self.params, ps), b)
+        grads = torch.autograd.grad(loss, ps)
+        # the weight is written on the device (no copy from pageable host
         # memory, which would wait for the stream's earlier work)
-        w = torch.zeros(len(batches), dtype=torch.float32, device=self.device)
-        for d, b in enumerate(batches):
-            if b["weight"]:
-                w[d] = b["weight"]
-        w_sum = w.sum().clamp_min(1.0)
-        losses, accs, per_dev = [], [], []
-        for d, b in enumerate(batches):
-            # one (N_0, f) block lives at a time: the next rebinding of b
-            # frees this one
-            if self.data_parallel and self.algorithm == "p3":
-                b = dict(b, feats=gnn_models.assemble_p3_feats(
-                    self._shard, b, self.graph.features.shape[1]))
-            elif self.data_parallel:
-                b = dict(b, feats=gnn_models.assemble_device_feats(
-                    self._shard[d], b))
-            ps = [p.detach().requires_grad_(True) for p in leaves]
-            loss, m = gnn_models.loss_fn(self.model_cfg,
-                                         unflatten(self.params, ps), b)
-            per_dev.append(torch.autograd.grad(loss, ps))
-            losses.append(loss.detach())
-            accs.append(m["acc"])
-        loss = (torch.stack(losses) * w).sum() / w_sum
-        acc = (torch.stack(accs) * w).sum() / w_sum
-        grads = [torch.tensordot(w, torch.stack(gs), dims=1) / w_sum
-                 for gs in zip(*per_dev)]
-        return loss, acc, grads
+        w = torch.full((1,), float(b["weight"]), device=self.device)
+        return torch.cat([w, loss.detach().reshape(1), m["acc"].reshape(1),
+                          *(g.reshape(-1) for g in grads)])
+
+    def _grads(self, batches: List[dict]):
+        """Per-slot loss and gradients, combined by loss weight
+        (``combine_slots``): returns (loss, acc, grads in ``flatten``
+        order). Under a mesh ``batches`` is this rank's slot alone, and one
+        ``all_gather`` of the slots' rows, p x (3 + parameter count) x 4
+        bytes, brings every slot to every rank."""
+        leaves = flatten(self.params)
+        if self.mesh is None:
+            rows = torch.stack([self._slot_row(leaves, b, d)
+                                for d, b in enumerate(batches)])
+        else:
+            mine = self._slot_row(leaves, batches[0], self._rank)
+            rows = mine.new_empty((self.num_devices, mine.numel()))
+            all_gather_flat(rows.view(-1), mine, group=self._group)
+        return combine_slots(rows, leaves)
 
     def _upload_shards(self) -> float:
         """Build every device's resident feature block and put it on the
         card once, from pinned memory, where it stays for the trainer's
         life (the reference's ``_upload_shards``): (p, shard_rows, f), or
-        under P3 the (p, V, chunk) slice matrix. Returns its seconds:
-        the build, the pinning and the copy. Runs on the main thread before
-        the first step; its synchronize runs once a trainer."""
+        under P3 the (p, V, chunk) slice matrix; under a mesh only this
+        rank's row of it. Returns its seconds: the build, the pinning and
+        the copy. Runs on the main thread before the first step; its
+        synchronize runs once a trainer."""
         t0 = time.perf_counter()
-        mat = torch.from_numpy(self.store.build_shard_matrix())
+        mat = self.store.build_shard_matrix()
+        mat = torch.from_numpy(mat[self._rank] if self.mesh is not None
+                               else mat)
         if self.device.type == "cuda":
             self._shard = mat.pin_memory().to(self.device, non_blocking=True)
             torch.cuda.synchronize(self.device)
@@ -632,6 +761,9 @@ class SyncGNNTrainer:
             shard_s = self._upload_shards() if self._shard is None else 0.0
         t0 = time.perf_counter()
         loss, acc, grads = self._grads(self._receive(prepared))
+        if self.grad_compression:
+            payload, self._err = compression.compress_tree(grads, self._err)
+            grads = compression.decompress_tree(payload)
         new_leaves, self.opt_state, om = self.optimizer.update(
             grads, self.opt_state, flatten(self.params))
         self.params = unflatten(self.params, new_leaves)
@@ -735,6 +867,11 @@ class SyncGNNTrainer:
         # coordinates (partition, epoch, batch_index); a.device is the
         # scheduler's static target, the device a worker gathers for
         source = EpochSource(groups, self.samplers[0].epoch)
+        if self.mesh is not None:
+            # a rank samples (in-process or in its pool) only what it needs
+            source = IterableSource(
+                (g, [tasks[j] for j in self._rank_indices(g)])
+                for g, tasks in source.units())
         if self.num_sampler_workers > 0:
             # stages 1 and 2b in the worker processes, payloads back in
             # submission order; the window bounds staged batches as the
@@ -820,6 +957,8 @@ class SyncGNNTrainer:
                        / n_batches
                        for k in ("loss", "acc", "lr", "grad_norm")}
         wall = time.time() - t0
+        if self.mesh is not None:
+            vertices, wall = self._sum_over_ranks(vertices, wall, pstats)
         stats = sched.schedule_stats(schedule, self.num_devices)
         n_iter = stats["iterations"]
         local_rows = sum(s.local_rows for s in self.store.stats)
@@ -871,6 +1010,33 @@ class SyncGNNTrainer:
                 "miss_bytes": host_bytes,
                 "miss_bytes_per_iter": (host_bytes / n_iter
                                         if n_iter else 0.0)}
+
+    def _sum_over_ranks(self, vertices: int, wall: float,
+                        pstats: PipelineStats) -> tuple:
+        """Under a mesh, at the epoch's end: one ``all_reduce`` (sum) of
+        this rank's counters — its slots' vertices, ring bytes and store
+        accounting, its device's balancer load (each rank counted only
+        its own slot's batches) and, from rank 0 alone, the wall time —
+        after which every rank holds the one-card epoch's counters.
+        Returns (vertices, rank 0's wall seconds)."""
+        fields = [f.name for f in dataclasses.fields(GatherStats)]
+        own = [self._balancer.load[d] if d == self._rank else 0.0
+               for d in range(self.num_devices)]
+        vals = [vertices, pstats.ring_bytes,
+                wall if self._rank == 0 else 0.0, *own,
+                *(getattr(st, f) for st in self.store.stats for f in fields)]
+        # float64 holds every count below 2^53 exactly
+        t = torch.tensor(vals, dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, group=self._group)
+        vals = t.tolist()
+        p = self.num_devices
+        pstats.ring_bytes = int(vals[1])
+        self._balancer.load = vals[3:3 + p]
+        it = iter(vals[3 + p:])
+        for st in self.store.stats:
+            for f in fields:
+                setattr(st, f, int(next(it)))
+        return int(vals[0]), vals[2]
 
     def train(self, epochs: int = 1) -> List[dict]:
         return [self.run_epoch() for _ in range(epochs)]

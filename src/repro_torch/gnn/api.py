@@ -14,9 +14,20 @@ counterpart of ``repro.gnn.api.train``:
 and schedule, whose p batches per iteration run in sequence on one card;
 ``PlatformConfig(data_parallel=True)`` keeps the p devices' feature shards
 on that card; under P3 that is every device's feature-dimension slice of
-every row, and the exchange among the p devices is an index on the card
-(several cards wait for torch.distributed data parallelism, ROADMAP.md
-queue A, item A.9). A trainer with sampler workers
+every row, and the exchange among the p devices is an index on the card.
+To train over p cards, one process a card, start the ranks with
+``repro_torch.distributed.launch.spawn_data_parallel`` and call ``train``
+in each with the mesh it is handed (``mesh`` passes through to the
+trainer, which then holds only its rank's shard)::
+
+    def work(rank, mesh, device):
+        with train(cfg, PlatformConfig(num_devices=2), graph=g,
+                   mesh=mesh) as result:
+            return result.final
+
+    finals = spawn_data_parallel(work, 2)   # NCCL, cuda:0 and cuda:1
+
+A trainer with sampler workers
 (``num_sampler_workers=N``) holds processes and shared-memory segments:
 close the result (or use it as a context manager) when done.
 """

@@ -9,7 +9,8 @@ Models consume a padded mini-batch as a dict of tensors (see
   edge_mask[l], node_mask[l], self_idx[l], labels
 (under ``data_parallel`` the trainer assembles ``feats`` on the card from
 the batch's hit positions and miss rows: ``assemble_device_feats``, or,
-under P3, from every device's feature slice: ``assemble_p3_feats``),
+under P3, from every device's feature slice: ``assemble_p3_feats`` on one
+card, ``p3_all_to_all_feats`` among the ranks of a mesh),
 plus, under the kernel backends, each layer's layout (``agg_*``).
 ``"pallas"`` densifies the compact triples into 128x128 tiles and
 aggregates through the CUDA block-CSR kernel
@@ -27,9 +28,11 @@ as in the reference.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.gnn import GNNModelConfig
+from repro_torch.distributed.sharding import all_gather_flat
 from repro_torch.kernels.aggregate import (AggregateCompact, AggregateEdges,
                                            AggregateFused)
 from repro_torch.kernels.layout import BLK
@@ -366,6 +369,36 @@ def assemble_p3_feats(shards: torch.Tensor, batch,
     rows = shards.index_select(1, batch["hit_pos"])       # (p, H, chunk)
     rows = rows.transpose(0, 1).reshape(-1, p * chunk)[:, :feat_dim]
     out = shards.new_zeros((batch["node_mask"][0].shape[0], feat_dim))
+    return out.index_copy_(0, batch["hit_idx"], rows)
+
+
+def p3_all_to_all_feats(shard: torch.Tensor, batch, feat_dim: int,
+                        group=None) -> torch.Tensor:
+    """P3's layer-1 exchange (paper Listing 3) among the ranks of a mesh,
+    the counterpart of the reference's ``p3_all_to_all_feats``. ``shard``
+    is this rank's (V, chunk) feature-dimension slice of every vertex; the
+    batch carries its valid rows ``hit_idx`` (H,) and their vertex ids
+    ``hit_pos`` (H,). One ``all_gather`` brings every rank's padded
+    layer-0 ids (p x N_0 x 8 bytes, invalid rows id 0), this rank gathers
+    its slice of every batch's rows, (p, N_0, chunk), and one
+    ``all_to_all_single`` (p x N_0 x chunk x 4 bytes each way) hands rank
+    d the p slices of its own batch. Its valid rows are laid side by side,
+    cut to ``feat_dim`` and written once into a zero block, so the block
+    equals ``assemble_p3_feats``' (and ``FeatureStore.gather_p3_full``'s)
+    bit for bit; no row another rank gathered for an invalid position is
+    kept, so no mask is exchanged."""
+    n0 = batch["node_mask"][0].shape[0]
+    p = dist.get_world_size(group)
+    ids = torch.zeros(n0, dtype=torch.int64, device=shard.device)
+    ids.index_copy_(0, batch["hit_idx"], batch["hit_pos"])
+    ids_all = ids.new_empty(p * n0)
+    all_gather_flat(ids_all, ids, group=group)
+    mine = shard.index_select(0, ids_all)     # my slice of every batch
+    got = torch.empty_like(mine)
+    dist.all_to_all_single(got, mine, group=group)  # got[e]: slice e of mine
+    rows = got.view(p, n0, -1).index_select(1, batch["hit_idx"])
+    rows = rows.transpose(0, 1).reshape(-1, p * shard.shape[1])[:, :feat_dim]
+    out = shard.new_zeros((n0, feat_dim))
     return out.index_copy_(0, batch["hit_idx"], rows)
 
 

@@ -5,15 +5,18 @@ DistDGL and PaGraph with 1 and 2 devices, and of GraphSAGE, GCN and GIN on
 ``"pallas_fused"`` and on ``"pallas"`` (the reference's fused datapath and
 GIN under the test-local ``jax_shims``), plus the ``train()`` facade, the
 device rule, the layout and aggregate bytes of each datapath, the knobs
-the port does not run yet, and the host runtime's knobs, GAT and P3, which
-run."""
+the port does not run yet, and the host runtime's knobs, GAT, P3, the mesh
+and gradient compression, which run (the ``gpu`` cases run the mesh on the
+card against the one-process run)."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs.gnn import GNNModelConfig as JCfg
 from repro.core import scheduler as jsched
@@ -27,9 +30,12 @@ from repro_torch.configs.gnn import (CacheConfig, FaultConfig, HostConfig,
                                      PlatformConfig)
 from repro_torch.core import scheduler as tsched
 from repro_torch.core.trainer import SyncGNNTrainer as TTrainer
+from repro_torch.distributed.launch import spawn_data_parallel
+from repro_torch.distributed.sharding import make_data_mesh
 from repro_torch.gnn.api import train
 from repro_torch.kernels import aggregate as agg
 from repro_torch.nn.param import flatten, params_to_numpy
+from torch_mesh_jobs import rank_jobs, run_job
 
 SMALL = dict(num_layers=2, hidden=16, fanouts=(4, 3), batch_targets=32)
 G = synthetic_graph(scale=11, edge_factor=6, feat_dim=16, num_classes=4)
@@ -210,11 +216,9 @@ UNPORTED = {
     "cache": dict(cache_capacity=100),
     "cache_cfg": dict(cfg=dict(cache=CacheConfig(capacity=100))),
     "cache_refresh_cfg": dict(cfg=dict(cache=CacheConfig(refresh_every=2))),
-    "mesh": dict(mesh=object()),
     "data_parallel_cache": dict(data_parallel=True, cache_capacity=100),
     "data_parallel_cache_cfg": dict(data_parallel=True, cfg=dict(
         cache=CacheConfig(capacity=100, ship_rows_cap=64))),
-    "grad_compression": dict(grad_compression=True),
     "checkpointer": dict(checkpointer=object()),
     "sgdm": dict(optimizer_name="sgdm"),
 }
@@ -252,6 +256,71 @@ def test_ported_matrix_cells_run(knob):
             assert m["beta"] == 1.0 and m["miss_bytes"] == 0
         for leaf in flatten(t.params):
             assert torch.isfinite(leaf).all()
+
+
+# the knobs that raised until data parallelism over ranks and gradient
+# compression were ported (ROADMAP A.9 and A.8)
+PORTED_DISTRIBUTED = ("mesh", "grad_compression")
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    """This process as the one rank of a gloo group."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("knob", PORTED_DISTRIBUTED)
+def test_ported_distributed_knobs(knob, request):
+    """A mesh is validated against ``num_devices`` as the reference's is
+    (one of extent 1 for 2 devices raises its "does not match" error), and
+    compression runs one epoch at p = 2 with its error feedback in
+    ``flatten`` order."""
+    cfg = TCfg("graphsage", **SMALL)
+    if knob == "mesh":
+        request.getfixturevalue("world_of_one")
+        mesh = make_data_mesh(1, "cpu")
+        with pytest.raises(ValueError, match="does not match"):
+            TTrainer(G, cfg, num_devices=2, device="cpu", mesh=mesh)
+        return
+    with TTrainer(G, cfg, num_devices=2, device="cpu",
+                  grad_compression=True) as t:
+        m = t.run_epoch()
+        assert np.isfinite(m["loss"]) and 0.0 <= m["acc"] <= 1.0
+        assert [e.shape for e in t._err] == [q.shape
+                                             for q in flatten(t.params)]
+        for leaf in flatten(t.params):
+            assert torch.isfinite(leaf).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,p", [("nccl", 1), ("gloo", 2)])
+def test_mesh_on_card_bitwise_one_process(backend, p, tmp_path):
+    """On the card: ``mesh=`` over ``p`` ranks (NCCL at p = 1; gloo at
+    p = 2 with both ranks on the one card) gives the one-process
+    ``data_parallel=True`` run's losses, parameters and epoch bit for bit,
+    DistDGL and P3 on ``"pallas_fused"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    jobs = {f"{kind}/{algo}": dict(algo=algo, backend="pallas_fused", p=p,
+                                   kind=kind, n=3)
+            for algo in ("distdgl", "p3") for kind in ("iterations", "epoch")}
+    one = {k: run_job(j, "cuda:0") for k, j in jobs.items()}
+    ranks = spawn_data_parallel(
+        functools.partial(rank_jobs, jobs=jobs), p, backend=backend,
+        devices=["cuda:0"] * p, init_file=str(tmp_path / "rdv"))
+    for res in ranks:
+        for key, want in one.items():
+            got = res[key]
+            for k in ("losses", "epoch", "stats"):
+                assert got.get(k) == want.get(k), (key, k)
+            for a, b in zip(got["params"], want["params"]):
+                np.testing.assert_array_equal(a.view(np.uint32),
+                                              b.view(np.uint32))
 
 
 # the host runtime's knobs (ROADMAP A.4 and A.5), which raised until the

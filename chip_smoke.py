@@ -172,7 +172,22 @@ init. Phases, each of which exits non-zero on failure:
      cross the ring); P3 at p = 4 on ``"pallas_fused"``, resident,
      sequential against 2 workers that sample only (gathering, they would
      ship every valid row's full 602 features); and GAT at p = 1,
-     resident, sequential against 4 workers. Each run's epoch loss and acc, and its parameters
+     resident, sequential against 4 workers; then the feature cache at
+     p = 4, round-robin, with a quarter of the smallest DistDGL static
+     share (printed) as the rows a device: resident
+     with epoch-boundary refresh, 3 epochs sequential (bitwise its
+     cache-off twin) and with 4 workers that gather (bitwise the cached
+     sequential run in every cache key too; epoch 3's miss bytes an
+     iteration below epoch 1's and its hit rate above), and the host
+     gather refreshed every 4 iterations, 2 epochs sequential against 4
+     workers that gather (the generation handshake under real process
+     timing: equal refreshes and generation, both above 0); one
+     ``cache`` line a run gives the capacity, refreshes, generation, each
+     epoch's hit rate, miss bytes an iteration, beta, admissions,
+     evictions and refresh bytes with its ``iteration_s`` beside the
+     cache-off twin's, each shard re-upload's seconds, the host ms of
+     installing admitted sets, of ranking and of waiting for the ranking
+     thread, and the card. Each run's epoch loss and acc, and its parameters
      after its last epoch, must equal its twin's bit for bit, and its
      launch counts must be its iterations times phase 4's counts per
      iteration (times p). Each ``epoch`` line gives ``epoch_time_s``,
@@ -203,7 +218,11 @@ init. Phases, each of which exits non-zero on failure:
      pipelined epoch's seconds an iteration, peak device memory and each
      collective's calls, bytes and ms (host clock with the card
      synchronized before and after, so the wait for the slower rank
-     counts); ``mesh_one_process`` lines give the yardstick. Two ranks on
+     counts); ``mesh_one_process`` lines give the yardstick. A gloo p = 2
+     job runs two epochs with the feature cache (``MESH_CACHE_EPOCHS``)
+     and
+     must equal the one-process run in the cache's keys, its counter and
+     resident sets too. Two ranks on
      one card share its SMs and memory: their times say nothing of two
      cards;
   7. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
@@ -302,17 +321,37 @@ HOST_BACKENDS = ("pallas_fused", "pallas_edges")
 HOST_P4 = 4
 HOST_FAULT = "kill@0.1.13"
 # the mesh phase: one process a rank under torch.distributed, GraphSAGE on
-# "pallas_fused", resident; (backend, ranks, (algorithm, with an epoch)):
+# "pallas_fused", resident; (backend, ranks, {job: (algorithm, kind)}),
+# kind "iterations" (MESH_ITERATIONS of them), "epoch" (those, then one
+# epoch) or "cache" (MESH_CACHE_EPOCHS epochs with the feature cache):
 # NCCL at p = 1, and gloo at p = 2 with both ranks on the one card (NCCL
 # refuses two ranks on one card)
 MESH_ITERATIONS = 3
-MESH_RUNS = (("nccl", 1, (("distdgl", True),)),
-             ("gloo", 2, (("distdgl", True), ("p3", False))))
+MESH_RUNS = (("nccl", 1, {"distdgl": ("distdgl", "epoch")}),
+             ("gloo", 2, {"distdgl": ("distdgl", "epoch"),
+                          "p3": ("p3", "iterations"),
+                          "distdgl/cache": ("distdgl", "cache")}))
 MESH_EPOCH_KEYS = ("loss", "acc", "lr", "grad_norm", "batches",
                    "iterations", "utilization", "mesh_devices",
                    "fill_slots", "vertices_traversed", "beta",
                    "load_imbalance", "ring_bytes", "cache_hit_rate",
-                   "miss_bytes", "miss_bytes_per_iter")
+                   "miss_bytes", "miss_bytes_per_iter", "cache_enabled",
+                   "cache_admissions", "cache_evictions",
+                   "cache_refresh_bytes")
+# the mesh's cached job: two epochs, epoch-boundary refresh, a quarter of
+# the smallest DistDGL static share of a device at p = 2
+MESH_CACHE_EPOCHS = 2
+# the feature cache in the host runtime phase: p = 4, round-robin, a
+# quarter of the smallest static share of a device under DistDGL;
+# resident runs refresh at epoch boundaries over 3 epochs, the host
+# gather every 4 iterations over 2
+CACHE_P = 4
+CACHE_EPOCHS = 3
+CACHE_K = 4
+CACHE_K_EPOCHS = 2
+CACHE_KEYS = ("cache_enabled", "cache_hit_rate", "miss_bytes",
+              "miss_bytes_per_iter", "beta", "cache_admissions",
+              "cache_evictions", "cache_refresh_bytes")
 SEED = 0
 RTOL, ATOL = 1e-5, 1e-6
 LOSS_RTOL = 1e-4
@@ -1691,16 +1730,81 @@ def check_twin(label, run, twin) -> None:
           f"sequential twin's", flush=True)
 
 
+def probe_cache(tr, probe: dict) -> None:
+    """Keep, for a run's ``cache`` line, the trainer's cache (it outlives
+    the trainer's close) and the seconds of each shard upload: the first,
+    and each re-upload after a refresh."""
+    upload = tr._upload_shards
+    probe["uploads"] = []
+
+    def logged():
+        secs = upload()
+        probe["uploads"].append(secs)
+        return secs
+    tr._upload_shards = logged
+    probe["cache"] = tr.cache
+
+
+def check_cache_twin(label, run, twin) -> None:
+    """A cached run against its sequential cached twin: every cache key of
+    every epoch, the refreshes, the generation, the counter and the
+    resident sets, exactly."""
+    for e, (m, t) in enumerate(zip(run["metrics"], twin["metrics"])):
+        for k in CACHE_KEYS:
+            if m[k] != t[k]:
+                fail(f"{label}: epoch {e} {k} {m[k]!r}, sequential twin "
+                     f"{t[k]!r}")
+    a, b = run["probe"]["cache"], twin["probe"]["cache"]
+    if (a.refreshes, a.generation) != (b.refreshes, b.generation):
+        fail(f"{label}: {a.refreshes} refreshes to generation "
+             f"{a.generation}, sequential twin {b.refreshes} to "
+             f"{b.generation}")
+    if not (np.array_equal(a.freq, b.freq) and all(
+            np.array_equal(a.core.resident_ids(d), b.core.resident_ids(d))
+            for d in range(a.core.num_devices))):
+        fail(f"{label}: the counter or the resident sets differ from the "
+             f"sequential twin's")
+    print(f"{label}: every cache key, {a.refreshes} refreshes, generation "
+          f"{a.generation}, the counter and the resident sets equal the "
+          f"sequential twin's", flush=True)
+
+
+def cache_line(label, run, off, card) -> None:
+    """One ``cache`` line: the cache's capacity, refreshes and generation,
+    each epoch's cache keys and ``iteration_s`` beside the cache-off
+    twin's ``iteration_s`` and hit rate (``off``; None where the run has
+    none), each shard upload's seconds and the host ms of installing,
+    ranking and waiting."""
+    c = run["probe"]["cache"]
+    print("cache " + json.dumps({
+        "path": label, "card": card, "capacity": c.capacity,
+        "refresh_every": c.refresh_every, "refreshes": c.refreshes,
+        "generation": c.generation,
+        "epochs": [{**{k: m[k] for k in CACHE_KEYS},
+                    "iteration_s": m["epoch_time_s"] / m["iterations"],
+                    "cache_off_iteration_s": (
+                        None if off is None else
+                        off["metrics"][e]["epoch_time_s"]
+                        / off["metrics"][e]["iterations"]),
+                    "cache_off_hit_rate": (
+                        None if off is None
+                        else off["metrics"][e]["cache_hit_rate"])}
+                   for e, m in enumerate(run["metrics"])],
+        "shard_upload_s": run["probe"]["uploads"],
+        "apply_ms": c.apply_s * 1e3, "rank_ms": c.rank_s * 1e3,
+        "wait_ms": c.wait_s * 1e3}), flush=True)
+
+
 def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
                  layer_capacities, PayloadCodec, block_capacities,
-                 NeighborSampler, build_layer_layouts) -> dict:
+                 NeighborSampler, build_layer_layouts, card) -> dict:
     """Phase 5: the pipelined and pooled epochs against their sequential
     twins, from the same initial parameters (``params0``: {model: numpy
     parameters}; the resident path at p = 1 on ``"pallas_fused"`` and
     ``"pallas_edges"``, the host gather on ``"pallas_fused"``, p = 4 with
     the ``"load"`` policy and the gather in the workers, a worker killed
     mid-epoch, P3 at p = 4 resident against 2 workers that do not gather,
-    and GAT resident against 4 workers)."""
+    GAT resident against 4 workers, and the feature cache at p = 4)."""
     import os
     workers = sorted({2, 4, min(8, len(os.sched_getaffinity(0)) - 2)})
     machine_facts(graph, cfg, workers, HOST_P4, layer_capacities,
@@ -1710,14 +1814,22 @@ def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
     runs = {}
 
     def run(key, backend, epochs=HOST_EPOCHS, p=1, algorithm="distdgl",
-            model="graphsage", **kw):
+            model="graphsage", probe=None, **kw):
         kw.setdefault("data_parallel", True)
-        runs[key] = epoch_run(key, lambda: SyncGNNTrainer(
-            graph, dataclasses.replace(cfg, name=model,
-                                       aggregate_backend=backend),
-            num_devices=p, algorithm=algorithm, seed=SEED, device="cuda",
-            params=params0[model], **kw), epochs,
-            {k: p * v for k, v in counts[backend].items()}, agg, flatten)
+
+        def make():
+            tr = SyncGNNTrainer(
+                graph, dataclasses.replace(cfg, name=model,
+                                           aggregate_backend=backend),
+                num_devices=p, algorithm=algorithm, seed=SEED,
+                device="cuda", params=params0[model], **kw)
+            if probe is not None:
+                probe_cache(tr, probe)
+            return tr
+        runs[key] = epoch_run(key, make, epochs,
+                              {k: p * v for k, v in counts[backend].items()},
+                              agg, flatten)
+        runs[key]["probe"] = probe
         return runs[key]
 
     for backend in HOST_BACKENDS:
@@ -1764,7 +1876,62 @@ def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
     check_twin("gat/pipelined/4_workers",
                run("gat/pipelined/4_workers", "reference",
                    num_sampler_workers=4, **gat), twin)
+    cache_family(run, graph, card)
     return runs
+
+
+def cache_family(run, graph, card) -> None:
+    """The feature cache in phase 5 (``run``: host_runtime's): at p = 4,
+    round-robin, resident with epoch-boundary refresh (bitwise the
+    cache-off twin; 4 workers that gather bitwise the sequential run, and
+    epoch 3's miss bytes an iteration below epoch 1's, its hit rate above),
+    then the host gather refreshed every ``CACHE_K`` iterations (4
+    workers that gather bitwise sequential, after equal refreshes > 0)."""
+    from repro_torch.core.feature_store import FeatureStore
+    from repro_torch.core.partition import get_partitioner
+    store = FeatureStore(graph, get_partitioner("metis_like")(
+        graph, CACHE_P, SEED), "distdgl")
+    shares = [store.num_resident(d) for d in range(CACHE_P)]
+    capacity = min(shares) // 4
+    print(f"cache: capacity {capacity} rows a device at p = "
+          f"{CACHE_P}, a quarter of the smallest DistDGL static share "
+          f"({shares})", flush=True)
+    base = f"pallas_fused/p{CACHE_P}"
+    rr = dict(p=CACHE_P, epochs=CACHE_EPOCHS)
+    off = run(f"{base}/cache_off/sequential", "pallas_fused",
+              pipeline=False, **rr)
+    cached = dict(rr, cache_capacity=capacity, cache_refresh_every=0)
+    key = f"{base}/cache/sequential"
+    seq = run(key, "pallas_fused", pipeline=False, probe={}, **cached)
+    check_twin(key, seq, off)
+    cache_line(key, seq, off, card)
+    key = f"{base}/cache/pipelined/4_workers/gather"
+    pooled = run(key, "pallas_fused", num_sampler_workers=4,
+                 gather_in_workers=True, probe={}, **cached)
+    check_twin(key, pooled, seq)
+    check_cache_twin(key, pooled, seq)
+    cache_line(key, pooled, off, card)
+    first, last = pooled["metrics"][0], pooled["metrics"][-1]
+    if not (last["miss_bytes_per_iter"] < first["miss_bytes_per_iter"]
+            and last["cache_hit_rate"] > first["cache_hit_rate"]):
+        fail(f"{key}: epoch {CACHE_EPOCHS} missed "
+             f"{last['miss_bytes_per_iter']!r} bytes an iteration at hit "
+             f"rate {last['cache_hit_rate']!r}, epoch 1 "
+             f"{first['miss_bytes_per_iter']!r} at "
+             f"{first['cache_hit_rate']!r}")
+    hg = dict(p=CACHE_P, epochs=CACHE_K_EPOCHS, data_parallel=False,
+              cache_capacity=capacity, cache_refresh_every=CACHE_K)
+    key = f"{base}/cache_k{CACHE_K}/host_gather/sequential"
+    twin = run(key, "pallas_fused", pipeline=False, probe={}, **hg)
+    cache_line(key, twin, None, card)
+    key = f"{base}/cache_k{CACHE_K}/host_gather/pipelined/4_workers/gather"
+    pooled = run(key, "pallas_fused", num_sampler_workers=4,
+                 gather_in_workers=True, probe={}, **hg)
+    check_twin(key, pooled, twin)
+    check_cache_twin(key, pooled, twin)
+    cache_line(key, pooled, None, card)
+    if not pooled["probe"]["cache"].generation > 0:
+        fail(f"{key}: no refresh in {CACHE_K_EPOCHS} epochs")
 
 
 # ---------------------------------------------------------------------------
@@ -1782,27 +1949,51 @@ def nonzero(counts: dict) -> dict:
 
 
 def mesh_job(job, graph, cfg, params0, device, mesh=None) -> dict:
-    """One mesh-phase job (``job``: algorithm, p, whether an epoch
-    follows) on ``device``: a trainer over ``mesh`` (this process one rank)
-    or, without one, the one-process ``data_parallel=True`` trainer of the
-    p slots; ``MESH_ITERATIONS`` iterations of the epoch's first groups,
-    then one pipelined epoch if asked, with the launch counts of each, the
-    losses, the seconds of each iteration (host clock, ending in the
-    metrics' read) and of its host stages, the epoch's keys that hold no
-    time and its host seconds (this process's), the final
-    parameters and the peak device memory. Module-level, with its imports
-    inside: a spawned rank runs it."""
+    """One mesh-phase job (``job``: algorithm, p, kind, and the cache's
+    capacity for kind ``"cache"``) on ``device``: a trainer over ``mesh``
+    (this process one rank) or, without one, the one-process
+    ``data_parallel=True`` trainer of the p slots; ``MESH_ITERATIONS``
+    iterations of the epoch's first groups, then one pipelined epoch if
+    asked, with the launch counts of each, the losses, the seconds of each
+    iteration (host clock, ending in the metrics' read) and of its host
+    stages, the epoch's keys that hold no time and its host seconds (this
+    process's), the final parameters and the peak device memory. Kind
+    ``"cache"`` runs ``MESH_CACHE_EPOCHS`` pipelined epochs alone, with
+    the cache refreshed at their boundary, and returns each epoch's keys
+    and losses, their launches, and the cache's counter, resident sets
+    and generation. Module-level, with its imports inside: a spawned rank
+    runs it."""
     import torch
     from repro_torch.core import scheduler as sched
     from repro_torch.core.trainer import SyncGNNTrainer
     from repro_torch.kernels import aggregate as agg
     from repro_torch.nn.param import flatten
     cuda = torch.device(device).type == "cuda"
+    cache = (dict(cache_capacity=job["capacity"], cache_refresh_every=0)
+             if job["kind"] == "cache" else {})
     tr = SyncGNNTrainer(graph, cfg, num_devices=job["p"],
                         algorithm=job["algo"], seed=SEED, device=str(device),
                         params=params0, mesh=mesh,
-                        data_parallel=mesh is None)
+                        data_parallel=mesh is None, **cache)
     try:
+        if cache:
+            sync(device)
+            agg.reset_launch_counts()
+            ms = tr.train(MESH_CACHE_EPOCHS)
+            sync(device)
+            return {"losses": [m["loss"] for m in ms],
+                    "epochs": [{k: m[k] for k in MESH_EPOCH_KEYS}
+                               for m in ms],
+                    "epoch_iteration_s": [m["epoch_time_s"] / m["iterations"]
+                                          for m in ms],
+                    "iterations": sum(m["iterations"] for m in ms),
+                    "launches": dict(agg.launch_counts),
+                    "cache": {"freq": tr.cache.freq.copy(),
+                              "generation": tr.cache.generation,
+                              "resident": [tr.store.core.resident_ids(d).copy()
+                                           for d in range(job["p"])]},
+                    "params": [q.detach().cpu().numpy()
+                               for q in flatten(tr.params)]}
         groups = list(sched.iterations(
             tr.epoch_schedule()))[:MESH_ITERATIONS]
         sync(device)
@@ -1820,7 +2011,7 @@ def mesh_job(job, graph, cfg, params0, device, mesh=None) -> dict:
                 "miss_rows")})
         res = {"losses": losses, "iteration_s": walls, "stages": stages,
                "iterations": len(groups), "launches": dict(agg.launch_counts)}
-        if job["epoch"]:
+        if job["kind"] == "epoch":
             agg.reset_launch_counts()
             m = tr.run_epoch()
             res.update(epoch={k: m[k] for k in MESH_EPOCH_KEYS},
@@ -1841,7 +2032,8 @@ def mesh_rank(rank, mesh, device, graph_spec, cfg, params0, jobs) -> dict:
     """One rank of a mesh run (``spawn_data_parallel``'s function): the
     graph attached from the parent's shared memory, TF32 off as in the
     parent, and each of ``jobs`` through ``mesh_job`` with every
-    all-gather and ``all_to_all_single`` timed: host clock,
+    all-gather, ``all_to_all_single`` and ``all_reduce`` (the epoch's
+    counters; with a cache, its access counts) timed: host clock,
     the device synchronized before and after, so a call's time includes
     waiting for the slower rank. Returns {job: result with its
     ``collectives``: calls, bytes a call (what the rank receives) and ms,
@@ -1856,10 +2048,12 @@ def mesh_rank(rank, mesh, device, graph_spec, cfg, params0, jobs) -> dict:
     log = []
 
     def timed(name, fn):
-        def call(out, inp, *args, **kwargs):
+        # each collective's first argument is its output (all_reduce's
+        # tensor is both)
+        def call(out, *args, **kwargs):
             sync(device)
             t0 = time.perf_counter()
-            work = fn(out, inp, *args, **kwargs)
+            work = fn(out, *args, **kwargs)
             sync(device)
             log.append((name, out.numel() * out.element_size(),
                         (time.perf_counter() - t0) * 1e3))
@@ -1870,7 +2064,8 @@ def mesh_rank(rank, mesh, device, graph_spec, cfg, params0, jobs) -> dict:
     # PyTorch before 2.13 (``distributed.sharding.all_gather_flat``)
     for name, label in (("all_gather_single", "all_gather"),
                         ("all_gather_into_tensor", "all_gather"),
-                        ("all_to_all_single", "all_to_all")):
+                        ("all_to_all_single", "all_to_all"),
+                        ("all_reduce", "all_reduce")):
         if hasattr(dist, name):
             setattr(dist, name, timed(label, getattr(dist, name)))
     out = {}
@@ -1898,14 +2093,24 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
     for bit, and each rank must launch ``per_slot`` kernels an iteration
     where the one-process run launches p times that. Prints one
     ``mesh_one_process`` line a job and one ``mesh_rank`` line a rank and
-    job; adds each rank's launches to ``runs``."""
+    job; adds each rank's launches to ``runs``. A cached job must also
+    equal it in the cache's counter, resident sets and generation, after a
+    refresh that admitted rows."""
     import functools
+    from repro_torch.core.feature_store import FeatureStore
+    from repro_torch.core.partition import get_partitioner
     from repro_torch.distributed.launch import spawn_data_parallel
     with graph.to_shared() as shared:
         for backend, p, spec in MESH_RUNS:
             run = f"{backend}/p{p}"
-            jobs = {algo: {"algo": algo, "p": p, "epoch": epoch}
-                    for algo, epoch in spec}
+            jobs = {key: {"algo": algo, "p": p, "kind": kind}
+                    for key, (algo, kind) in spec.items()}
+            for job in jobs.values():
+                if job["kind"] == "cache":
+                    store = FeatureStore(graph, get_partitioner(
+                        "metis_like")(graph, p, SEED), "distdgl")
+                    job["capacity"] = min(store.num_resident(d)
+                                          for d in range(p)) // 4
             one = {k: mesh_job(j, graph, cfg, params0, device)
                    for k, j in jobs.items()}
             t0 = time.perf_counter()
@@ -1916,11 +2121,13 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
             launch_s = time.perf_counter() - t0
             for key, want in one.items():
                 print("mesh_one_process " + json.dumps({
-                    "run": run, "job": key, **{
+                    "run": run, "job": key,
+                    "cache_capacity": jobs[key].get("capacity"), **{
                         k: want.get(k) for k in (
                             "losses", "iteration_s", "stages",
                             "epoch_time_s", "epoch_host", "peak_bytes",
-                            "launches")}}), flush=True)
+                            "launches", "epochs", "epoch_iteration_s")}}),
+                    flush=True)
             for rank, res in enumerate(ranks):
                 for key, want in one.items():
                     got = res[key]
@@ -1931,7 +2138,8 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                                     "losses", "iteration_s", "stages",
                                     "epoch_time_s", "epoch_host",
                                     "peak_bytes", "launches",
-                                    "epoch_launches", "collectives")}}
+                                    "epoch_launches", "collectives",
+                                    "epochs", "epoch_iteration_s")}}
                     if got.get("epoch_time_s") is not None:
                         line["epoch_iteration_s"] = (
                             got["epoch_time_s"] / got["epoch"]["iterations"])
@@ -1950,9 +2158,23 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                                                want["params"])):
                         fail(f"{label}: final parameters differ from the "
                              f"one-process run's")
-                    if got.get("epoch") != want.get("epoch"):
-                        fail(f"{label}: epoch {got.get('epoch')} against "
-                             f"the one-process run's {want.get('epoch')}")
+                    for k in ("epoch", "epochs"):
+                        if got.get(k) != want.get(k):
+                            fail(f"{label}: {k} {got.get(k)} against the "
+                                 f"one-process run's {want.get(k)}")
+                    if "cache" in want:
+                        gc, wc = got["cache"], want["cache"]
+                        if not (np.array_equal(gc["freq"], wc["freq"])
+                                and gc["generation"] == wc["generation"]
+                                and all(np.array_equal(a, b) for a, b in zip(
+                                    gc["resident"], wc["resident"]))):
+                            fail(f"{label}: the cache's counter, resident "
+                                 f"sets or generation differ from the "
+                                 f"one-process run's")
+                        if not (wc["generation"] == MESH_CACHE_EPOCHS - 1
+                                and want["epochs"][-1]["cache_admissions"]):
+                            fail(f"{label}: no refresh admitted a row "
+                                 f"({want['epochs']})")
                     n = got["iterations"]
                     counts = [(got["launches"], want["launches"], n)]
                     if "epoch" in got:
@@ -1974,6 +2196,8 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                                  f"and iteration")
                     print(f"{label}: losses, parameters"
                           + (", epoch" if "epoch" in got else "")
+                          + (", cached epochs, counter, resident sets"
+                             if "cache" in got else "")
                           + " bitwise the one-process run's; launches "
                           f"{nonzero(per_slot)} a slot and iteration",
                           flush=True)
@@ -2299,7 +2523,7 @@ def main() -> None:
         {"pallas_edges": {**none, "aggregate_edges": 3},
          "pallas_fused": fused_counts, "reference": none}, agg, flatten,
         layer_capacities, PayloadCodec, block_capacities, NeighborSampler,
-        build_layer_layouts))
+        build_layer_layouts, card))
     print(f"host runtime phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
 

@@ -5,10 +5,9 @@ target vertices, neighbor fanouts (25, 10), on Reddit / Yelp / Amazon /
 ogbn-products (paper Tables 4-7). ``GNNModelConfig`` keeps the model and
 datapath fields flat and groups the host runtime knobs into ``host``,
 ``cache`` and ``fault``, as the reference does. The port runs every
-``host`` and ``fault`` value (the sampler pool and its fault tolerance);
-of ``cache`` only the shipped-rows cap, and the trainer raises
-``NotImplementedError`` for a feature cache, naming its ROADMAP.md item.
-The reference's deprecated flat-kwarg spellings
+value of each: the sampler pool and its fault tolerance, and the feature
+cache (``core/feature_cache.py``) with its shipped-rows cap. The
+reference's deprecated flat-kwarg spellings
 (``cache_capacity=...`` on the config) are not copied: pass the nested
 groups.
 
@@ -38,10 +37,11 @@ class HostConfig:
 
 @dataclass(frozen=True)
 class CacheConfig:
-    """Per-device feature cache: row capacity (None = off), refresh
-    cadence, and the shipped-rows cap (of the resident path's miss rows
-    and of the sampler pool's ring slot; measured when unset and
-    ``auto_ship_rows_cap``). The port runs with the cache off."""
+    """Per-device feature cache: row capacity (None = off; P3 builds no
+    cache), refresh cadence in iterations (0 = at epoch boundaries, the
+    only cadence ``data_parallel`` takes), and the shipped-rows cap (of
+    the resident path's miss rows and of the sampler pool's ring slot;
+    measured when unset and ``auto_ship_rows_cap``)."""
 
     capacity: Optional[int] = None
     refresh_every: int = 0

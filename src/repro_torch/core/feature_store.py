@@ -15,7 +15,7 @@ slice d of every vertex in row d.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -159,24 +159,27 @@ class FeatureStore:
             return max(self.core.slice_width(d) for d in range(self.p))
         return self.g.features.shape[1]
 
-    def build_shard_matrix(self) -> np.ndarray:
+    def build_shard_matrix(self, devices: Optional[Sequence[int]] = None
+                           ) -> np.ndarray:
         """Every device's HBM-resident feature block as one (p, shard_rows,
-        shard_width) float32 matrix. Row-resident strategies: row d holds
+        shard_width) float32 matrix (``devices``: only those rows, in that
+        order). Row-resident strategies: row d holds
         ``features[resident_ids(d)]`` in sorted-id order, zero-padded to
         the largest capacity — the order
         ``ResidencyCore.resident_positions`` indexes into. P3: row d holds
         device d's feature-dimension slice of every vertex, zero-padded to
         the chunk."""
+        devices = range(self.p) if devices is None else devices
         rows, width = self.shard_rows(), self.shard_width()
-        out = np.zeros((self.p, rows, width), np.float32)
-        for d in range(self.p):
+        out = np.zeros((len(devices), rows, width), np.float32)
+        for i, d in enumerate(devices):
             if self.core._all_resident[d]:
                 w = self.core.slice_width(d)
-                out[d, :, :w] = self.g.features[:, self.feature_slice[d]]
+                out[i, :, :w] = self.g.features[:, self.feature_slice[d]]
                 continue
             rid = self.core.resident_ids(d)
             if len(rid):
-                out[d, :len(rid)] = self.g.features[rid]
+                out[i, :len(rid)] = self.g.features[rid]
         return out
 
     def reset_stats(self) -> None:

@@ -18,8 +18,9 @@ This module is the seam between the two: :class:`BatchTask` is the
 mode-neutral unit of sampler work, :class:`BatchSource` yields them in
 *units* (one unit = the payloads one consumer step needs together), and
 :class:`SchedulingCore` streams a source through the pool with a bounded
-submission window. The cache generation stamp stays 0 in the port: the
-residency never changes without a feature cache.
+submission window. Each task carries the feature cache's generation its
+gather must see (the trainer's ``_task_gen``; 0 without a cache, whose
+residency never changes).
 """
 from __future__ import annotations
 

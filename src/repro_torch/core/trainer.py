@@ -66,6 +66,20 @@ the epoch's end, so every rank reports the one-card run's epoch. With
 with error feedback (``distributed.compression``) on either path, as in
 the reference.
 
+With ``cache_capacity`` (or ``CacheConfig(capacity=)``) the static
+residency becomes the reference's frequency-driven cache
+(``core/feature_cache.FeatureCache``; P3 builds none): each consumed real
+batch's layer-0 ids are counted in consumption order, and every
+``cache_refresh_every`` iterations (0: at each epoch's start) the
+top-capacity rows replace every device's resident set under a new
+generation, which the sampler pool's tasks are stamped with. Cached rows
+are copies of host rows, so training is bitwise the cache-off run's;
+only the accounting (hit rate, miss bytes) moves. Under ``data_parallel``
+the cache refreshes at epoch boundaries only, and the next step re-uploads
+the shards; under a mesh each rank counts its own slot's batch and the
+ranks sum the epoch's counts, so every rank admits the one-process run's
+set.
+
 Host stages are bitwise copies of the reference's, so from one seed both
 trainers sample the same batches and build the same layouts. Knobs the port
 does not run yet raise ``NotImplementedError`` naming their ROADMAP.md item.
@@ -83,8 +97,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.gnn import CacheConfig, GNNModelConfig
+from repro_torch.configs.gnn import GNNModelConfig
 from repro_torch.core import scheduler as sched
+from repro_torch.core.feature_cache import FeatureCache
 from repro_torch.core.feature_store import FeatureStore
 from repro_torch.core.partition import Partition, get_partitioner
 from repro_torch.core.pipeline import PipelineStats, PrefetchExecutor
@@ -126,6 +141,10 @@ HOST_KNOBS = ("num_sampler_workers", "balance_policy", "gather_in_workers",
               "worker_affinity")
 FAULT_KNOBS = ("max_respawns", "straggler_timeout_s", "speculative_sampling",
                "fault_spec")
+# the trainer fields that override model_cfg.cache: field -> CacheConfig's
+CACHE_KNOBS = {"cache_capacity": "capacity",
+               "cache_refresh_every": "refresh_every",
+               "ship_rows_cap": "ship_rows_cap"}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -215,9 +234,9 @@ class SyncGNNTrainer:
     pipeline: bool = True                  # overlap host stages w/ device step
     prefetch_depth: int = 2
     aggregate_backend: Optional[str] = None  # overrides model_cfg when set
-    # the sampling service (model_cfg.host) and its fault tolerance
-    # (model_cfg.fault): None inherits the config's value, a value here
-    # overrides it
+    # the sampling service (model_cfg.host), its fault tolerance
+    # (model_cfg.fault) and the feature cache (model_cfg.cache): None
+    # inherits the config's value, a value here overrides it
     num_sampler_workers: Optional[int] = None
     balance_policy: Optional[str] = None
     gather_in_workers: Optional[bool] = None
@@ -227,6 +246,8 @@ class SyncGNNTrainer:
     speculative_sampling: Optional[bool] = None
     fault_spec: Optional[str] = None
     cache_capacity: Optional[int] = None
+    cache_refresh_every: Optional[int] = None
+    ship_rows_cap: Optional[int] = None
     checkpointer: Optional[object] = None
     # "cuda" when None; "cpu" runs the plain PyTorch path
     device: Optional[str] = None
@@ -244,8 +265,11 @@ class SyncGNNTrainer:
                 if getattr(self, k) is not None}
         fault = {k: getattr(self, k) for k in FAULT_KNOBS
                  if getattr(self, k) is not None}
+        cache = {c: getattr(self, k) for k, c in CACHE_KNOBS.items()
+                 if getattr(self, k) is not None}
         self.model_cfg = dataclasses.replace(
             cfg, host=dataclasses.replace(cfg.host, **host),
+            cache=dataclasses.replace(cfg.cache, **cache),
             fault=dataclasses.replace(cfg.fault, **fault))
         host = self.model_cfg.host
         self.num_sampler_workers = host.num_sampler_workers
@@ -276,6 +300,30 @@ class SyncGNNTrainer:
         self.partition: Partition = get_partitioner(part_name)(
             self.graph, self.num_devices, self.seed)
         self.store = FeatureStore(self.graph, self.partition, store_name)
+        # the frequency-driven cache over the store's residency core (None:
+        # the static partition; P3 has every row resident as a slice). It
+        # reseeds the core before anything sizes a buffer from it: the
+        # pool's shared segment (_ensure_pool) and the shard matrix
+        self.cache: Optional[FeatureCache] = None
+        ccfg = self.model_cfg.cache
+        if ccfg.capacity is not None and self.algorithm != "p3":
+            self.cache = FeatureCache(self.store.core,
+                                      self.graph.out_degree(),
+                                      ccfg.capacity, ccfg.refresh_every)
+        if (self.data_parallel and self.cache is not None
+                and ccfg.refresh_every > 0):
+            raise ValueError(
+                "mid-epoch cache refresh (cache_refresh_every > 0) is not "
+                "supported under data_parallel: the device shards upload "
+                "once per epoch. Use epoch-boundary refresh "
+                "(cache_refresh_every=0) or the host gather.")
+        self._iter_no = 0  # synchronous iterations assembled, over all epochs
+        # under a mesh: the cache's counts as of the last sum over the
+        # ranks, and the iteration count then (_sum_counts_over_ranks)
+        self._counts = (self.cache.freq.copy()
+                        if self.cache is not None and self.mesh is not None
+                        else None)
+        self._counts_iter = 0
         self.samplers = [
             NeighborSampler(self.graph, self.model_cfg,
                             self._train_ids(i), i, self.seed)
@@ -304,6 +352,7 @@ class SyncGNNTrainer:
         # batch: every layer-0 row in the worst case, unless ship_rows_cap
         # says fewer.
         self._shard: Optional[torch.Tensor] = None
+        self._shard_gen = 0  # the residency generation the shard holds
         self._miss_cap = 0
         if self.data_parallel:
             cap = self.model_cfg.cache.ship_rows_cap
@@ -345,14 +394,8 @@ class SyncGNNTrainer:
             raise ValueError("num_sampler_workers must be >= 0")
         if self.prefetch_depth < 1:
             raise ValueError("prefetch_depth must be >= 1")
-        # the ship-rows cap alone is no cache: it bounds the rows a batch
-        # ships (data_parallel's miss rows, the pool's ring slot)
-        if self.cache_capacity is not None or dataclasses.replace(
-                cfg.cache, ship_rows_cap=None,
-                auto_ship_rows_cap=True) != CacheConfig():
-            raise _unported(f"cache {cfg.cache} / cache_capacity="
-                            f"{self.cache_capacity} (the feature cache)",
-                            "queue A, item A.6")
+        if cfg.cache.refresh_every < 0:
+            raise ValueError("cache_refresh_every must be >= 0")
         if cfg.cache.ship_rows_cap is not None and cfg.cache.ship_rows_cap < 1:
             raise ValueError("ship_rows_cap must be >= 1")
         if self.checkpointer is not None:
@@ -598,7 +641,8 @@ class SyncGNNTrainer:
         ``payloads`` are those of ``_rank_indices(assignments)`` and only
         this rank's slot is built (``_rank_slot``). All copies run on the
         upload stream and the group records one event after them; no
-        kernel is launched here."""
+        kernel is launched here. With a cache, the group's real batches
+        are then counted (``_observe``)."""
         gather0, fill0 = self._pstats.gather_s, self._ring.fill_s
         stage_s = {"sample_s": sum(p.get("sample_s", 0.0) for p in payloads),
                    "layout_s": sum(p.get("layout_s", 0.0) for p in payloads),
@@ -643,6 +687,7 @@ class SyncGNNTrainer:
             if self._upload_stream is not None:
                 event = torch.cuda.Event()
                 event.record(self._upload_stream)
+        self._observe(placed)
         # the miss rows gathered straight into their slots count as gather
         self._pstats.gather_s += self._ring.fill_s - fill0
         stage_s["gather_s"] = self._pstats.gather_s - gather0
@@ -660,6 +705,24 @@ class SyncGNNTrainer:
         return {"batches": batches, "vertices": vertices,
                 "n_batches": len(assignments), "stage_s": stage_s,
                 "event": event, "uploaded": uploaded}
+
+    def _observe(self, placed: List[tuple]) -> None:
+        """Once an iteration's payloads are consumed: fold each real
+        batch's layer-0 ids into the cache's counter in consumption order
+        (fills, at weight 0, are not counted), then run the cache's
+        iteration hook, which at ``(iter+1) % K == 0`` installs the
+        generation that iteration ``iter+1``'s tasks were stamped with
+        (``_task_gen``). Under a mesh ``placed`` is this rank's slot alone:
+        the ranks sum their counts at the epoch's end
+        (``_sum_counts_over_ranks``). On the prefetch thread when
+        pipelined, as in the reference."""
+        if self.cache is not None:
+            for _, payload, weight in placed:
+                if weight:
+                    mb = payload["minibatch"]
+                    self.cache.observe(mb.nodes[0], mb.node_mask[0])
+            self.cache.end_iteration(self._iter_no)
+        self._iter_no += 1
 
     def _prepare_group(self, assignments: List[sched.Assignment]) -> dict:
         """Stages 1, 2b and 2 and the upload for one synchronous iteration,
@@ -720,16 +783,22 @@ class SyncGNNTrainer:
 
     def _upload_shards(self) -> float:
         """Build every device's resident feature block and put it on the
-        card once, from pinned memory, where it stays for the trainer's
-        life (the reference's ``_upload_shards``): (p, shard_rows, f), or
-        under P3 the (p, V, chunk) slice matrix; under a mesh only this
-        rank's row of it. Returns its seconds: the build, the pinning and
-        the copy. Runs on the main thread before the first step; its
-        synchronize runs once a trainer."""
+        card from pinned memory, where it stays until a cache refresh
+        changes the residency (the reference's ``_upload_shards``):
+        (p, shard_rows, f), or under P3 the (p, V, chunk) slice matrix;
+        under a mesh only this rank's row of it. Returns its seconds: the
+        build, the pinning and the copy. Runs on the main thread before
+        the first step and before the first step of an epoch whose
+        refresh changed the residency; the previous shard is dropped
+        first, after the previous epoch's steps were waited for."""
         t0 = time.perf_counter()
-        mat = self.store.build_shard_matrix()
-        mat = torch.from_numpy(mat[self._rank] if self.mesh is not None
-                               else mat)
+        self._shard = None
+        self._shard_gen = self.store.core.generation
+        if self.mesh is not None:
+            mat = torch.from_numpy(
+                self.store.build_shard_matrix([self._rank])[0])
+        else:
+            mat = torch.from_numpy(self.store.build_shard_matrix())
         if self.device.type == "cuda":
             self._shard = mat.pin_memory().to(self.device, non_blocking=True)
             torch.cuda.synchronize(self.device)
@@ -758,7 +827,12 @@ class SyncGNNTrainer:
         the device computes."""
         shard_s = None
         if self.data_parallel:
-            shard_s = self._upload_shards() if self._shard is None else 0.0
+            # a cache refresh at the epoch's start changes the residency
+            # (under data_parallel only there): re-upload before its first
+            # step
+            stale = (self._shard is None
+                     or self._shard_gen != self.store.core.generation)
+            shard_s = self._upload_shards() if stale else 0.0
         t0 = time.perf_counter()
         loss, acc, grads = self._grads(self._receive(prepared))
         if self.grad_compression:
@@ -786,8 +860,8 @@ class SyncGNNTrainer:
         upload — the host's share of the copies, which run asynchronously
         — and the device step up to its metrics being read); under
         ``data_parallel`` also the miss rows shipped (``miss_rows``) and
-        the seconds of the shard upload (``shard_upload_s``, 0 after the
-        first step)."""
+        the seconds of the shard upload (``shard_upload_s``, 0 but on the
+        first step and the first after a cache refresh)."""
         return self._execute(self._prepare_group(assignments))
 
     # -- the sampling service ---------------------------------------------------
@@ -849,14 +923,35 @@ class SyncGNNTrainer:
         cap = suggest_ship_rows_cap(counts, percentile=100.0, margin=1.25)
         return min(cap, layer_capacities(cfg)[0][0])
 
+    def _task_gen(self, global_iter: int) -> int:
+        """The cache generation the batches of synchronous iteration
+        ``global_iter`` are gathered against (the reference's stamp): 0
+        without a cache (the residency never changes); ``global_iter // K``
+        with refresh every K iterations, installed at the end of iteration
+        ``global_iter // K * K - 1``'s assembly, after every payload of the
+        previous generation was consumed; the current generation, constant
+        within the epoch, with epoch-boundary refresh."""
+        if self.cache is None:
+            return 0
+        K = self.model_cfg.cache.refresh_every
+        return global_iter // K if K > 0 else self.cache.generation
+
     # -- the synchronous loop ---------------------------------------------------
     def run_epoch(self) -> dict:
         """One synchronous epoch; returns the batch-weighted mean of the
-        step metrics plus the epoch's throughput, traffic, host-runtime and
-        sampling-service figures (the reference's keys)."""
+        step metrics plus the epoch's throughput, traffic, host-runtime,
+        sampling-service and cache figures (the reference's keys)."""
         for s in self.samplers:
             s.reset_epoch()
+        # per-epoch accounting, then the cache's epoch hook (its counters'
+        # reset and, at K = 0, the refresh), both before any task is
+        # submitted, so tasks stamp the refreshed generation; under
+        # data_parallel a refresh re-uploads the shards before the first
+        # step (_execute)
         self.store.reset_stats()
+        if self.cache is not None:
+            self._sum_counts_over_ranks()
+            self.cache.start_epoch()
         self._balancer = sched.LoadBalancer(self.num_devices,
                                             self.balance_policy)
         schedule = self.epoch_schedule()
@@ -865,10 +960,15 @@ class SyncGNNTrainer:
         pstats = self._pstats = PipelineStats()
         # one unit per iteration group, tasks addressed by pure RNG
         # coordinates (partition, epoch, batch_index); a.device is the
-        # scheduler's static target, the device a worker gathers for
-        source = EpochSource(groups, self.samplers[0].epoch)
+        # scheduler's static target, the device a worker gathers for, and
+        # the stamp the cache generation it gathers against
+        base = self._iter_no
+        source = EpochSource(groups, self.samplers[0].epoch,
+                             gen_for_group=lambda gi: self._task_gen(
+                                 base + gi))
         if self.mesh is not None:
-            # a rank samples (in-process or in its pool) only what it needs
+            # a rank samples (in-process or in its pool) only what it
+            # needs; the tasks keep their stamps
             source = IterableSource(
                 (g, [tasks[j] for j in self._rank_indices(g)])
                 for g, tasks in source.units())
@@ -961,6 +1061,7 @@ class SyncGNNTrainer:
             vertices, wall = self._sum_over_ranks(vertices, wall, pstats)
         stats = sched.schedule_stats(schedule, self.num_devices)
         n_iter = stats["iterations"]
+        cache = self.cache
         local_rows = sum(s.local_rows for s in self.store.stats)
         host_rows = sum(s.host_rows for s in self.store.stats)
         host_bytes = sum(s.host_bytes for s in self.store.stats)
@@ -1009,7 +1110,14 @@ class SyncGNNTrainer:
                                    if total_rows else 1.0),
                 "miss_bytes": host_bytes,
                 "miss_bytes_per_iter": (host_bytes / n_iter
-                                        if n_iter else 0.0)}
+                                        if n_iter else 0.0),
+                # every process applies each admitted set to every
+                # device's residency: whole on each rank, never summed
+                "cache_enabled": cache is not None,
+                "cache_admissions": cache.admissions_epoch if cache else 0,
+                "cache_evictions": cache.evictions_epoch if cache else 0,
+                "cache_refresh_bytes": (cache.refresh_bytes_epoch if cache
+                                        else 0)}
 
     def _sum_over_ranks(self, vertices: int, wall: float,
                         pstats: PipelineStats) -> tuple:
@@ -1017,8 +1125,9 @@ class SyncGNNTrainer:
         this rank's counters — its slots' vertices, ring bytes and store
         accounting, its device's balancer load (each rank counted only
         its own slot's batches) and, from rank 0 alone, the wall time —
-        after which every rank holds the one-card epoch's counters.
-        Returns (vertices, rank 0's wall seconds)."""
+        after which every rank holds the one-card epoch's counters, and
+        the cache's access counts (``_sum_counts_over_ranks``). Returns
+        (vertices, rank 0's wall seconds)."""
         fields = [f.name for f in dataclasses.fields(GatherStats)]
         own = [self._balancer.load[d] if d == self._rank else 0.0
                for d in range(self.num_devices)]
@@ -1036,7 +1145,27 @@ class SyncGNNTrainer:
         for st in self.store.stats:
             for f in fields:
                 setattr(st, f, int(next(it)))
+        self._sum_counts_over_ranks()
         return int(vals[0]), vals[2]
+
+    def _sum_counts_over_ranks(self) -> None:
+        """Under a mesh with a cache: one ``all_reduce`` (sum) of the
+        int64 access counts this rank added since the last call (V x 8
+        bytes). A rank counts only its own slot's batches, and integer
+        sums are exact in any order, so afterwards every rank's counter is
+        the one-card run's and every refresh admits its set. Runs at each
+        epoch's end and, for counts ``run_iteration`` added since, before
+        the next epoch's refresh; every rank calls it alike (the condition
+        is the iteration count, the same on each)."""
+        if (self.mesh is None or self.cache is None
+                or self._iter_no == self._counts_iter):
+            return
+        delta = torch.from_numpy(self.cache.freq - self._counts).to(
+            self.device)
+        dist.all_reduce(delta, group=self._group)
+        self.cache.freq = self._counts + delta.cpu().numpy()
+        self._counts = self.cache.freq.copy()
+        self._counts_iter = self._iter_no
 
     def train(self, epochs: int = 1) -> List[dict]:
         return [self.run_epoch() for _ in range(epochs)]
@@ -1044,11 +1173,14 @@ class SyncGNNTrainer:
     # -- lifecycle --------------------------------------------------------------
     def close(self) -> None:
         """Tear down the sampling service (worker processes and shared-
-        memory segments). Idempotent; trainers without workers are
-        no-ops."""
+        memory segments) and join any ranking thread of the cache without
+        installing its set. Idempotent; trainers without workers or cache
+        are no-ops."""
         if getattr(self, "_pool", None) is not None:
             self._pool.close()
             self._pool = None
+        if getattr(self, "cache", None) is not None:
+            self.cache.close()
 
     def __enter__(self) -> "SyncGNNTrainer":
         return self

@@ -262,3 +262,51 @@ def test_feature_store_gather_bitwise(algo, p):
         np.testing.assert_array_equal(js.core.resident_ids(d),
                                       ts.core.resident_ids(d))
     assert js.beta() == ts.beta()
+
+
+@pytest.mark.parametrize("refresh_every", [0, 2])
+@pytest.mark.parametrize("algo", ["distdgl", "pagraph"])
+def test_feature_cache_and_cached_gather_bitwise(algo, refresh_every):
+    """The copied feature cache: seeded, fed the same batches and
+    refreshed on the same schedule, it leaves the reference's residency,
+    counter and accounting, and the store gathers the same blocks with the
+    same beta accounting through it."""
+    from repro.core.feature_cache import FeatureCache as JCache
+    from repro_torch.core.feature_cache import FeatureCache as TCache
+    jg, tg = _graphs()
+    part = {"distdgl": "metis_like", "pagraph": "pagraph"}[algo]
+    js = JStore(jg, j_partitioner(part)(jg, 2, 0), algo)
+    ts = TStore(tg, t_partitioner(part)(tg, 2, 0), algo)
+    cap = min(ts.num_resident(d) for d in range(2)) // 3
+    jc = JCache(js.core, jg.out_degree(), cap, refresh_every)
+    tc = TCache(ts.core, tg.out_degree(), cap, refresh_every)
+    js_, _ = _samplers(batch=8)
+    try:
+        for epoch in range(3):
+            jc.start_epoch()
+            tc.start_epoch()
+            for it in range(2):
+                for i in range(2):
+                    mb = js_.batch_at(epoch, 2 * it + i)
+                    for d in range(2):
+                        a = js.gather(d, mb.nodes[0], mb.node_mask[0])
+                        b = ts.gather(d, mb.nodes[0], mb.node_mask[0])
+                        np.testing.assert_array_equal(a, b)
+                    jc.observe(mb.nodes[0], mb.node_mask[0])
+                    tc.observe(mb.nodes[0], mb.node_mask[0])
+                jc.end_iteration(2 * epoch + it)
+                tc.end_iteration(2 * epoch + it)
+            np.testing.assert_array_equal(jc.freq, tc.freq)
+            assert ((jc.generation, jc.refreshes, jc.admissions_epoch,
+                     jc.evictions_epoch, jc.refresh_bytes_epoch)
+                    == (tc.generation, tc.refreshes, tc.admissions_epoch,
+                        tc.evictions_epoch, tc.refresh_bytes_epoch))
+            for d in range(2):
+                np.testing.assert_array_equal(js.core.resident_ids(d),
+                                              ts.core.resident_ids(d))
+                assert dataclasses.astuple(js.stats[d]) == \
+                    dataclasses.astuple(ts.stats[d])
+        assert tc.refreshes >= 2 and tc.admissions_total > 0
+    finally:
+        jc.close()
+        tc.close()

@@ -19,6 +19,10 @@ so their float sums split alike. Held here:
   among them) and in the parameters, and pipelined equals sequential; so
   do epochs whose idle slots run weight-0 fills; at p = 2, 2 sampler
   workers a rank (sampling, and gathering) equal 0;
+* at p = 2 two DistDGL epochs with the feature cache (refresh at the
+  epoch boundary) equal the one-process run's, the cache's keys, its
+  counter (each rank counts its own slot, the ranks sum at the epoch's
+  end), resident sets and generation included;
 * ``p3_all_to_all_feats`` equals ``assemble_p3_feats`` and
   ``FeatureStore.gather_p3_full`` bit for bit;
 * at p = 2 the mesh run stays within rtol 1e-5 (losses) of the
@@ -51,6 +55,9 @@ ALGOS = ("distdgl", "pagraph", "p3")
 BACKENDS = ("reference", "pallas_edges", "pallas_fused")
 ITERATIONS = 3
 RTOL = 1e-5
+# the cache of the mesh's cached run: a quarter of a device's static share
+# at p = 2, refreshed at the epoch boundary
+CACHE_KW = dict(cache_capacity=256, cache_refresh_every=0)
 # the epoch keys every run reports alike, with or without sampler workers
 ACCOUNTING = ("loss", "acc", "beta", "miss_bytes", "miss_bytes_per_iter",
               "cache_hit_rate", "vertices_traversed", "iterations",
@@ -256,6 +263,9 @@ def _jobs(p, reference=None):
         jobs["workers_gather/distdgl"] = dict(
             algo="distdgl", backend="reference", p=p, kind="epoch",
             kw=dict(num_sampler_workers=2, gather_in_workers=True))
+        jobs["cache/distdgl"] = dict(algo="distdgl", backend="reference",
+                                     p=p, kind="epoch", epochs=2,
+                                     kw=CACHE_KW)
     return jobs
 
 
@@ -364,6 +374,46 @@ def test_sampler_workers_equal_none(runs, key):
         assert got["stats"] == want["stats"]
         assert _same_bits(got["params"], want["params"])
         assert got["epoch"]["ring_bytes"] > 0
+
+
+def test_cache_epochs_bitwise_the_one_process_run(runs):
+    """Every rank's two cached epochs, parameters, counter, resident sets
+    and generation are the one-process run's; the second epoch ran on the
+    admitted set (admissions, a new generation)."""
+    one, ranks = runs(2)
+    want = one["cache/distdgl"]
+    assert want["epochs"][1]["cache_admissions"] > 0
+    assert want["cache"]["generation"] == 1
+    assert want["epochs"][0]["cache_enabled"]
+    for rank, res in enumerate(ranks):
+        got = res["cache/distdgl"]
+        assert got["epochs"] == want["epochs"], rank
+        assert got["stats"] == want["stats"], rank
+        assert _same_bits(got["params"], want["params"]), rank
+        np.testing.assert_array_equal(got["cache"]["freq"],
+                                      want["cache"]["freq"])
+        assert got["cache"]["generation"] == want["cache"]["generation"]
+        for a, b in zip(got["cache"]["resident"], want["cache"]["resident"]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cached_resident_epochs_on_card_pipelined_bitwise_sequential():
+    """On the card: two resident epochs with the cache at p = 2 on
+    ``"pallas_fused"`` (the second on the admitted set, its shards
+    re-uploaded), pipelined bitwise sequential in every epoch key and the
+    parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    job = dict(algo="distdgl", backend="pallas_fused", p=2, kind="epoch",
+               epochs=2)
+    seq = run_job(dict(job, kw=dict(CACHE_KW, pipeline=False)), "cuda:0")
+    pipe = run_job(dict(job, kw=CACHE_KW), "cuda:0")
+    assert seq["epochs"] == pipe["epochs"]
+    assert seq["epochs"][1]["cache_admissions"] > 0
+    assert _same_bits(seq["params"], pipe["params"])
+    np.testing.assert_array_equal(seq["cache"]["freq"],
+                                  pipe["cache"]["freq"])
 
 
 @pytest.mark.parametrize("p", [2, 4])

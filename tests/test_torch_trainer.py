@@ -5,8 +5,8 @@ DistDGL and PaGraph with 1 and 2 devices, and of GraphSAGE, GCN and GIN on
 ``"pallas_fused"`` and on ``"pallas"`` (the reference's fused datapath and
 GIN under the test-local ``jax_shims``), plus the ``train()`` facade, the
 device rule, the layout and aggregate bytes of each datapath, the knobs
-the port does not run yet, and the host runtime's knobs, GAT, P3, the mesh
-and gradient compression, which run (the ``gpu`` cases run the mesh on the
+the port does not run yet, and the host runtime's knobs, the feature
+cache, GAT, P3, the mesh and gradient compression, which run (the ``gpu`` cases run the mesh on the
 card against the one-process run)."""
 import dataclasses
 import functools
@@ -213,12 +213,6 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 UNPORTED = {
-    "cache": dict(cache_capacity=100),
-    "cache_cfg": dict(cfg=dict(cache=CacheConfig(capacity=100))),
-    "cache_refresh_cfg": dict(cfg=dict(cache=CacheConfig(refresh_every=2))),
-    "data_parallel_cache": dict(data_parallel=True, cache_capacity=100),
-    "data_parallel_cache_cfg": dict(data_parallel=True, cfg=dict(
-        cache=CacheConfig(capacity=100, ship_rows_cap=64))),
     "checkpointer": dict(checkpointer=object()),
     "sgdm": dict(optimizer_name="sgdm"),
 }
@@ -256,6 +250,52 @@ def test_ported_matrix_cells_run(knob):
             assert m["beta"] == 1.0 and m["miss_bytes"] == 0
         for leaf in flatten(t.params):
             assert torch.isfinite(leaf).all()
+
+
+# the feature cache's knobs, which raised until the cache was ported
+# (ROADMAP A.6): each now runs, at epoch-boundary refresh under
+# data_parallel
+PORTED_CACHE = {
+    "cache": dict(cache_capacity=100),
+    "cache_cfg": dict(cfg=dict(cache=CacheConfig(capacity=100))),
+    "cache_refresh_cfg": dict(cfg=dict(cache=CacheConfig(refresh_every=2))),
+    "data_parallel_cache": dict(data_parallel=True, cache_capacity=100),
+    "data_parallel_cache_cfg": dict(data_parallel=True, cfg=dict(
+        cache=CacheConfig(capacity=100, ship_rows_cap=640))),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(PORTED_CACHE))
+def test_ported_cache_knobs_run(knob):
+    """Each former ``NotImplementedError`` cell runs one epoch on the CPU
+    at p = 1: finite metrics, every batch trained, the cache on exactly
+    when a capacity is set (a cadence alone is no cache), holding that
+    many rows, with a hit rate strictly between 0 and 1."""
+    kw = dict(PORTED_CACHE[knob])
+    cfg = TCfg(**{"name": "graphsage", **SMALL, **kw.pop("cfg", {})})
+    with TTrainer(G, cfg, num_devices=1, device="cpu", **kw) as t:
+        m = t.run_epoch()
+        assert np.isfinite(m["loss"]) and 0.0 <= m["acc"] <= 1.0
+        assert m["batches"] == sum(s.epoch_batches() for s in t.samplers)
+        on = t.model_cfg.cache.capacity is not None
+        assert m["cache_enabled"] is on and (t.cache is not None) is on
+        if on:
+            assert t.store.core.num_resident(0) == 100
+            assert 0.0 < m["cache_hit_rate"] < 1.0
+        else:
+            assert m["cache_hit_rate"] == 1.0
+        for leaf in flatten(t.params):
+            assert torch.isfinite(leaf).all()
+
+
+def test_data_parallel_cache_refuses_a_midepoch_refresh():
+    """``data_parallel_cache``'s mid-epoch form: the shards upload once an
+    epoch, so a refresh every K > 0 iterations raises the reference's
+    ``ValueError``."""
+    cfg = TCfg("graphsage", **SMALL)
+    with pytest.raises(ValueError, match="mid-epoch cache refresh"):
+        TTrainer(G, cfg, num_devices=1, device="cpu", data_parallel=True,
+                 cache_capacity=100, cache_refresh_every=2)
 
 
 # the knobs that raised until data parallelism over ranks and gradient

@@ -6,8 +6,10 @@ by name, so ``rank_jobs`` lives here, in a module without JAX.
 
 A job is a dict: ``algo``, ``backend``, ``p``, ``kind`` (``"iterations"``:
 the first ``n`` groups of the epoch schedule through ``run_iteration``;
-``"epoch"``: one ``run_epoch``; ``"p3_exchange"``: the P3 layer-0 block of
-seeded batches by ``p3_all_to_all_feats`` and by ``assemble_p3_feats``),
+``"epoch"``: ``epochs`` (default 1) ``run_epoch`` calls, with the cache's
+counter, resident sets and generation when the trainer has a cache;
+``"p3_exchange"``: the P3 layer-0 block of seeded batches by
+``p3_all_to_all_feats`` and by ``assemble_p3_feats``),
 optional ``kw`` (trainer keywords), ``cfg`` (fields of the model
 config over ``SMALL``) and ``params`` (numpy; default the port's seeded
 init). Results hold numpy arrays and Python values only.
@@ -35,7 +37,9 @@ EPOCH_KEYS = ("loss", "acc", "lr", "grad_norm", "batches", "iterations",
               "utilization", "mesh_devices", "fill_slots",
               "vertices_traversed", "beta", "load_imbalance", "ring_bytes",
               "ring_bytes_per_iter", "cache_hit_rate", "miss_bytes",
-              "miss_bytes_per_iter", "pool_respawns", "pool_degraded")
+              "miss_bytes_per_iter", "pool_respawns", "pool_degraded",
+              "cache_enabled", "cache_admissions", "cache_evictions",
+              "cache_refresh_bytes")
 
 _GRAPH = {}
 
@@ -117,11 +121,19 @@ def run_job(job, device="cpu", mesh=None) -> dict:
                     "shard_is_own_row": mesh is not None and np.array_equal(
                         shard, tr.store.build_shard_matrix()[
                             mesh.get_local_rank("data")])}
-        m = tr.run_epoch()
-        return {"epoch": {k: m[k] for k in EPOCH_KEYS},
-                "stats": [(st.local_rows, st.host_rows, st.local_bytes,
-                           st.host_bytes) for st in tr.store.stats],
-                "params": _params(tr)}
+        ms = tr.train(job.get("epochs", 1))
+        res = {"epoch": {k: ms[-1][k] for k in EPOCH_KEYS},
+               "epochs": [{k: m[k] for k in EPOCH_KEYS} for m in ms],
+               "stats": [(st.local_rows, st.host_rows, st.local_bytes,
+                          st.host_bytes) for st in tr.store.stats],
+               "params": _params(tr)}
+        if tr.cache is not None:
+            res["cache"] = {
+                "freq": tr.cache.freq.copy(),
+                "generation": tr.cache.generation,
+                "resident": [tr.store.core.resident_ids(d).copy()
+                             for d in range(job["p"])]}
+        return res
 
 
 def rank_jobs(rank, mesh, device, jobs):

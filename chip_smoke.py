@@ -200,6 +200,28 @@ init. Phases, each of which exits non-zero on failure:
      (``torch.profiler`` with CUDA activity only, which keeps it off the
      host's path) for its kernels, busy milliseconds (the union of the
      kernels' and copies' intervals) and idle share;
+  5b. checkpoints (``checkpoint.checkpointing.Checkpointer``,
+     ``SyncGNNTrainer(checkpointer=, checkpoint_every=)``): the cache
+     family's resident configuration (GraphSAGE on ``"pallas_fused"``,
+     p = 4, round-robin, epoch-boundary refresh) for 2 sequential epochs
+     saved every 2 iterations (the twin), then a fresh trainer that
+     restores epoch 2's second-iteration checkpoint
+     (``restore_checkpoint``) and finishes the epoch
+     (``run_epoch(resume=True)``), sequentially and with 4 workers that
+     gather; each must end bitwise the twin in parameters, optimizer
+     state, the cache's counter, resident sets, generation and counters,
+     launch its iterations times phase 4's counts (times p), and the
+     pooled run's shared segment must hold the restored generation.
+     ``checkpoint`` lines give the twin's saves (the main thread's
+     snapshot seconds, the write thread's seconds, of which waiting for
+     the card's copies, and the bytes on disk) and each resumed run's
+     ``restore_s`` and seconds an iteration beside the twin's. Then three
+     iterations of GraphSAGE on ``"pallas_fused"`` at p = 1 with
+     ``optimizer_name="sgdm"``: phase 4's counts an iteration, its first
+     loss within rtol 1e-4 of ``"reference"``, and every loss, the
+     momentum and each parameter's update (beside the parameter's
+     rounding, an ulp a step) within rtol 1e-4 of the same iterations
+     run by the port on the CPU;
   6. data parallelism over ranks (``SyncGNNTrainer(mesh=...)``, one
      process a rank, started by ``distributed.launch.spawn_data_parallel``
      with the graph attached from shared memory): GraphSAGE on
@@ -222,8 +244,11 @@ init. Phases, each of which exits non-zero on failure:
      job runs two epochs with the feature cache (``MESH_CACHE_EPOCHS``)
      and
      must equal the one-process run in the cache's keys, its counter and
-     resident sets too. Two ranks on
-     one card share its SMs and memory: their times say nothing of two
+     resident sets too; a gloo p = 2 checkpoint job runs phase 5b's twin
+     and resume at p = 2 (rank 0 writes the arrays, each rank its own
+     manifest) and every rank's resumed parameters must equal its
+     uninterrupted ones and the one-process run's, bit for bit. Two ranks
+     on one card share its SMs and memory: their times say nothing of two
      cards;
   7. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
      ``ops.aggregate_update`` (fused, and with ``use_pallas=False``) on
@@ -290,6 +315,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -323,14 +349,17 @@ HOST_FAULT = "kill@0.1.13"
 # the mesh phase: one process a rank under torch.distributed, GraphSAGE on
 # "pallas_fused", resident; (backend, ranks, {job: (algorithm, kind)}),
 # kind "iterations" (MESH_ITERATIONS of them), "epoch" (those, then one
-# epoch) or "cache" (MESH_CACHE_EPOCHS epochs with the feature cache):
+# epoch), "cache" (MESH_CACHE_EPOCHS epochs with the feature cache) or
+# "checkpoint" (2 epochs saved every CKPT_EVERY iterations, then
+# a fresh trainer resumed from epoch 2's second iteration):
 # NCCL at p = 1, and gloo at p = 2 with both ranks on the one card (NCCL
 # refuses two ranks on one card)
 MESH_ITERATIONS = 3
 MESH_RUNS = (("nccl", 1, {"distdgl": ("distdgl", "epoch")}),
              ("gloo", 2, {"distdgl": ("distdgl", "epoch"),
                           "p3": ("p3", "iterations"),
-                          "distdgl/cache": ("distdgl", "cache")}))
+                          "distdgl/cache": ("distdgl", "cache"),
+                          "distdgl/checkpoint": ("distdgl", "checkpoint")}))
 MESH_EPOCH_KEYS = ("loss", "acc", "lr", "grad_norm", "batches",
                    "iterations", "utilization", "mesh_devices",
                    "fill_slots", "vertices_traversed", "beta",
@@ -349,6 +378,14 @@ CACHE_P = 4
 CACHE_EPOCHS = 3
 CACHE_K = 4
 CACHE_K_EPOCHS = 2
+# the checkpoint phase: the cache family's resident configuration (p = 4,
+# round-robin, epoch-boundary refresh), two sequential epochs saved every
+# CKPT_EVERY iterations, resumed from epoch 2's second iteration
+# sequentially and with CKPT_WORKERS workers that gather; then
+# SGDM_ITERATIONS iterations with SGDM at p = 1
+CKPT_EVERY = 2
+CKPT_WORKERS = 4
+SGDM_ITERATIONS = 3
 CACHE_KEYS = ("cache_enabled", "cache_hit_rate", "miss_bytes",
               "miss_bytes_per_iter", "beta", "cache_admissions",
               "cache_evictions", "cache_refresh_bytes")
@@ -1614,7 +1651,6 @@ def machine_facts(graph, cfg, workers, p_max, layer_capacities,
     and the largest ring (slots of the worst-case payload: every layer-0
     row shipped) of any pool this phase starts; fails if it cannot."""
     import os
-    import shutil
     from repro_torch.core.sampler_pool import FeatureShipSpec
     aff = sorted(os.sched_getaffinity(0))
     shm = shutil.disk_usage("/dev/shm")
@@ -1935,6 +1971,245 @@ def cache_family(run, graph, card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# checkpoints and mid-epoch resume; SGDM
+# ---------------------------------------------------------------------------
+
+def checkpoint_dir(name: str) -> Path:
+    """A fresh directory for one run's checkpoints, under the checkout's
+    ``build/`` (git-ignored; the phase removes it)."""
+    d = Path(__file__).resolve().parent / "build" / "checkpoints" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def trainer_state(tr, flatten) -> dict:
+    """What a resumed run must match bit for bit: parameters, optimizer
+    state and, with a cache, its counter, resident sets, generation and
+    counters; on the host."""
+    state = {"params": [q.detach().cpu() for q in flatten(tr.params)],
+             "opt": {k: (v if k == "step" else [q.cpu() for q in v])
+                     for k, v in tr.opt_state.items()}}
+    c = tr.cache
+    if c is not None:
+        state["cache"] = {
+            "freq": c.freq.copy(), "generation": c.generation,
+            "resident": [c.core.resident_ids(d).copy()
+                         for d in range(c.core.num_devices)],
+            "counters": (c.admissions_total, c.evictions_total,
+                         c.refresh_bytes_total, c.refreshes,
+                         c.admissions_epoch, c.evictions_epoch,
+                         c.refresh_bytes_epoch, c._epochs_run)}
+    return state
+
+
+def same_state(a: dict, b: dict) -> bool:
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return x.dtype == y.dtype and torch.equal(x, y)
+        if isinstance(x, np.ndarray):
+            return np.array_equal(x, y)
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y
+    return same(a, b)
+
+
+def checkpoint_phase(SyncGNNTrainer, Checkpointer, graph, cfg, params0,
+                     groups, ref_loss, fused_counts, agg, flatten, card,
+                     runs) -> None:
+    """Phase 5b: the cache family's resident configuration (GraphSAGE,
+    ``"pallas_fused"``, p = 4, round-robin, a quarter of the smallest
+    DistDGL static share cached a device, refreshed at epoch boundaries)
+    through ``torch_mesh_jobs.checkpointed_twin`` and ``resume``: 2
+    sequential epochs saved
+    every ``CKPT_EVERY`` iterations (the twin); a fresh trainer restores
+    epoch 2's second-iteration checkpoint and finishes the epoch
+    sequentially, and another with ``CKPT_WORKERS`` workers that gather:
+    each must end bitwise the twin in parameters, optimizer state, the
+    cache's counter, resident sets, generation and counters, with the
+    launch counts of its iterations, and the pooled one's shared segment
+    at the restored generation. Then ``SGDM_ITERATIONS`` iterations of
+    GraphSAGE on ``"pallas_fused"`` at p = 1 with
+    ``optimizer_name="sgdm"``: phase 4's counts an iteration, its first
+    loss within rtol 1e-4 of ``"reference"``, and every loss, the
+    momentum and the parameters' update within rtol 1e-4 of the same run
+    on the CPU (``sgdm_path``). One ``checkpoint`` line a run."""
+    from repro_torch.core.feature_store import FeatureStore
+    from repro_torch.core.partition import get_partitioner
+    from torch_mesh_jobs import checkpointed_twin, resume
+    store = FeatureStore(graph, get_partitioner("metis_like")(
+        graph, CACHE_P, SEED), "distdgl")
+    capacity = min(store.num_resident(d) for d in range(CACHE_P)) // 4
+    del store
+    per_iter = {k: CACHE_P * v for k, v in fused_counts.items()}
+    cfg_f = dataclasses.replace(cfg, aggregate_backend="pallas_fused")
+    d = checkpoint_dir("phase5b")
+
+    def state(tr):
+        out = trainer_state(tr, flatten)
+        out["pool_generation"] = (None if tr._pool is None else int(
+            tr.store.core._shared_mirror._meta[0]))
+        return out
+
+    def timed_for(label):
+        def timed(run, fn):
+            torch.cuda.synchronize()
+            agg.reset_launch_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            launches = dict(agg.launch_counts)
+            iterations = (sum(m["iterations"] for m in out) if run == "twin"
+                          else out["iterations"] - 2)
+            want = {k: iterations * v for k, v in per_iter.items()}
+            if launches != want:
+                fail(f"{label}: {iterations} iterations launched "
+                     f"{launches}, expected {want}")
+            runs[label] = {"launches": launches}
+            return out
+        return timed
+
+    def maker(**kw):
+        return lambda **extra: SyncGNNTrainer(
+            graph, cfg_f, num_devices=CACHE_P, algorithm="distdgl",
+            seed=SEED, device="cuda", params=params0, data_parallel=True,
+            cache_capacity=capacity, cache_refresh_every=0,
+            checkpointer=Checkpointer(str(d), keep=1000), **kw, **extra)
+
+    label = f"checkpoint/pallas_fused/p{CACHE_P}/twin"
+    twin = checkpointed_twin(maker(pipeline=False), str(d), state,
+                             every=CKPT_EVERY, timed=timed_for(label))
+    torch.cuda.empty_cache()
+    ms = twin["epochs"]
+    saves = sorted(twin["saves"], key=lambda x: x["step"])
+    print("checkpoint " + json.dumps({
+        "path": label, "card": card, "capacity": capacity,
+        "checkpoint_every": CKPT_EVERY,
+        "epoch_iteration_s": [m["epoch_time_s"] / m["iterations"]
+                              for m in ms],
+        "saves": len(saves),
+        "snapshot_s": [x["snapshot_s"] for x in saves],
+        "write_s": [x["write_s"] for x in saves],
+        "copy_wait_s": [x["copy_wait_s"] for x in saves],
+        "bytes": [x["bytes"] for x in saves],
+        "launches": nonzero(runs[label]["launches"])}), flush=True)
+    want = dict(twin["twin"])
+    want.pop("pool_generation")
+    for name, kw in (("sequential", dict(pipeline=False)),
+                     (f"pipelined/{CKPT_WORKERS}_workers/gather",
+                      dict(num_sampler_workers=CKPT_WORKERS,
+                           gather_in_workers=True))):
+        label = f"checkpoint/pallas_fused/p{CACHE_P}/resume/{name}"
+        r = resume(maker(**kw), twin["step"], state, timed_for(label))
+        torch.cuda.empty_cache()
+        got = dict(r["resumed"])
+        shared = got.pop("pool_generation")
+        if shared is not None and shared != got["cache"]["generation"]:
+            fail(f"{label}: the pool's shared segment holds generation "
+                 f"{shared}, the cache {got['cache']['generation']}")
+        if not same_state(got, want):
+            fail(f"{label}: parameters, optimizer state or cache state "
+                 f"differ from the uninterrupted twin's")
+        print(f"{label}: parameters, optimizer state (step "
+              f"{got['opt']['step']}), the cache's counter, resident "
+              f"sets, generation {got['cache']['generation']} and "
+              f"counters bitwise the uninterrupted twin's", flush=True)
+        m = r["resumed_epoch"]
+        left = m["iterations"] - 2
+        print("checkpoint " + json.dumps({
+            "path": label, "card": card, "step": twin["step"],
+            "restore_s": r["restore_s"], "iterations": left,
+            "iteration_s": m["epoch_time_s"] / left,
+            "twin_iteration_s": ms[1]["epoch_time_s"] / ms[1]["iterations"],
+            "pool_generation": shared,
+            "launches": nonzero(runs[label]["launches"])}), flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    sgdm_path(SyncGNNTrainer, graph, cfg_f, params0, groups, ref_loss,
+              fused_counts, agg, flatten, card, runs)
+
+
+def sgdm_path(SyncGNNTrainer, graph, cfg_f, params0, groups, ref_loss,
+              fused_counts, agg, flatten, card, runs) -> None:
+    """``SGDM_ITERATIONS`` iterations of GraphSAGE on ``"pallas_fused"``
+    at p = 1 with ``optimizer_name="sgdm"`` on the card and, from the same
+    parameters over the same batches, on the CPU (the plain versions):
+    phase 4's launch counts an iteration, the first loss within
+    ``LOSS_RTOL`` of ``"reference"``; every loss, each momentum leaf and
+    each leaf's update (final parameters less the initial ones) within
+    ``LOSS_RTOL`` of the CPU run's, as a largest absolute error over the
+    leaf's largest magnitude. The update also has the rounding of the
+    parameter at each step: a layer-0 weight's update is a few thousand
+    ulps of the weight, so each iteration may round it one ulp apart, at
+    most ``eps`` times the leaf's largest parameter. A momentum, rate or
+    dtype gone wrong on the card moves both by far more."""
+    label = "graphsage/pallas_fused/sgdm"
+    sgdm = {}
+    for device in ("cuda", "cpu"):
+        tr = SyncGNNTrainer(graph, cfg_f, num_devices=1,
+                            algorithm="distdgl", seed=SEED, device=device,
+                            params=params0, optimizer_name="sgdm")
+        p0 = [q.detach().cpu().clone() for q in flatten(tr.params)]
+        t0 = time.perf_counter()
+        if device == "cuda":
+            runs[label] = run_path(label, tr, groups[:SGDM_ITERATIONS],
+                                   fused_counts, agg)
+            steps = runs[label]["steps"]
+        else:
+            steps = [tr.run_iteration(g) for g in groups[:SGDM_ITERATIONS]]
+        sgdm[device] = {
+            "s": time.perf_counter() - t0,
+            "losses": [m["loss"] for m in steps],
+            "lrs": [m["lr"] for m in steps],
+            "has_grad_norm": "grad_norm" in steps[0],
+            "update": [q.detach().cpu() - a
+                       for q, a in zip(flatten(tr.params), p0)],
+            "p_max": [max(float(q.detach().abs().max()),
+                          float(a.abs().max()))
+                      for q, a in zip(flatten(tr.params), p0)],
+            "m": [q.detach().cpu() for q in tr.opt_state["m"]],
+            "step": tr.opt_state["step"]}
+        del tr
+    torch.cuda.empty_cache()
+    check_first_loss(label, runs[label], ref_loss)
+    card_run, cpu_run = sgdm["cuda"], sgdm["cpu"]
+    if not np.allclose(card_run["losses"], cpu_run["losses"],
+                       rtol=LOSS_RTOL, atol=0):
+        fail(f"{label}: losses {card_run['losses']} on the card, "
+             f"{cpu_run['losses']} on the CPU")
+    if card_run["has_grad_norm"] or card_run["step"] != cpu_run["step"]:
+        fail(f"{label}: SGDM reported a gradient norm or stepped "
+             f"{card_run['step']} times ({cpu_run['step']} on the CPU)")
+    eps = torch.finfo(torch.float32).eps
+    err = {}
+    for key in ("m", "update"):
+        rel = []
+        for a, b, p_max in zip(card_run[key], cpu_run[key],
+                               cpu_run["p_max"]):
+            scale = float(b.abs().max())
+            e = float((a - b).abs().max())
+            rounding = SGDM_ITERATIONS * eps * p_max if key == "update" \
+                else 0.0
+            if e > LOSS_RTOL * scale + rounding:
+                fail(f"{label}: {key} leaf of shape {tuple(b.shape)} off "
+                     f"the CPU run's by {e} (largest magnitude {scale}, "
+                     f"the parameter's rounding {rounding})")
+            rel.append(e / scale if scale else 0.0)
+        err[key] = max(rel)
+    print(f"{label}: {SGDM_ITERATIONS} losses, the momentum and the "
+          f"updates (beside the parameters' rounding) within rtol "
+          f"{LOSS_RTOL} of the CPU run's (largest errors over the leaf's "
+          f"largest magnitude {err})", flush=True)
+    print("checkpoint " + json.dumps({
+        "path": label, "card": card, "losses": card_run["losses"],
+        "cpu_losses": cpu_run["losses"], "lrs": card_run["lrs"],
+        "has_grad_norm": card_run["has_grad_norm"],
+        "max_rel_err": err, "cpu_s": cpu_run["s"],
+        "launches": nonzero(runs[label]["launches"])}), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # data parallelism over ranks: one process a slot under torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -1968,6 +2243,8 @@ def mesh_job(job, graph, cfg, params0, device, mesh=None) -> dict:
     from repro_torch.core.trainer import SyncGNNTrainer
     from repro_torch.kernels import aggregate as agg
     from repro_torch.nn.param import flatten
+    if job["kind"] == "checkpoint":
+        return mesh_checkpoint_job(job, graph, cfg, params0, device, mesh)
     cuda = torch.device(device).type == "cuda"
     cache = (dict(cache_capacity=job["capacity"], cache_refresh_every=0)
              if job["kind"] == "cache" else {})
@@ -2026,6 +2303,58 @@ def mesh_job(job, graph, cfg, params0, device, mesh=None) -> dict:
         return res
     finally:
         tr.close()
+
+
+def mesh_checkpoint_job(job, graph, cfg, params0, device, mesh=None) -> dict:
+    """Kind ``"checkpoint"`` of ``mesh_job``: ``torch_mesh_jobs
+    .kill_and_resume`` over pipelined epochs with the feature cache
+    (``job["capacity"]`` rows, refreshed at the epoch boundary), saved
+    every ``CKPT_EVERY`` iterations into a directory under ``job["dir"]``
+    (one for the one-process run, one that the ranks share). Returns the
+    three epochs' losses and keys, the launches and iterations of both
+    trainers together, the resumed (``params``) and uninterrupted
+    (``full_params``) parameters, the resumed cache's counter, resident
+    sets and generation, the restore's seconds and the saves' records."""
+    from repro_torch.checkpoint.checkpointing import Checkpointer
+    from repro_torch.core.trainer import SyncGNNTrainer
+    from repro_torch.kernels import aggregate as agg
+    from repro_torch.nn.param import flatten
+    from torch_mesh_jobs import kill_and_resume
+    d = Path(job["dir"]) / ("one" if mesh is None else "mesh")
+
+    def make(**kw):
+        return SyncGNNTrainer(
+            graph, cfg, num_devices=job["p"], algorithm=job["algo"],
+            seed=SEED, device=str(device), params=params0, mesh=mesh,
+            data_parallel=mesh is None,
+            checkpointer=Checkpointer(str(d), keep=1000),
+            cache_capacity=job["capacity"], cache_refresh_every=0, **kw)
+
+    def state(tr):
+        sync(device)
+        return {"params": [q.detach().cpu().numpy()
+                           for q in flatten(tr.params)],
+                "cache": {"freq": tr.cache.freq.copy(),
+                          "generation": tr.cache.generation,
+                          "resident": [tr.store.core.resident_ids(i).copy()
+                                       for i in range(job["p"])]}}
+
+    sync(device)
+    agg.reset_launch_counts()
+    r = kill_and_resume(make, str(d), state, every=CKPT_EVERY)
+    ms = r["epochs"] + [r["resumed_epoch"]]
+    return {"losses": [m["loss"] for m in ms],
+            "epochs": [{k: m[k] for k in MESH_EPOCH_KEYS} for m in ms],
+            "epoch_iteration_s": [m["epoch_time_s"] / m["iterations"]
+                                  for m in ms],
+            "iterations": sum(m["iterations"] for m in ms) - 2,
+            "launches": dict(agg.launch_counts),
+            "params": r["resumed"]["params"],
+            "full_params": r["twin"]["params"],
+            "cache": r["resumed"]["cache"], "step": r["step"],
+            "restore_s": r["restore_s"],
+            "saves": [{k: x[k] for k in ("step", "snapshot_s", "write_s",
+                                         "bytes")} for x in r["saves"]]}
 
 
 def mesh_rank(rank, mesh, device, graph_spec, cfg, params0, jobs) -> dict:
@@ -2105,8 +2434,11 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
             run = f"{backend}/p{p}"
             jobs = {key: {"algo": algo, "p": p, "kind": kind}
                     for key, (algo, kind) in spec.items()}
-            for job in jobs.values():
-                if job["kind"] == "cache":
+            for key, job in jobs.items():
+                if job["kind"] == "checkpoint":
+                    job["dir"] = str(checkpoint_dir(
+                        f"mesh_{run}_{key}".replace("/", "_")))
+                if job["kind"] in ("cache", "checkpoint"):
                     store = FeatureStore(graph, get_partitioner(
                         "metis_like")(graph, p, SEED), "distdgl")
                     job["capacity"] = min(store.num_resident(d)
@@ -2119,6 +2451,9 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                                   cfg=cfg, params0=params0, jobs=jobs),
                 p, backend=backend, devices=[device] * p)
             launch_s = time.perf_counter() - t0
+            for job in jobs.values():
+                if "dir" in job:
+                    shutil.rmtree(job["dir"], ignore_errors=True)
             for key, want in one.items():
                 print("mesh_one_process " + json.dumps({
                     "run": run, "job": key,
@@ -2126,7 +2461,8 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                         k: want.get(k) for k in (
                             "losses", "iteration_s", "stages",
                             "epoch_time_s", "epoch_host", "peak_bytes",
-                            "launches", "epochs", "epoch_iteration_s")}}),
+                            "launches", "epochs", "epoch_iteration_s",
+                            "step", "restore_s", "saves")}}),
                     flush=True)
             for rank, res in enumerate(ranks):
                 for key, want in one.items():
@@ -2139,7 +2475,8 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                                     "epoch_time_s", "epoch_host",
                                     "peak_bytes", "launches",
                                     "epoch_launches", "collectives",
-                                    "epochs", "epoch_iteration_s")}}
+                                    "epochs", "epoch_iteration_s", "step",
+                                    "restore_s", "saves")}}
                     if got.get("epoch_time_s") is not None:
                         line["epoch_iteration_s"] = (
                             got["epoch_time_s"] / got["epoch"]["iterations"])
@@ -2162,6 +2499,17 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                         if got.get(k) != want.get(k):
                             fail(f"{label}: {k} {got.get(k)} against the "
                                  f"one-process run's {want.get(k)}")
+                    if "full_params" in want:
+                        if not all(np.array_equal(a.view(np.uint32),
+                                                  b.view(np.uint32))
+                                   for r in (got, want) for a, b in zip(
+                                       r["params"], r["full_params"])):
+                            fail(f"{label}: the resumed parameters differ "
+                                 f"from the uninterrupted run's")
+                        if got["step"] != want["step"]:
+                            fail(f"{label}: resumed from step "
+                                 f"{got['step']}, the one-process run "
+                                 f"from {want['step']}")
                     if "cache" in want:
                         gc, wc = got["cache"], want["cache"]
                         if not (np.array_equal(gc["freq"], wc["freq"])
@@ -2198,17 +2546,24 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                           + (", epoch" if "epoch" in got else "")
                           + (", cached epochs, counter, resident sets"
                              if "cache" in got else "")
-                          + " bitwise the one-process run's; launches "
-                          f"{nonzero(per_slot)} a slot and iteration",
-                          flush=True)
+                          + " bitwise the one-process run's"
+                          + ("; the resumed run's parameters bitwise the "
+                             "uninterrupted run's" if "full_params" in got
+                             else "")
+                          + f"; launches {nonzero(per_slot)} a slot and "
+                          f"iteration", flush=True)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
              "card")
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    # the killed-and-resumed run is the checkpoint tests' helper
+    sys.path.insert(0, str(root / "tests"))
     try:
+        from repro_torch.checkpoint.checkpointing import Checkpointer
         from repro_torch.configs.gnn import GNNModelConfig
         from repro_torch.core import scheduler as sched
         from repro_torch.core.sampler import (NeighborSampler,
@@ -2526,6 +2881,14 @@ def main() -> None:
         build_layer_layouts, card))
     print(f"host runtime phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # 5b. checkpoints and mid-epoch resume, against the uninterrupted twin;
+    # SGDM
+    t0 = time.perf_counter()
+    checkpoint_phase(SyncGNNTrainer, Checkpointer, graph, cfg, params0,
+                     groups, ref_loss, fused_counts, agg, flatten, card,
+                     runs)
+    print(f"checkpoint phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 6. data parallelism over ranks, against the one-process runs
     t0 = time.perf_counter()

@@ -112,6 +112,23 @@ class NeighborSampler:
         self._perm_cache = (self.epoch, self._epoch_order)
         self._cursor = 0
 
+    def state(self) -> dict:
+        """Mid-epoch cursor state for checkpointing — everything mutable;
+        the epoch permutation is NOT stored (it regenerates bit-exactly
+        from the counter-based stream in :meth:`restore_state`)."""
+        return {"epoch": self.epoch, "cursor": self._cursor,
+                "seq": self._seq}
+
+    def restore_state(self, state: dict) -> None:
+        """Inverse of :meth:`state`: rebuilds the epoch permutation from
+        the RNG counters, so a restored sampler continues the interrupted
+        epoch bit-identically."""
+        self.epoch = int(state["epoch"])
+        self._epoch_order = self._permutation(self.epoch)
+        self._perm_cache = (self.epoch, self._epoch_order)
+        self._cursor = int(state["cursor"])
+        self._seq = int(state["seq"])
+
     def batches_remaining(self) -> int:
         return (len(self._epoch_order) - self._cursor
                 + self.cfg.batch_targets - 1) // self.cfg.batch_targets

@@ -15,7 +15,9 @@ Per synchronous iteration (paper Fig. 2 / Alg. 2 + gradient sync):
      each batch's loss and gradients in turn (a Python loop in place of the
      reference's ``vmap``) and combines them as ``sum_b w_b g_b /
      max(sum_b w_b, 1)``: idle-device fill batches carry weight 0;
-  4. one AdamW update.
+  4. one optimizer update: AdamW, or SGD with momentum under
+     ``optimizer_name="sgdm"`` (``optim/adam.py``), over the reference's
+     cosine schedule.
 
 The host runtime is the reference's. With ``pipeline=True`` (the default)
 a prefetch thread (``core/pipeline.PrefetchExecutor``) runs stages 1-2 and
@@ -80,14 +82,32 @@ the shards; under a mesh each rank counts its own slot's batch and the
 ranks sum the epoch's counts, so every rank admits the one-process run's
 set.
 
+With a ``checkpointer`` (``checkpoint/checkpointing.Checkpointer``) and
+``checkpoint_every=k``, every k-th iteration of an epoch is checkpointed
+as in the reference: its assembly (on the prefetch thread when pipelined)
+snapshots the host state (``_host_snapshot``: iteration counters, sampler
+cursors, balancer loads and, with a cache, its counter, resident sets,
+generation, pending ranking and counters), and the main thread saves it
+with the parameters and optimizer state right after that iteration's
+update. A killed run restores with ``restore_checkpoint()`` and finishes
+with ``run_epoch(resume=True)``, bitwise the uninterrupted run. The
+checkpoint's format is the reference's, so either package resumes the
+other's. Under a mesh every rank saves at the same iteration: rank 0 the
+arrays (replicated on every rank) and its manifest, each other rank its
+own manifest (its host state is its slot's: balancer loads and the
+cache's counts since the last sum over the ranks, kept under
+``mesh_cache``), then the ranks meet at a barrier; every rank restores.
+As in the reference, ``grad_compression``'s error feedback is not saved:
+a resumed run with compression starts it from zero.
+
 Host stages are bitwise copies of the reference's, so from one seed both
-trainers sample the same batches and build the same layouts. Knobs the port
-does not run yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+trainers sample the same batches and build the same layouts.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -124,8 +144,8 @@ from repro_torch.kernels.layout import (BLK, EDGE_STREAM_BACKENDS,
                                         edge_stream_layout_bytes)
 from repro_torch.nn.param import (flatten, init_params, params_from_numpy,
                                   unflatten)
-from repro_torch.optim.adam import AdamW
-from repro_torch.optim.schedules import cosine
+from repro_torch.optim.adam import SGDM, AdamW
+from repro_torch.optim.schedules import get_schedule
 
 ALGORITHMS = {
     # name: (partitioner, feature-storing strategy)
@@ -145,10 +165,6 @@ FAULT_KNOBS = ("max_respawns", "straggler_timeout_s", "speculative_sampling",
 CACHE_KNOBS = {"cache_capacity": "capacity",
                "cache_refresh_every": "refresh_every",
                "ship_rows_cap": "ship_rows_cap"}
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -248,7 +264,10 @@ class SyncGNNTrainer:
     cache_capacity: Optional[int] = None
     cache_refresh_every: Optional[int] = None
     ship_rows_cap: Optional[int] = None
+    # mid-epoch checkpoints: a checkpoint.checkpointing.Checkpointer and
+    # the iterations of an epoch between two saves (0: none)
     checkpointer: Optional[object] = None
+    checkpoint_every: int = 0
     # "cuda" when None; "cpu" runs the plain PyTorch path
     device: Optional[str] = None
     # initial parameters as numpy ({"layers": [{name: array}]}), e.g. the
@@ -318,6 +337,7 @@ class SyncGNNTrainer:
                 "once per epoch. Use epoch-boundary refresh "
                 "(cache_refresh_every=0) or the host gather.")
         self._iter_no = 0  # synchronous iterations assembled, over all epochs
+        self._epoch_iter = 0  # iterations assembled in the current epoch
         # under a mesh: the cache's counts as of the last sum over the
         # ranks, and the iteration count then (_sum_counts_over_ranks)
         self._counts = (self.cache.freq.copy()
@@ -335,8 +355,15 @@ class SyncGNNTrainer:
                        if self.params is None
                        else params_from_numpy(self.params, self.device))
         # the reference's schedule: 10 warmup steps of a 100k-step cosine
-        self.optimizer = AdamW(cosine(self.lr, 10, 100_000), weight_decay=0.0)
+        schedule = get_schedule("cosine", self.lr, 10, 100_000)
+        self.optimizer = (AdamW(schedule, weight_decay=0.0)
+                          if self.optimizer_name == "adam"
+                          else SGDM(schedule))
         self.opt_state = self.optimizer.init(flatten(self.params))
+        self.step_no = 0  # optimizer steps taken: a checkpoint's step
+        # the step metrics the epoch averages: loss, acc and the
+        # optimizer's (SGDM reports no grad_norm)
+        self._step_keys: tuple = ()
         self._err = None  # compression's error feedback, flatten order
         # static per-layer layout capacities: one shape per config
         self._blk_caps = (block_capacities(self.model_cfg)
@@ -398,19 +425,18 @@ class SyncGNNTrainer:
             raise ValueError("cache_refresh_every must be >= 0")
         if cfg.cache.ship_rows_cap is not None and cfg.cache.ship_rows_cap < 1:
             raise ValueError("ship_rows_cap must be >= 1")
-        if self.checkpointer is not None:
-            raise _unported("checkpointer", "queue A, item A.7")
-        if self.optimizer_name != "adam":
-            raise _unported(f"optimizer {self.optimizer_name!r}",
-                            "queue A, item A.11")
 
     def _train_ids(self, i: int) -> np.ndarray:
         mask = self.partition.assignment[self.graph.train_ids] == i
         ids = self.graph.train_ids[mask]
         return ids if len(ids) else self.graph.train_ids[:1]
 
-    def epoch_schedule(self) -> List[sched.Assignment]:
-        counts = [s.batches_remaining() for s in self.samplers]
+    def epoch_schedule(self, counts: Optional[List[int]] = None
+                       ) -> List[sched.Assignment]:
+        """The schedule of ``counts`` batches a partition (default: each
+        sampler's remaining batches) under the balancing policy."""
+        if counts is None:
+            counts = [s.batches_remaining() for s in self.samplers]
         fn = (sched.two_stage_schedule if self.workload_balancing
               else sched.naive_schedule)
         return fn(counts)
@@ -702,9 +728,16 @@ class SyncGNNTrainer:
         else:
             batches = [b if b is not None else dict(order[-1], weight=0.0)
                        for b in slots]
-        return {"batches": batches, "vertices": vertices,
-                "n_batches": len(assignments), "stage_s": stage_s,
-                "event": event, "uploaded": uploaded}
+        out = {"batches": batches, "vertices": vertices,
+               "n_batches": len(assignments), "stage_s": stage_s,
+               "event": event, "uploaded": uploaded}
+        if (self.checkpointer is not None and self.checkpoint_every > 0
+                and self._epoch_iter % self.checkpoint_every == 0):
+            # the host state as of this assembly, which leads the
+            # parameters: the main thread saves it right after this same
+            # iteration's update
+            out["host_ckpt"] = self._host_snapshot()
+        return out
 
     def _observe(self, placed: List[tuple]) -> None:
         """Once an iteration's payloads are consumed: fold each real
@@ -723,6 +756,7 @@ class SyncGNNTrainer:
                     self.cache.observe(mb.nodes[0], mb.node_mask[0])
             self.cache.end_iteration(self._iter_no)
         self._iter_no += 1
+        self._epoch_iter += 1
 
     def _prepare_group(self, assignments: List[sched.Assignment]) -> dict:
         """Stages 1, 2b and 2 and the upload for one synchronous iteration,
@@ -841,9 +875,10 @@ class SyncGNNTrainer:
         new_leaves, self.opt_state, om = self.optimizer.update(
             grads, self.opt_state, flatten(self.params))
         self.params = unflatten(self.params, new_leaves)
+        self.step_no += 1
         self._issue_s += time.perf_counter() - t0
-        metrics = {"loss": loss, "acc": acc, "lr": om["lr"],
-                   "grad_norm": om["grad_norm"]}
+        metrics = {"loss": loss, "acc": acc, **om}
+        self._step_keys = tuple(metrics)
         if not sync:
             return metrics
         out = {k: float(v) for k, v in metrics.items()}
@@ -855,7 +890,8 @@ class SyncGNNTrainer:
         return out
 
     def run_iteration(self, assignments: List[sched.Assignment]) -> dict:
-        """One synchronous iteration: loss, acc, lr, grad_norm, vertices
+        """One synchronous iteration: loss, acc, lr, grad_norm (AdamW's),
+        vertices
         traversed, and the seconds of each stage (sample, layout, gather,
         upload — the host's share of the copies, which run asynchronously
         — and the device step up to its metrics being read); under
@@ -905,9 +941,8 @@ class SyncGNNTrainer:
             return cfg.cache.ship_rows_cap
         if not self.gather_in_workers or not cfg.cache.auto_ship_rows_cap:
             return None
-        fn = (sched.two_stage_schedule if self.workload_balancing
-              else sched.naive_schedule)
-        schedule = fn([s.epoch_batches() for s in self.samplers])
+        schedule = self.epoch_schedule(
+            [s.epoch_batches() for s in self.samplers])
         counts = []
         epoch0 = self.samplers[0].epoch
         for epoch in range(epoch0, epoch0 + 3):
@@ -937,25 +972,39 @@ class SyncGNNTrainer:
         return global_iter // K if K > 0 else self.cache.generation
 
     # -- the synchronous loop ---------------------------------------------------
-    def run_epoch(self) -> dict:
+    def run_epoch(self, resume: bool = False) -> dict:
         """One synchronous epoch; returns the batch-weighted mean of the
         step metrics plus the epoch's throughput, traffic, host-runtime,
-        sampling-service and cache figures (the reference's keys)."""
-        for s in self.samplers:
-            s.reset_epoch()
+        sampling-service and cache figures (the reference's keys).
+        ``resume=True`` finishes the epoch a restored checkpoint
+        interrupted (``restore_checkpoint``): the sampler cursors, balancer
+        loads and cache state are already the mid-epoch values, so their
+        resets are skipped, the whole epoch's schedule is rebuilt from the
+        cursor-independent batch counts, and its first ``_epoch_iter``
+        groups, run before the kill, are skipped."""
+        if not resume:
+            for s in self.samplers:
+                s.reset_epoch()
+            self._epoch_iter = 0
         # per-epoch accounting, then the cache's epoch hook (its counters'
         # reset and, at K = 0, the refresh), both before any task is
         # submitted, so tasks stamp the refreshed generation; under
-        # data_parallel a refresh re-uploads the shards before the first
-        # step (_execute)
+        # data_parallel a refresh (or a restore) re-uploads the shards
+        # before the first step (_execute)
         self.store.reset_stats()
-        if self.cache is not None:
+        if self.cache is not None and not resume:
             self._sum_counts_over_ranks()
             self.cache.start_epoch()
-        self._balancer = sched.LoadBalancer(self.num_devices,
-                                            self.balance_policy)
-        schedule = self.epoch_schedule()
+        if not resume:
+            self._balancer = sched.LoadBalancer(self.num_devices,
+                                                self.balance_policy)
+        # the whole epoch's schedule, from the cursor-independent counts
+        # (after reset_epoch they equal the remaining batches)
+        schedule = self.epoch_schedule(
+            [s.epoch_batches() for s in self.samplers])
         groups = list(sched.iterations(schedule))
+        if resume:
+            groups = groups[self._epoch_iter:]
         t0 = time.time()
         pstats = self._pstats = PipelineStats()
         # one unit per iteration group, tasks addressed by pure RNG
@@ -1036,6 +1085,11 @@ class SyncGNNTrainer:
             for prepared in prepared_iter:
                 step_metrics.append((self._execute(prepared, sync=False),
                                      prepared["n_batches"]))
+                if "host_ckpt" in prepared:
+                    # the parameters hold this iteration's update (queued
+                    # on the card: the snapshot's copies are queued behind
+                    # it), matching the host state of its assembly
+                    self._save_checkpoint(prepared["host_ckpt"])
                 inflight.append(self._step_event())
                 if len(inflight) > self.prefetch_depth:
                     event = inflight.popleft()
@@ -1050,12 +1104,14 @@ class SyncGNNTrainer:
                 m = self._execute(prepared)
                 vertices += m["vertices_traversed"]
                 step_metrics.append((m, prepared["n_batches"]))
+                if "host_ckpt" in prepared:
+                    self._save_checkpoint(prepared["host_ckpt"])
                 n_batches += prepared["n_batches"]
         metrics: Dict[str, float] = {}
         if step_metrics:
             metrics = {k: sum(float(m[k]) * nb for m, nb in step_metrics)
                        / n_batches
-                       for k in ("loss", "acc", "lr", "grad_norm")}
+                       for k in self._step_keys}
         wall = time.time() - t0
         if self.mesh is not None:
             vertices, wall = self._sum_over_ranks(vertices, wall, pstats)
@@ -1169,6 +1225,159 @@ class SyncGNNTrainer:
 
     def train(self, epochs: int = 1) -> List[dict]:
         return [self.run_epoch() for _ in range(epochs)]
+
+    # -- mid-epoch checkpoint and resume ----------------------------------------
+    def _opt_tree(self) -> dict:
+        """The optimizer state as the reference's tree: each moment list
+        (flatten order) as a tree shaped like the parameters, the step a
+        0-d int32."""
+        tree = {k: unflatten(self.params, v)
+                for k, v in self.opt_state.items() if k != "step"}
+        tree["step"] = np.int32(self.opt_state["step"])
+        return tree
+
+    def _host_snapshot(self) -> dict:
+        """JSON-serializable host state as of the just-assembled iteration
+        (the reference's keys): the global and epoch iteration counters,
+        each sampler's cursor, the balancer's loads and, with a cache, its
+        counter, the resident ids of every device that is not
+        all-resident, the generation, the pending ranking's result and
+        the seven counters; under a mesh with a cache also the counts as
+        of the last sum over the ranks (``mesh_cache``, a key the
+        reference ignores). Runs where the iteration was assembled (the
+        prefetch thread when pipelined), one assembly ahead of the
+        parameters."""
+        snap: dict = {"iter_no": self._iter_no,
+                      "epoch_iter": self._epoch_iter,
+                      "samplers": [s.state() for s in self.samplers],
+                      "balancer_load": [float(x)
+                                        for x in self._balancer.load]}
+        c = self.cache
+        if c is not None:
+            pending = None
+            if c._pending is not None:
+                gen, t, holder = c._pending
+                # the ranking is fixed by the counter's copy taken at its
+                # launch: joining here moves only its timing
+                t.join()
+                pending = {"gen": int(gen), "ids": holder[0].tolist()}
+            resident = {str(d): c.core.resident_ids(d).tolist()
+                        for d in range(c.core.num_devices)
+                        if not c.core._all_resident[d]}
+            snap["cache"] = {
+                "freq": c.freq.tolist(),
+                "epochs_run": c._epochs_run,
+                "generation": int(c.generation),
+                "resident": resident,
+                "pending": pending,
+                "counters": [c.admissions_total, c.evictions_total,
+                             c.refresh_bytes_total, c.refreshes,
+                             c.admissions_epoch, c.evictions_epoch,
+                             c.refresh_bytes_epoch]}
+            if self._counts is not None:
+                snap["mesh_cache"] = {"counts": self._counts.tolist(),
+                                      "counts_iter": self._counts_iter}
+        return snap
+
+    def _save_checkpoint(self, host_ckpt: dict) -> None:
+        """Save this step's parameters and optimizer state with the host
+        state of its assembly. Under a mesh every rank saves (rank 0 the
+        arrays, each rank its manifest), waits for its write and meets the
+        others at a barrier: no rank goes on while a rank's files of this
+        step are half-written, so the ranks' newest complete steps are at
+        most one save apart (``restore_checkpoint`` takes the older)."""
+        if self.mesh is None:
+            self.checkpointer.save(self.step_no, self.params,
+                                   self._opt_tree(), extra=host_ckpt)
+            return
+        self.checkpointer.save(self.step_no, self.params, self._opt_tree(),
+                               extra=host_ckpt, blocking=True,
+                               rank=self._rank)
+        dist.barrier(group=self._group)
+
+    def _over_ranks(self, step: int) -> tuple:
+        """Under a mesh: (min, max) of ``step`` over the ranks."""
+        t = torch.tensor([step, -step], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        return -int(t[1]), int(t[0])
+
+    def restore_checkpoint(self, step: Optional[int] = None) -> int:
+        """Restore the parameters, the optimizer state and the host state
+        from the newest (or the given) verified checkpoint into this
+        trainer, built with the killed run's arguments; then
+        ``run_epoch(resume=True)`` finishes the interrupted epoch, and the
+        run's final parameters are bitwise the uninterrupted run's. Under
+        a mesh each rank restores its own manifest, every rank the same
+        step (without ``step``, the newest that verifies at every rank;
+        ranks that restore different steps raise). The resident shards
+        upload again before the first resumed step, and a restored cache
+        generation reaches the sampler pool's shared segment before any
+        task is submitted. Returns the restored step."""
+        if self.checkpointer is None:
+            raise RuntimeError("trainer has no checkpointer")
+        rank = self._rank or 0
+        if step is None:
+            step = self.checkpointer.latest_step(rank)
+            if self.mesh is not None:
+                # the newest step that verifies at every rank (a kill
+                # during a save can leave one rank's files of it torn)
+                step = self._over_ranks(-1 if step is None else step)[0]
+                step = None if step < 0 else step
+            if step is None:
+                raise FileNotFoundError("no valid checkpoint to restore")
+        out = self.checkpointer.restore(step, self.params, self._opt_tree(),
+                                        rank=rank)
+        if self.mesh is not None:
+            lo, hi = self._over_ranks(int(out["step"]))
+            if lo != hi:
+                raise RuntimeError(
+                    f"the ranks restored different steps ({lo} to {hi}): "
+                    f"a rank's checkpoint of step {step} does not verify")
+        self.params = out["params"]
+        self.opt_state = {k: (int(v) if k == "step" else flatten(v))
+                          for k, v in out["opt"].items()}
+        self.step_no = int(out["step"])
+        extra = out["extra"]
+        self._iter_no = int(extra["iter_no"])
+        self._epoch_iter = int(extra["epoch_iter"])
+        for s, st in zip(self.samplers, extra["samplers"]):
+            s.restore_state(st)
+        self._balancer = sched.LoadBalancer(self.num_devices,
+                                            self.balance_policy)
+        self._balancer.load = [float(x) for x in extra["balancer_load"]]
+        # the shard is rebuilt from the restored residency before the
+        # first resumed step: its generation alone could match by chance
+        self._shard = None
+        cstate = extra.get("cache")
+        if self.cache is not None and cstate is not None:
+            c = self.cache
+            c.freq[:] = np.asarray(cstate["freq"], np.int64)
+            c._epochs_run = int(cstate["epochs_run"])
+            (c.admissions_total, c.evictions_total, c.refresh_bytes_total,
+             c.refreshes, c.admissions_epoch, c.evictions_epoch,
+             c.refresh_bytes_epoch) = cstate["counters"]
+            for d_str, ids in cstate["resident"].items():
+                c.core.set_resident(int(d_str), np.asarray(ids, np.int32))
+            # written through to a live pool's shared segment, stamp last
+            c.core.publish_generation(int(cstate["generation"]))
+            if c._pending is not None:  # drop any stale in-flight ranking
+                _, t, _ = c._pending
+                c._pending = None
+                t.join()
+            p = cstate.get("pending")
+            if p is not None:
+                # the checkpoint holds the ranking's result: a finished
+                # thread and a filled holder make the install identical
+                holder = [np.asarray(p["ids"], np.int32)]
+                t = threading.Thread(target=lambda: None,
+                                     name="hitgnn-cache-refresh")
+                t.start()
+                c._pending = (int(p["gen"]), t, holder)
+            mc = extra.get("mesh_cache")
+            if self._counts is not None and mc is not None:
+                self._counts = np.asarray(mc["counts"], np.int64)
+                self._counts_iter = int(mc["counts_iter"])
+        return int(out["step"])
 
     # -- lifecycle --------------------------------------------------------------
     def close(self) -> None:

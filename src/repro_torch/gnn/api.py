@@ -30,6 +30,12 @@ trainer, which then holds only its rank's shard)::
 A trainer with sampler workers
 (``num_sampler_workers=N``) holds processes and shared-memory segments:
 close the result (or use it as a context manager) when done.
+
+``optimizer_name="sgdm"`` trains with SGD and momentum in place of AdamW,
+and ``checkpointer=Checkpointer(dir), checkpoint_every=k``
+(``repro_torch.checkpoint.checkpointing``) saves every k-th iteration of
+an epoch, from which a trainer built with the same arguments resumes by
+``restore_checkpoint()`` and ``run_epoch(resume=True)``.
 """
 from __future__ import annotations
 
@@ -75,7 +81,8 @@ def train(model_cfg: GNNModelConfig, platform: PlatformConfig,
     ``epochs`` epochs. ``progress(epoch_index, metrics)`` is called after
     each epoch; other keyword arguments pass through to
     :class:`SyncGNNTrainer` (``device=``, ``params=``,
-    ``num_sampler_workers=``, ...). On an error the trainer is closed
+    ``num_sampler_workers=``, ``optimizer_name=``, ``checkpointer=``,
+    ``checkpoint_every=``, ...). On an error the trainer is closed
     before the error propagates."""
     trainer = SyncGNNTrainer(
         graph, model_cfg, num_devices=platform.num_devices,

@@ -1,7 +1,9 @@
-"""AdamW written out by hand (counterpart of ``repro.optim.adam.AdamW``),
-not ``torch.optim``: the reference clips to a global gradient norm, uses
-b2 = 0.95, folds weight decay into the step and applies bias correction by
-division, and the port must take the same steps.
+"""AdamW and SGD with momentum written out by hand (counterparts of
+``repro.optim.adam.AdamW`` and ``SGDM``), not ``torch.optim``: the
+reference's AdamW clips to a global gradient norm, uses b2 = 0.95, folds
+weight decay into the step and applies bias correction by division; its
+SGDM keeps an fp32 momentum ``m = m * momentum + g`` and steps ``p - lr *
+m``, with no clip and no weight decay. The port must take the same steps.
 
 Parameters, gradients and moments are flat lists of tensors (the order of
 ``nn.param.flatten``); the update returns new tensors and leaves its inputs
@@ -60,3 +62,27 @@ class AdamW:
             new_v.append(v32)
         return (new_p, {"m": new_m, "v": new_v, "step": step},
                 {"lr": lr, "grad_norm": gnorm})
+
+
+@dataclass(frozen=True)
+class SGDM:
+    schedule: Callable  # step -> lr
+    momentum: float = 0.9
+
+    def init(self, params: Sequence[torch.Tensor]) -> dict:
+        return {"m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+                "step": 0}
+
+    def update(self, grads: Sequence[torch.Tensor], state: dict,
+               params: Sequence[torch.Tensor]):
+        """One step. Returns (new params, new state, {"lr"}): the
+        reference reports no gradient norm for SGDM."""
+        step = state["step"] + 1
+        lr = self.schedule(step)
+        new_p: List[torch.Tensor] = []
+        new_m: List[torch.Tensor] = []
+        for p, g, m in zip(params, grads, state["m"]):
+            m32 = m * self.momentum + g.float()
+            new_p.append((p.float() - lr * m32).to(p.dtype))
+            new_m.append(m32)
+        return new_p, {"m": new_m, "step": step}, {"lr": lr}

@@ -106,6 +106,28 @@ def test_sampler_batch_at_and_cursor_bitwise():
     assert (js.epoch, js._cursor) == (ts.epoch, ts._cursor)
 
 
+def test_sampler_state_and_restore_bitwise():
+    """``state`` / ``restore_state`` (the checkpoint's sampler cursors):
+    the same state mid-epoch, and a fresh sampler of each package restored
+    from the other's state continues with the same batches."""
+    js, ts = _samplers()
+    for _ in range(js.epoch_batches() + 2):
+        js.next_batch()
+        ts.next_batch()
+    assert js.state() == ts.state()
+    jr, tr = _samplers()
+    jr.restore_state(ts.state())
+    tr.restore_state(js.state())
+    assert jr.state() == tr.state() == js.state()
+    np.testing.assert_array_equal(jr._epoch_order, tr._epoch_order)
+    for _ in range(js.epoch_batches()):
+        want = js.next_batch()
+        _assert_batch_equal(want, jr.next_batch())
+        _assert_batch_equal(want, tr.next_batch())
+        ts.next_batch()
+    assert jr.state() == tr.state() == js.state() == ts.state()
+
+
 @pytest.mark.parametrize("fanouts,batch", [((4, 3), 32), ((25, 10), 64)])
 def test_block_capacities_and_layouts_bitwise(fanouts, batch):
     js, ts = _samplers(fanouts, batch)

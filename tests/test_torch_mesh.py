@@ -22,7 +22,11 @@ so their float sums split alike. Held here:
 * at p = 2 two DistDGL epochs with the feature cache (refresh at the
   epoch boundary) equal the one-process run's, the cache's keys, its
   counter (each rank counts its own slot, the ranks sum at the epoch's
-  end), resident sets and generation included;
+  end), resident sets and generation included; the same epochs
+  checkpointed every iteration and resumed mid-epoch 2 are bitwise the
+  uninterrupted run on every rank, rank 1 from a manifest of its own,
+  and with rank 1's newest manifest torn the ranks agree on the step
+  before it;
 * ``p3_all_to_all_feats`` equals ``assemble_p3_feats`` and
   ``FeatureStore.gather_p3_full`` bit for bit;
 * at p = 2 the mesh run stays within rtol 1e-5 (losses) of the
@@ -266,6 +270,9 @@ def _jobs(p, reference=None):
         jobs["cache/distdgl"] = dict(algo="distdgl", backend="reference",
                                      p=p, kind="epoch", epochs=2,
                                      kw=CACHE_KW)
+        jobs["checkpoint/distdgl"] = dict(algo="distdgl",
+                                          backend="reference", p=p,
+                                          kind="checkpoint", kw=CACHE_KW)
     return jobs
 
 
@@ -278,6 +285,10 @@ def runs(tmp_path_factory, reference):
     def get(p):
         if p not in cache:
             jobs = _jobs(p)
+            ckpt_dir = str(tmp_path_factory.mktemp(f"checkpoints_p{p}"))
+            for job in jobs.values():
+                if job["kind"] == "checkpoint":
+                    job["dir"] = ckpt_dir
             threads = torch.get_num_threads()
             torch.set_num_threads(1)
             try:
@@ -395,6 +406,34 @@ def test_cache_epochs_bitwise_the_one_process_run(runs):
         assert got["cache"]["generation"] == want["cache"]["generation"]
         for a, b in zip(got["cache"]["resident"], want["cache"]["resident"]):
             np.testing.assert_array_equal(a, b)
+
+
+def test_checkpoint_resume_bitwise_the_one_process_run(runs):
+    """Two cached epochs checkpointed every iteration, killed and resumed
+    from epoch 2's second iteration: on every rank the resumed run is
+    bitwise its uninterrupted run and the one-process run (parameters,
+    counter, resident sets, generation). Rank 1's host state differs from
+    rank 0's (its slot's balancer loads and counts), so it resumes from a
+    manifest of its own. With rank 1's newest manifest torn, the ranks
+    agree on the step before it."""
+    one, ranks = runs(2)
+    want = one["checkpoint/distdgl"]
+    assert _same_bits(want["resumed"], want["full"])
+    for rank, res in enumerate(ranks):
+        got = res["checkpoint/distdgl"]
+        assert got["step"] == want["step"], rank
+        for run in ("full", "resumed"):
+            assert _same_bits(got[run], want["full"]), (rank, run)
+            c, w = got[f"{run}_cache"], want["full_cache"]
+            np.testing.assert_array_equal(c["freq"], w["freq"])
+            assert c["generation"] == w["generation"] == 1
+            for a, b in zip(c["resident"], w["resident"]):
+                np.testing.assert_array_equal(a, b)
+        assert got["own_manifest_differs"] is (rank > 0)
+        # rank 1's newest manifest torn: every rank resumes from the step
+        # before it, and finishes bitwise the uninterrupted run
+        assert got["latest_step"] == got["newest_step"] - 1, rank
+        assert _same_bits(got["latest"], want["full"]), rank
 
 
 @pytest.mark.gpu

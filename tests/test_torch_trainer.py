@@ -4,10 +4,10 @@ parameters: three iterations of GraphSAGE on ``"pallas_edges"`` under
 DistDGL and PaGraph with 1 and 2 devices, and of GraphSAGE, GCN and GIN on
 ``"pallas_fused"`` and on ``"pallas"`` (the reference's fused datapath and
 GIN under the test-local ``jax_shims``), plus the ``train()`` facade, the
-device rule, the layout and aggregate bytes of each datapath, the knobs
-the port does not run yet, and the host runtime's knobs, the feature
-cache, GAT, P3, the mesh and gradient compression, which run (the ``gpu`` cases run the mesh on the
-card against the one-process run)."""
+device rule, the layout and aggregate bytes of each datapath, and the
+host runtime's knobs, the feature cache, GAT, P3, the mesh, gradient
+compression, SGDM and the checkpoints, which run (the ``gpu`` cases run
+the mesh on the card against the one-process run)."""
 import dataclasses
 import functools
 
@@ -212,20 +212,6 @@ def test_device_none_without_cuda_raises(monkeypatch):
         TTrainer(G, cfg, num_devices=1, device="cuda")
 
 
-UNPORTED = {
-    "checkpointer": dict(checkpointer=object()),
-    "sgdm": dict(optimizer_name="sgdm"),
-}
-
-
-@pytest.mark.parametrize("knob", sorted(UNPORTED))
-def test_unported_knobs_raise(knob):
-    kw = dict(UNPORTED[knob])
-    cfg = TCfg(**{"name": "graphsage", **SMALL, **kw.pop("cfg", {})})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TTrainer(G, cfg, num_devices=1, device="cpu", **kw)
-
-
 # the algorithm and model of the paper's matrix that raised until GAT and
 # P3 were ported (ROADMAP A.1 and A.2): each now runs
 PORTED_MATRIX = {
@@ -250,6 +236,41 @@ def test_ported_matrix_cells_run(knob):
             assert m["beta"] == 1.0 and m["miss_bytes"] == 0
         for leaf in flatten(t.params):
             assert torch.isfinite(leaf).all()
+
+
+# the optimizer and checkpoint knobs, which raised until SGDM and the
+# checkpoints were ported (ROADMAP A.11 and A.7): each now runs
+PORTED_OPTIM_CKPT = {
+    "checkpointer": dict(checkpoint_every=1),
+    "sgdm": dict(optimizer_name="sgdm"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(PORTED_OPTIM_CKPT))
+def test_ported_optim_ckpt_knobs_run(knob, tmp_path):
+    """Each former ``NotImplementedError`` knob trains one epoch on the
+    CPU at p = 1: finite metrics, every batch trained, finite parameters;
+    SGDM reports no ``grad_norm`` (as the reference's does not), and the
+    checkpointer's newest checkpoint is the epoch's last iteration, which
+    restores to the trained parameters bit for bit."""
+    from repro_torch.checkpoint.checkpointing import Checkpointer
+    kw = dict(PORTED_OPTIM_CKPT[knob])
+    if knob == "checkpointer":
+        kw["checkpointer"] = Checkpointer(str(tmp_path))
+    cfg = TCfg("graphsage", **SMALL)
+    with TTrainer(G, cfg, num_devices=1, device="cpu", **kw) as t:
+        m = t.run_epoch()
+        assert np.isfinite(m["loss"]) and 0.0 <= m["acc"] <= 1.0
+        assert m["batches"] == sum(s.epoch_batches() for s in t.samplers)
+        assert ("grad_norm" in m) is (knob != "sgdm")
+        for leaf in flatten(t.params):
+            assert torch.isfinite(leaf).all()
+        if knob != "checkpointer":
+            return
+        assert t.checkpointer.latest_step() == m["iterations"]
+        out = t.checkpointer.restore(m["iterations"], t.params)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(flatten(out["params"]), flatten(t.params)))
 
 
 # the feature cache's knobs, which raised until the cache was ported

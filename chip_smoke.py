@@ -25,7 +25,9 @@ their published widths and depths through ``models.registry.build``,
 ``ModelBundle.init_params`` and ``launch.steps.make_prefill_step`` /
 ``make_decode_step``: Llama-3-8B (prefill through ``flash_attention_fwd``)
 and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16 from a seeded
-init. Phases, each of which exits non-zero on failure:
+init. Before the LM zoo it serves GraphSAGE and GAT requests through
+``core.serving.ServingRuntime`` (one CUDA graph a bucket). Phases, each
+of which exits non-zero on failure:
 
   1. device report: the card's name, its name and power limit as
      ``nvidia-smi`` gives them, and its max SM clock;
@@ -250,6 +252,36 @@ init. Phases, each of which exits non-zero on failure:
      uninterrupted ones and the one-process run's, bit for bit. Two ranks
      on one card share its SMs and memory: their times say nothing of two
      cards;
+  6b. GNN serving (``core.serving.ServingRuntime``, one CUDA graph a
+     bucket), with every launch count set to 0 just before and still 0
+     after: serving builds no kernel layout, so every model runs the plain
+     segment sums, as the reference's serving does. GraphSAGE at the
+     paper width (configured ``"pallas_fused"``) from phase 4's
+     parameters over the default ladder (8, 32, 128, 512, 1024 targets):
+     one eager forward under ``torch.cuda.set_sync_debug_mode("error")``
+     (an op that waits for the host cannot be captured); ``warmup()``
+     captures exactly 5 graphs, and ``predict`` at 1, 5, 8, 20, 33, 200,
+     1,024 and 1,500 ids (chunked) captures none more; the 33- and
+     1,024-id requests equal the eager forward over their batch (the same
+     request id, the bucket's cyclic pad) bit for bit, and every bucket's
+     replay the eager forward over its buffers; the 33-id request
+     replayed by a ``device="cpu"`` runtime is within rtol 1e-5 and atol
+     1e-6 x its largest |logit| (the models' parity tolerance); a runtime
+     with 2 pool workers, and one whose first task's worker is killed
+     (one respawn, not degraded), answer the same requests bit for bit;
+     GAT at 8 and 1,024 ids, bitwise its eager forward; closed-loop load
+     at 1, 2 and 4 clients x 200 one-id requests, after a discarded
+     window of 20 (the coalescer's estimate settles), no error and no new
+     graph.
+     ``serve_bucket`` lines give each bucket's N_0 and, as medians over 9
+     requests of the bucket's size, the request latency and its host
+     sample, gather, upload and forward ms; the replay and the eager
+     forward ms by CUDA events (device time) and on the host clock (a
+     synchronize after each call: what a request waits for, launches
+     included); the static buffers' bytes, what the capture added to the
+     shared graph pool and the eager forward's peak. ``serve_load`` lines
+     give the offered requests a second, p50 and p99 ms and the SLO
+     (50 ms) miss rate. Misses are results, not failures;
   7. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
      ``ops.aggregate_update`` (fused, and with ``use_pallas=False``) on
      the layer-1 operands, with the counts set to 0 just before and read
@@ -386,6 +418,27 @@ CACHE_K_EPOCHS = 2
 CKPT_EVERY = 2
 CKPT_WORKERS = 4
 SGDM_ITERATIONS = 3
+# the GNN serving phase: GraphSAGE at the paper width from phase 4's
+# parameters over the default ladder (8, 32, 128, 512, 1024 targets);
+# predict at these sizes (1,500 chunked through the largest bucket), the
+# eager forward held against two of them and the CPU against one; each
+# bucket's stages the medians over 9 full requests, and its replay and
+# eager forward timed 20 times on the host clock; a pool of 2 workers and
+# one with a worker killed at its first task answering the same requests;
+# GAT at two sizes; closed-loop load points of 200 one-id requests a
+# client, after a discarded window of 20 at the first point
+SERVE_SIZES = (1, 5, 8, 20, 33, 200, 1024, 1500)
+SERVE_BUCKETS = 5
+SERVE_EAGER = (33, 1024)
+SERVE_CPU = 33
+SERVE_BUCKET_REQUESTS = 9
+SERVE_HOST_ITERS = 20
+SERVE_WORKERS = 2
+SERVE_FAULT = "kill#1"
+SERVE_GAT_SIZES = (8, 1024)
+SERVE_CLIENTS = (1, 2, 4)
+SERVE_LOAD_WARMUP = 20
+SERVE_LOAD_REQUESTS = 200
 CACHE_KEYS = ("cache_enabled", "cache_hit_rate", "miss_bytes",
               "miss_bytes_per_iter", "beta", "cache_admissions",
               "cache_evictions", "cache_refresh_bytes")
@@ -2554,6 +2607,225 @@ def mesh_phase(graph, cfg, params0, per_slot, runs, device="cuda:0"
                           f"iteration", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 6b. GNN serving
+# ---------------------------------------------------------------------------
+
+def same_bits(label: str, got: np.ndarray, want: np.ndarray) -> None:
+    """Fails unless two float32 arrays are equal bit for bit."""
+    if got.shape != want.shape or not np.array_equal(
+            np.ascontiguousarray(got).view(np.uint32),
+            np.ascontiguousarray(want).view(np.uint32)):
+        diff = (float(np.abs(got - want).max()) if got.shape == want.shape
+                else f"shapes {got.shape} and {want.shape}")
+        fail(f"{label}: not bitwise equal (max abs difference {diff})")
+
+
+def host_ms(fn, iters: int) -> float:
+    """Median milliseconds on the host clock of ``fn()`` followed by a
+    synchronize: what a request waits for the call, launches included."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def serve_bucket_line(rt, b, eager, latency_ms, card) -> None:
+    """Bucket ``b``'s ``serve_bucket`` line: a replay must equal the
+    eager forward over the bucket's buffers bit for bit; both timed by
+    CUDA events (device time) and on the host clock (each call then a
+    synchronize), beside the median request latency ``latency_ms`` and
+    stages of the bucket's requests, its bytes and the eager forward's
+    peak."""
+    fwd = rt._fwd[b]
+    if not torch.equal(fwd.replay().clone(), eager(rt, fwd.batch)):
+        fail(f"serve/bucket {b}: a replay differs from the eager forward "
+             f"over the same buffers")
+    replay_ms = time_ms(fwd.replay, iters=10, warmup=1)
+    eager_ms = time_ms(lambda: eager(rt, fwd.batch), iters=10, warmup=1)
+    replay_host_ms = host_ms(fwd.replay, SERVE_HOST_ITERS)
+    eager_host_ms = host_ms(lambda: eager(rt, fwd.batch), SERVE_HOST_ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eager(rt, fwd.batch)
+    torch.cuda.synchronize()
+    print("serve_bucket " + json.dumps({
+        "bucket": b, "latency_ms": latency_ms, **rt.bucket_stats()[b],
+        "replay_ms": replay_ms, "eager_ms": eager_ms,
+        "replay_host_ms": replay_host_ms, "eager_host_ms": eager_host_ms,
+        "replay_bitwise_eager": True, "allocated_bytes": base,
+        "eager_peak_bytes": torch.cuda.max_memory_allocated(),
+        "card": card}), flush=True)
+
+
+def serving_phase(graph, cfg, params0, params_gat, agg, card) -> dict:
+    """Phase 6b: ``ServingRuntime`` on the card at the paper width (the
+    docstring's list). Returns the launch counts of the phase, all 0."""
+    from repro_torch.core.serving import (ServeConfig, ServingRuntime,
+                                          closed_loop_load)
+    # the serving tests' ground truth: request ``rid``'s batch built
+    # without the runtime, and the eager forward over it
+    from torch_serving_truth import (eager_forward as eager, ground_truth,
+                                     request_arrays)
+
+    def host_sync_free(label, rt, batch) -> None:
+        """One eager forward with every host wait an error: an op that
+        waits for the host cannot be captured in a CUDA graph."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager(rt, batch)
+        except RuntimeError as e:
+            fail(f"{label}: the forward waits for the host, so it cannot "
+                 f"be captured: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"{label}: one eager forward under "
+              f"set_sync_debug_mode('error'): no host wait", flush=True)
+
+    def check_eager(label, rt, ids, rid, got) -> None:
+        same_bits(label, got, ground_truth(rt, ids, rid))
+
+    cfg_s = dataclasses.replace(cfg, aggregate_backend="pallas_fused")
+    rng = np.random.default_rng(SEED)
+    requests = [rng.choice(graph.train_ids, m).astype(np.int32)
+                for m in SERVE_SIZES]
+    anchor = int(graph.train_ids[0])
+    agg.reset_launch_counts()
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rt = ServingRuntime(graph, cfg_s, params0, device="cuda")
+    store = rt.store
+    host_sync_free("serve/graphsage", rt,
+                   request_arrays(rt, np.full(8, anchor, np.int32), 0))
+    t0 = time.perf_counter()
+    n = rt.warmup()
+    warm_s = time.perf_counter() - t0
+    warm_peak = torch.cuda.max_memory_allocated()
+    if n != SERVE_BUCKETS or len(rt.buckets) != SERVE_BUCKETS:
+        fail(f"serve: warm-up built {n} graphs over the buckets "
+             f"{rt.buckets}, expected {SERVE_BUCKETS}")
+    answers, rids, latency = [], [], []
+    for ids in requests:
+        rids.append(rt._next_rid)
+        t0 = time.perf_counter()
+        out = rt.predict(ids)
+        latency.append(time.perf_counter() - t0)
+        if out.shape != (len(ids), graph.num_classes) \
+                or not np.isfinite(out).all():
+            fail(f"serve: predict of {len(ids)} ids gave {out.shape}, "
+                 f"finite {bool(np.isfinite(out).all())}")
+        answers.append(out)
+    if rt.forward_compiles != SERVE_BUCKETS:
+        fail(f"serve: {rt.forward_compiles} graphs after the requests, "
+             f"{SERVE_BUCKETS} after warm-up")
+    for m in SERVE_EAGER:
+        i = SERVE_SIZES.index(m)
+        check_eager(f"serve/graphsage/{m}_ids", rt, requests[i], rids[i],
+                    answers[i])
+    print("serve: graphsage (configured pallas_fused; serving builds no "
+          "kernel layout and runs the plain segment sums, as the "
+          f"reference), buckets {list(rt.buckets)}, {n} CUDA graphs after "
+          f"warm-up ({warm_s:.3f} s, peak {warm_peak} B) and after "
+          f"predict at {list(SERVE_SIZES)} ids "
+          f"({[round(s, 4) for s in latency]} s); the {list(SERVE_EAGER)}-id"
+          f" requests bitwise the eager forward over their batch; card: "
+          f"{card}", flush=True)
+    rt.reset_stats()
+    rng_b = np.random.default_rng((SEED, 1))
+    for b in rt.buckets:
+        latency_ms = []
+        for _ in range(SERVE_BUCKET_REQUESTS):
+            ids = rng_b.choice(graph.train_ids, b).astype(np.int32)
+            t0 = time.perf_counter()
+            rt.predict(ids)
+            latency_ms.append((time.perf_counter() - t0) * 1e3)
+        serve_bucket_line(rt, b, eager, float(np.median(latency_ms)), card)
+    i = SERVE_SIZES.index(SERVE_CPU)
+    with ServingRuntime(graph, cfg_s, params0, store=store,
+                        device="cpu") as cpu:
+        cpu._next_rid = rids[i]  # the same request: its id and its pad
+        want = cpu.predict(requests[i])
+    scale = float(np.abs(want).max())
+    row = check_within(f"serve/cpu/{SERVE_CPU}_ids", "logits",
+                       torch.from_numpy(answers[i]), torch.from_numpy(want),
+                       RTOL, ATOL * scale)
+    print(f"serve/cpu: the {SERVE_CPU}-id request replayed by a CPU runtime,"
+          f" within rtol {RTOL} and atol {ATOL} x {scale}: "
+          + json.dumps(row), flush=True)
+    # a discarded window first: the coalescer's estimate for the 8 bucket
+    # still holds its capture (0.7^12 of it after the requests above) and
+    # settles here; the points after it find it settled
+    closed_loop_load(rt, graph.train_ids, clients=SERVE_CLIENTS[0],
+                     requests_per_client=SERVE_LOAD_WARMUP, seed=SEED + 1)
+    for clients in SERVE_CLIENTS:
+        pt = closed_loop_load(rt, graph.train_ids, clients=clients,
+                              requests_per_client=SERVE_LOAD_REQUESTS,
+                              seed=SEED)
+        if pt["requests"] != clients * SERVE_LOAD_REQUESTS \
+                or rt.forward_compiles != SERVE_BUCKETS:
+            fail(f"serve/load: {pt}, {rt.forward_compiles} graphs")
+        print("serve_load " + json.dumps({**pt, "slo_ms": rt.slo_s * 1e3,
+                                          "graphs": rt.forward_compiles,
+                                          "card": card}), flush=True)
+    rt.close()
+    del rt
+    for label, fault in (("pool", None), ("pool/kill", SERVE_FAULT)):
+        cfg_p = dataclasses.replace(cfg_s, fault=dataclasses.replace(
+            cfg_s.fault, fault_spec=fault))
+        t0 = time.perf_counter()
+        with ServingRuntime(graph, cfg_p, params0, store=store,
+                            serve_cfg=ServeConfig(num_workers=SERVE_WORKERS),
+                            device="cuda") as rp:
+            rp.warmup()
+            got = [rp.predict(ids) for ids in requests]
+            st = rp.stats()
+        for m, a, b in zip(SERVE_SIZES, got, answers):
+            same_bits(f"serve/{label}/{m}_ids", a, b)
+        if fault is not None and (st["pool"]["respawns"] != 1
+                                  or st["pool_degraded"]):
+            fail(f"serve/{label}: pool {st['pool']}, degraded "
+                 f"{st['pool_degraded']}")
+        print(f"serve/{label}: {SERVE_WORKERS} workers"
+              + (f", fault {fault!r}" if fault else "")
+              + f": every answer bitwise the in-process runtime's; "
+              f"respawns {st['pool']['respawns']}, degraded "
+              f"{st['pool_degraded']}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    cfg_g = dataclasses.replace(cfg_s, name="gat")
+    with ServingRuntime(graph, cfg_g, params_gat, store=store,
+                        device="cuda") as rg:
+        host_sync_free("serve/gat", rg, request_arrays(
+            rg, np.full(8, anchor, np.int32), 0))
+        for m in SERVE_GAT_SIZES:
+            ids = rng.choice(graph.train_ids, m).astype(np.int32)
+            rid = rg._next_rid
+            check_eager(f"serve/gat/{m}_ids", rg, ids, rid, rg.predict(ids))
+        if rg.forward_compiles != len(SERVE_GAT_SIZES):
+            fail(f"serve/gat: {rg.forward_compiles} graphs")
+    print(f"serve/gat: {len(SERVE_GAT_SIZES)} CUDA graphs, requests of "
+          f"{list(SERVE_GAT_SIZES)} ids bitwise the eager forward",
+          flush=True)
+    torch.cuda.synchronize()
+    counts = dict(agg.launch_counts)
+    if any(counts.values()):
+        fail(f"serve: launched {nonzero(counts)}; serving runs no kernel")
+    print(f"serve: launch counts {counts} (every one 0: the plain path); "
+          f"device memory left allocated after the runtimes closed: "
+          f"{torch.cuda.memory_allocated() - allocated0} B (cuBLAS keeps a "
+          f"workspace for the card's one capture stream)", flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": counts}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
@@ -2897,6 +3169,13 @@ def main() -> None:
                                           "pallas_fused"),
                params0, fused_counts, runs)
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 6b. GNN serving: one CUDA graph a bucket over the plain path
+    t0 = time.perf_counter()
+    runs["gnn_serving"] = serving_phase(graph, cfg, params0, params_gat, agg,
+                                        card)
+    print(f"gnn serving phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # 7. the kernel entry points, on the layer-1 operands
     seg1 = on_card(layers[1], FWD)

@@ -75,10 +75,13 @@ class FeatureStore:
             st.local_bytes += n_valid * self.core.slice_width(d) * 4
 
     def gather(self, device: int, vertex_ids: np.ndarray,
-               mask: Optional[np.ndarray] = None) -> np.ndarray:
+               mask: Optional[np.ndarray] = None,
+               out: Optional[np.ndarray] = None) -> np.ndarray:
         """Gather feature rows for a mini-batch onto ``device``: the (N, f)
         block with invalid (padding) rows zeroed; updates beta. Under P3
-        the block is the device's feature slice, zero-widened to f."""
+        the block is the device's feature slice, zero-widened to f.
+        ``out``: an (N, f) float32 array to write the block into (the
+        serving path's pinned staging buffer) in place of a fresh one."""
         ids = np.asarray(vertex_ids)
         valid = np.ones(len(ids), bool) if mask is None else np.asarray(mask)
         f = self.g.features.shape[1]
@@ -88,9 +91,15 @@ class FeatureStore:
         self.account_rows(device, int(hit.sum()), int(miss.sum()))
         sl = self.feature_slice[device]
         if self.core.slice_width(device) == f:
-            out = self.g.features[ids]  # fancy indexing: a fresh array
+            if out is None:
+                out = self.g.features[ids]  # fancy indexing: a fresh array
+            else:  # ids are vertex ids, so "clip" moves none of them
+                np.take(self.g.features, ids, axis=0, out=out, mode="clip")
         else:  # P3: local slice only, zero-widened to full feature dim
-            out = np.zeros((len(ids), f), np.float32)
+            if out is None:
+                out = np.zeros((len(ids), f), np.float32)
+            else:
+                out[:] = 0.0
             out[:, sl] = self.g.features[ids, sl]
         out[~valid] = 0.0
         return out

@@ -33,6 +33,28 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
+def _nbytes(shape, dtype: np.dtype) -> int:
+    return int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+
+
+def pack_offsets(specs) -> Tuple[List[int], int]:
+    """Byte offsets of arrays of the given ``(shape, dtype)`` packed back to
+    back into one buffer, each at an ``ALIGN``-aligned offset, and the
+    buffer's size."""
+    offs, total = [], 0
+    for shape, dtype in specs:
+        offs.append(total)
+        total += (_nbytes(shape, dtype) + ALIGN - 1) // ALIGN * ALIGN
+    return offs, total
+
+
+def typed_view(buf: torch.Tensor, off: int, shape,
+               dtype: np.dtype) -> torch.Tensor:
+    """The ``(shape, dtype)`` array at byte ``off`` of the uint8 ``buf``."""
+    return buf[off:off + _nbytes(shape, dtype)].view(
+        _torch_dtype(dtype)).view(shape)
+
+
 class UploadPack:
     """The arrays of one batch, in the order they are packed: each entry is
     ``(key, index, shape, dtype, source)`` where ``index`` is the layer of a
@@ -104,17 +126,14 @@ class StagingRing:
         the one device buffer the copy wrote. On CUDA the copy is queued
         on the current stream; its consumer must wait for that stream and
         ``record_stream`` ``base`` on its own."""
-        offs, total = [], 0
-        for _, _, shape, dtype, _ in pack.entries:
-            offs.append(total)
-            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-            total += (nbytes + ALIGN - 1) // ALIGN * ALIGN
+        offs, total = pack_offsets((shape, dtype) for _, _, shape, dtype, _
+                                   in pack.entries)
         total = max(total, ALIGN)
         k, host = self._slot(total)
         host_np = host.numpy()
         for (key, i, shape, dtype, src), off in zip(pack.entries, offs):
-            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-            view = host_np[off:off + nbytes].view(dtype).reshape(shape)
+            view = host_np[off:off + _nbytes(shape, dtype)].view(
+                dtype).reshape(shape)
             if callable(src):
                 t0 = time.perf_counter()
                 src(view)
@@ -132,8 +151,7 @@ class StagingRing:
             base = host[:total].clone()
         out: Dict[str, object] = {}
         for (key, i, shape, dtype, _), off in zip(pack.entries, offs):
-            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-            t = base[off:off + nbytes].view(_torch_dtype(dtype)).view(shape)
+            t = typed_view(base, off, shape, dtype)
             if i is None:
                 out[key] = t
             else:

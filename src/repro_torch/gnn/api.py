@@ -35,7 +35,21 @@ close the result (or use it as a context manager) when done.
 and ``checkpointer=Checkpointer(dir), checkpoint_every=k``
 (``repro_torch.checkpoint.checkpointing``) saves every k-th iteration of
 an epoch, from which a trainer built with the same arguments resumes by
-``restore_checkpoint()`` and ``run_epoch(resume=True)``.
+``restore_checkpoint()`` and ``run_epoch(resume=True)``. ``evaluate(result)``
+gives the last epoch's headline numbers.
+
+The same trio stands up the request-driven serving frontend
+(``repro_torch.gnn.serve``, :mod:`repro_torch.gnn.serving`): trained
+parameters answer target-node inference requests, coalesced into
+SLO-bounded micro-batches on the same fault-tolerant sampler pool, each
+bucket's forward one CUDA graph on the card::
+
+    from repro_torch.gnn import serve
+
+    with serve(cfg, graph=g, params=result.params,
+               slo_ms=50.0, num_workers=2) as server:
+        logits = server.predict([123, 456])   # synchronous path
+        fut = server.submit([789])            # coalesced, returns a Future
 """
 from __future__ import annotations
 
@@ -99,3 +113,10 @@ def train(model_cfg: GNNModelConfig, platform: PlatformConfig,
         trainer.close()
         raise
     return result
+
+
+def evaluate(result: TrainResult) -> dict:
+    """Convenience: the last epoch's headline numbers."""
+    m = result.final
+    keys = ("loss", "acc", "nvtps", "beta", "utilization", "epoch_time_s")
+    return {k: m[k] for k in keys if k in m}

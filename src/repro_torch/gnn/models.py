@@ -159,11 +159,13 @@ def segment_softmax(scores: torch.Tensor, seg: torch.Tensor,
     (``segs``: ``_segments(seg, n_seg)``, or computed here) and the max is
     exact in any order (``scatter_reduce``, -inf in an empty segment, its
     gradient split evenly among ties, as ``jax.ops.segment_max``'s), so a
-    run repeats its bits on the card."""
+    run repeats its bits on the card. The fill is a scalar, not a tensor
+    made from one: that would be a copy from the host, which waits for the
+    card and so cannot be captured in a CUDA graph (the serving path)."""
     seg = seg.long()
     segs = segs if segs is not None else _segments(seg, n_seg, mask)
     maskf = mask.to(scores.dtype)
-    neg = torch.where(mask.bool(), scores, scores.new_tensor(-1e30))
+    neg = scores.masked_fill(~mask.bool(), -1e30)
     smax = scores.new_full((n_seg,), float("-inf")).scatter_reduce(
         0, seg, neg, "amax", include_self=False)
     ex = torch.exp(neg - _GatherRows.apply(smax, seg, segs)) * maskf

@@ -26,8 +26,10 @@ their published widths and depths through ``models.registry.build``,
 ``make_decode_step``: Llama-3-8B (prefill through ``flash_attention_fwd``)
 and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16 from a seeded
 init. Before the LM zoo it serves GraphSAGE and GAT requests through
-``core.serving.ServingRuntime`` (one CUDA graph a bucket). Phases, each
-of which exits non-zero on failure:
+``core.serving.ServingRuntime`` (one CUDA graph a bucket), then runs the
+paper's Table 2 API (``core.abstraction.HitGNN``): its DSE, one epoch
+through ``Start_training`` and the simulator beside what the card
+measured. Phases, each of which exits non-zero on failure:
 
   1. device report: the card's name, its name and power limit as
      ``nvidia-smi`` gives them, and its max SM clock;
@@ -282,6 +284,37 @@ of which exits non-zero on failure:
      shared graph pool and the eager forward's peak. ``serve_load`` lines
      give the offered requests a second, p50 and p99 ms and the SLO
      (50 ms) miss rate. Misses are results, not failures;
+  6c. the paper's API (``core.abstraction.HitGNN``), its DSE and the
+     simulator: the Listing-1 calls at the paper configuration (GraphSAGE,
+     2 layers, hidden 128, fanouts (25, 10), 1,024 targets, ``metis_like``
+     at p = 4, DistDGL), ``Generate_Design`` at Reddit's Table 4 stats
+     (``design`` line: the FPGA model's (n, m) and the H100 design's slab
+     and cluster); ``H100DSE.smem_bytes`` must equal the built kernel's
+     ``aggregate_fused_smem_bytes`` for every slab the search considered
+     (``design_smem``); the ``design_h100`` line gives the DSE's (slab,
+     cluster, t_agg) at phase 3's paper batch beside, layer by layer, the
+     shape ``aggregate_fused_shape`` picked, its measured ms and the
+     model's ms at either shape. Then ``LoadInputGraph`` and
+     ``Start_training(epochs=1)`` from phase 4's parameters, resident on
+     ``"pallas_fused"`` at p = 4 with a checkpoint under ``build/``: it
+     must launch its iterations times p times phase 4's counts, and its
+     epoch (every key that holds no time) and parameters must equal a
+     directly built ``SyncGNNTrainer``'s bit for bit; ``Save_model``'s npz
+     must hold the trainer's parameters, one array each (``api_epoch``
+     line: s an iteration and NVTPS). Last, the simulator calibrated from
+     the p = 1 resident ``"pallas_fused"`` runs (``t_sampling``,
+     ``t_layout``, ``t_gather``: medians of phase 4's ``run_iteration``
+     stages; the layout's host-to-device bytes; ``t_ipc``: a 2-epoch
+     1-worker pool run here, bitwise phase 5's sequential twin, less the
+     in-process pipelined epoch, a second an iteration, at least 0), at
+     the smoke graph's own statistics: ``simulator`` lines give the
+     modelled pipelined/sequential speedup beside phase 5's, the modelled
+     speedups at 2 and 4 workers beside phase 5's pooled epochs (against
+     the in-process one: the model's single worker pays no IPC toll), and
+     the model's ``t_host`` and ``t_gnn`` (the paper's FPGA device model)
+     beside the prefetch thread's ms and the traced device-busy ms an
+     iteration. A wide gap is a finding; a non-finite or non-positive
+     value fails;
   7. the kernel entry points: ``ops.update``, ``ops.aggregate`` and
      ``ops.aggregate_update`` (fused, and with ``use_pallas=False``) on
      the layer-1 operands, with the counts set to 0 just before and read
@@ -439,6 +472,14 @@ SERVE_GAT_SIZES = (8, 1024)
 SERVE_CLIENTS = (1, 2, 4)
 SERVE_LOAD_WARMUP = 20
 SERVE_LOAD_REQUESTS = 200
+# the paper's API phase: the Listing-1 design at the paper configuration
+# (GraphSAGE, 2 layers, hidden 128, fanouts (25, 10), 1,024 targets,
+# metis_like at p = 4, DistDGL), one epoch through Start_training beside a
+# directly built trainer (resident, "pallas_fused"), and the simulator
+# calibrated from phase 4's and phase 5's p = 1 runs and one 2-epoch run
+# of a 1-worker pool
+API_P = 4
+API_WORKER_EPOCHS = 2
 CACHE_KEYS = ("cache_enabled", "cache_hit_rate", "miss_bytes",
               "miss_bytes_per_iter", "beta", "cache_admissions",
               "cache_evictions", "cache_refresh_bytes")
@@ -2826,6 +2867,217 @@ def serving_phase(graph, cfg, params0, params_gat, agg, card) -> dict:
     return {"launches": counts}
 
 
+# epoch keys that time the host: they differ between two runs of one epoch
+API_TIMED = ("epoch_time_s", "nvtps", "host_produce_s", "host_wait_s",
+             "host_gather_s", "host_issue_s", "host_fetch_s",
+             "pool_recovery_s")
+
+
+def iteration_s(run: dict) -> float:
+    """Seconds an iteration of a run's last (steady) epoch."""
+    m = run["metrics"][-1]
+    return m["epoch_time_s"] / m["iterations"]
+
+
+def check_model_values(label: str, values: dict) -> None:
+    """Every number the simulator or the DSE gave must be finite and
+    positive."""
+    bad = {k: v for k, v in values.items()
+           if not (np.isfinite(v) and v > 0)}
+    if bad:
+        fail(f"{label}: non-finite or non-positive values {bad}")
+
+
+def api_phase(graph, cfg, params0, fused_rows, fused_counts, runs, agg,
+              flatten, card) -> dict:
+    """Phase 6c: the paper's API (``core.abstraction.HitGNN``), its DSE and
+    the simulator on the card (the docstring's list). ``fused_rows``: phase
+    3's two ``aggregate_fused`` launches at the paper batch; ``runs``:
+    phase 4's and phase 5's. Returns the launch counts of the facade's
+    epoch."""
+    from repro_torch.checkpoint.checkpointing import (Checkpointer,
+                                                      flatten_with_paths)
+    from repro_torch.configs.gnn import DATASETS, GraphDatasetConfig
+    from repro_torch.core.abstraction import HitGNN
+    from repro_torch.core.dse import H100_SLABS, H100DSE, MiniBatchShape
+    from repro_torch.core.simulator import (SimConfig, pipeline_speedup,
+                                            sampler_worker_curve)
+    from repro_torch.core.trainer import SyncGNNTrainer
+
+    # (a) the design: Listing 1 at the paper configuration
+    hit = HitGNN()
+    hit.Graph_Partition("metis_like", p=API_P)
+    hit.Feature_Storing("distdgl")
+    hit.GNN_Computation(cfg.name)
+    hit.GNN_Parameters(L=cfg.num_layers, hidden=[cfg.hidden],
+                       fanouts=cfg.fanouts, batch_targets=cfg.batch_targets)
+    hit.Platform_Metadata(num_devices=API_P)
+    design = hit.Generate_Design(DATASETS["reddit"])
+    print("design " + json.dumps({"dataset": "reddit", "beta": 0.8,
+                                  **design}), flush=True)
+    dse = H100DSE()
+    considered = [s for s in H100_SLABS
+                  if dse.smem_bytes(s) <= dse.meta.smem_bytes]
+    smem = {s: {"dse": dse.smem_bytes(s),
+                "kernel": agg.aggregate_fused_smem_bytes(s)}
+            for s in considered}
+    print("design_smem " + json.dumps({str(s): v for s, v in smem.items()}),
+          flush=True)
+    if any(v["dse"] != v["kernel"] for v in smem.values()):
+        fail(f"H100DSE.smem_bytes differs from the built kernel's: {smem}")
+    if design["h100"]["slab"] not in considered:
+        fail(f"the design's slab {design['h100']} is not one it considered")
+    # the paper batch as phase 3 launched it: the rows each layer reads and
+    # the destination rows that hold an edge or a self term, its edges
+    r0, r1 = fused_rows
+    beta = runs["pallas_fused/sequential"]["metrics"][-1]["beta"]
+    mb = MiniBatchShape(v=[r0["src_rows"], r0["update_rows"],
+                           r1["update_rows"]],
+                        a=[r0["edges"], r1["edges"]],
+                        f=[r0["w"][0], r0["w"][1], r1["w"][1]])
+    best = dse.search(mb, beta)
+    layers = []
+    for l, r in enumerate(fused_rows):
+        shape = (mb.v[l], mb.v[l + 1], mb.a[l], mb.f[l], mb.f[l + 1], beta)
+        layers.append({
+            "layer": l, "kernel_slab": r["slab"],
+            "kernel_cluster": r["cluster"], "kernel_ms": r["ms"],
+            "model_ms_at_kernel_shape": 1e3 * dse.agg_layer_time(
+                r["slab"], r["cluster"], *shape),
+            "model_ms_at_dse_shape": 1e3 * dse.agg_layer_time(
+                best["slab"], best["cluster"], *shape)})
+    print("design_h100 " + json.dumps({
+        "card": card, "beta": beta, "batch": dataclasses.asdict(mb),
+        "dse": best, "layers": layers}), flush=True)
+    check_model_values("design", {"t_agg": best["t_agg"],
+                                  "fpga_throughput":
+                                      design["fpga"]["throughput"]})
+
+    # (b) training through Start_training beside a direct trainer
+    d = checkpoint_dir("phase6c")
+    kw = dict(aggregate_backend="pallas_fused", data_parallel=True,
+              device="cuda", params=params0, seed=SEED)
+    hit.LoadInputGraph(graph)
+    torch.cuda.synchronize()
+    agg.reset_launch_counts()
+    got = hit.Start_training(epochs=1, checkpoint_dir=str(d), **kw)[0]
+    torch.cuda.synchronize()
+    launches = dict(agg.launch_counts)
+    facade = hit._trainer
+    direct = SyncGNNTrainer(graph, hit.GNN_Model(), API_P,
+                            algorithm="distdgl", **kw)
+    want = direct.run_epoch()
+    expected = {k: got["iterations"] * API_P * v
+                for k, v in fused_counts.items()}
+    if launches != expected:
+        fail(f"Start_training: {got['iterations']} iterations launched "
+             f"{launches}, expected {expected}")
+    differ = {k: (got[k], want[k]) for k in want
+              if k not in API_TIMED and got.get(k) != want[k]}
+    if differ or set(got) != set(want):
+        fail(f"Start_training's epoch differs from a direct trainer's: "
+             f"{differ}")
+    if not all(torch.equal(a, b) for a, b in zip(flatten(facade.params),
+                                                   flatten(direct.params))):
+        fail("Start_training's parameters differ from a direct trainer's")
+    saved = np.load(hit.Save_model(str(d / "model.npz")))
+    leaves = list(flatten_with_paths(facade.params).values())
+    if len(saved.files) != len(leaves) or not all(
+            np.array_equal(saved[str(i)], q.detach().cpu().numpy())
+            for i, q in enumerate(leaves)):
+        fail(f"Save_model wrote {len(saved.files)} arrays, not the "
+             f"trainer's {len(leaves)} parameters")
+    step = Checkpointer(str(d)).latest_step()
+    if step != facade.step_no:
+        fail(f"Start_training's checkpoint is at step {step}, the trainer "
+             f"at {facade.step_no}")
+    h2d = direct.aggregate_h2d_bytes("edges")
+    facade.close()
+    direct.close()
+    del hit, facade, direct
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    print("api_epoch " + json.dumps({
+        "card": card, "p": API_P, "iterations": got["iterations"],
+        "iteration_s": got["epoch_time_s"] / got["iterations"],
+        "nvtps": got["nvtps"], "loss": got["loss"],
+        "direct_iteration_s": want["epoch_time_s"] / want["iterations"],
+        "direct_nvtps": want["nvtps"], "launches": nonzero(launches),
+        "bitwise_direct": True, "checkpoint_step": step,
+        "saved_arrays": len(saved.files)}), flush=True)
+
+    # (c) the simulator, calibrated from the p = 1 resident runs: phase 4's
+    # run_iteration stages, phase 5's epochs, and a 1-worker pool here
+    def make():
+        return SyncGNNTrainer(
+            graph, dataclasses.replace(cfg, aggregate_backend="pallas_fused"),
+            num_devices=1, algorithm="distdgl", seed=SEED, device="cuda",
+            params=params0, data_parallel=True, num_sampler_workers=1)
+    one = epoch_run("pallas_fused/pipelined/1_worker", make,
+                    API_WORKER_EPOCHS, fused_counts, agg, flatten)
+    check_twin("pallas_fused/pipelined/1_worker", one,
+               runs["pallas_fused/sequential"])
+    seq, pipe = runs["pallas_fused/sequential"], runs["pallas_fused/pipelined"]
+    pooled = {n: runs[f"pallas_fused/pipelined/{n}_workers"] for n in (2, 4)}
+    steps = runs["pallas_fused_resident"]["steps"]
+
+    def median(key):
+        return float(np.median([m[key] for m in steps]))
+    ipc_s = iteration_s(one) - iteration_s(pipe)
+    sim = SimConfig(t_sampling=median("sample_s"),
+                    t_layout=median("layout_s"), t_gather=median("gather_s"),
+                    h2d_layout_bytes=float(h2d), t_ipc=max(0.0, ipc_s))
+    ds = GraphDatasetConfig(graph.name, graph.num_vertices, graph.num_edges,
+                            graph.features.shape[1], cfg.hidden,
+                            graph.num_classes)
+    model = dataclasses.replace(cfg, aggregate_backend="pallas_fused")
+    ps = pipeline_speedup(model, ds, 1, beta, sim)
+    curve = {r["workers"]: r for r in sampler_worker_curve(
+        model, ds, 1, beta, sim, worker_counts=(1, 2, 4))}
+    last = pipe["metrics"][-1]
+    calib = {"t_sampling": sim.t_sampling, "t_layout": sim.t_layout,
+             "t_gather": sim.t_gather,
+             "h2d_layout_bytes": sim.h2d_layout_bytes,
+             "t_ipc": sim.t_ipc, "one_worker_minus_in_process_s": ipc_s,
+             "beta": beta, "dataset": dataclasses.asdict(ds)}
+    lines = {
+        "pipeline": {"modelled_speedup": ps["speedup"],
+                     "measured_speedup": iteration_s(seq)
+                     / iteration_s(pipe),
+                     "modelled_epoch_s": ps["pipelined"]["epoch_time_s"],
+                     "measured_epoch_s": last["epoch_time_s"]},
+        # the model's one worker is the in-process host (no IPC toll)
+        "workers": {"modelled_speedup_vs_1": {
+                        n: curve[n]["speedup_vs_1"] for n in (2, 4)},
+                    "measured_speedup_vs_in_process": {
+                        n: iteration_s(pipe) / iteration_s(pooled[n])
+                        for n in (2, 4)},
+                    "measured_iteration_s": {
+                        "in_process": iteration_s(pipe),
+                        "1": iteration_s(one),
+                        **{str(n): iteration_s(pooled[n]) for n in (2, 4)}}},
+        "times": {"model_t_host_ms": 1e3 * ps["pipelined"]["t_host"],
+                  "model_t_gnn_ms": 1e3 * ps["pipelined"]["t_gnn"],
+                  "measured_host_ms": 1e3 * last["host_produce_s"]
+                  / last["iterations"],
+                  "measured_device_busy_ms": pipe["trace"]["device_busy_ms"]
+                  / last["iterations"]}}
+    print("simulator " + json.dumps({"line": "calibration", "card": card,
+                                     **calib}), flush=True)
+    for name, line in lines.items():
+        print("simulator " + json.dumps({"line": name, "card": card,
+                                         **line}), flush=True)
+    check_model_values("simulator", {
+        "modelled_speedup": ps["speedup"],
+        "measured_speedup": lines["pipeline"]["measured_speedup"],
+        **{f"modelled_w{n}": v for n, v in
+           lines["workers"]["modelled_speedup_vs_1"].items()},
+        **{f"measured_w{n}": v for n, v in
+           lines["workers"]["measured_speedup_vs_in_process"].items()},
+        **lines["times"]})
+    return {"launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
@@ -3176,6 +3428,12 @@ def main() -> None:
                                         card)
     print(f"gnn serving phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # 6c. the paper's API, its DSE and the simulator
+    t0 = time.perf_counter()
+    runs["api"] = api_phase(graph, cfg, params0, rows["aggregate_fused"][:2],
+                            fused_counts, runs, agg, flatten, card)
+    print(f"api phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 7. the kernel entry points, on the layer-1 operands
     seg1 = on_card(layers[1], FWD)

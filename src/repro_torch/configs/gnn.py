@@ -73,6 +73,12 @@ class PlatformConfig:
     host_bw: float = 205e9
     data_parallel: bool = False
 
+    def to_metadata(self):
+        """The analytic-model twin (``core.dse.PlatformMetadata``)."""
+        from repro_torch.core.dse import PlatformMetadata
+        return PlatformMetadata(num_devices=self.num_devices,
+                                pcie_bw=self.pcie_bw, host_bw=self.host_bw)
+
 
 @dataclass(frozen=True)
 class GNNModelConfig:
@@ -117,7 +123,7 @@ class GraphDatasetConfig:
     num_classes: int     # f2
 
 
-# Paper Table 4 (full-scale stats).
+# Paper Table 4 (full-scale stats; used by the DSE and the simulator).
 REDDIT = GraphDatasetConfig("reddit", 232_965, 23_213_838, 602, 128, 41)
 YELP = GraphDatasetConfig("yelp", 716_847, 13_954_819, 300, 128, 100)
 AMAZON = GraphDatasetConfig("amazon", 1_569_960, 264_339_468, 200, 128, 107)
@@ -125,3 +131,9 @@ OGBN_PRODUCTS = GraphDatasetConfig("ogbn-products", 2_449_029, 61_859_140,
                                    100, 128, 47)
 
 DATASETS = {d.name: d for d in (REDDIT, YELP, AMAZON, OGBN_PRODUCTS)}
+
+GCN = GNNModelConfig("gcn")
+GRAPHSAGE = GNNModelConfig("graphsage")
+
+GNN_MODELS = {"gcn": GCN, "graphsage": GRAPHSAGE,
+              "gin": GNNModelConfig("gin"), "gat": GNNModelConfig("gat")}

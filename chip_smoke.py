@@ -25,7 +25,9 @@ their published widths and depths through ``models.registry.build``,
 ``ModelBundle.init_params`` and ``launch.steps.make_prefill_step`` /
 ``make_decode_step``: Llama-3-8B (prefill through ``flash_attention_fwd``)
 and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16 from a seeded
-init. Before the LM zoo it serves GraphSAGE and GAT requests through
+init, and trains Llama-3-8B at its published widths, 2 layers deep,
+through ``launch.steps.make_train_step`` (the flash forward and the
+hand-written ``flash_attention_bwd``). Before the LM zoo it serves GraphSAGE and GAT requests through
 ``core.serving.ServingRuntime`` (one CUDA graph a bucket), then runs the
 paper's Table 2 API (``core.abstraction.HitGNN``): its DSE, one epoch
 through ``Start_training`` and the simulator beside what the card
@@ -370,7 +372,55 @@ measured. Phases, each of which exits non-zero on failure:
      1,023-token prefill and one decode step, within rtol 1e-4 and atol
      1e-4 times the largest logit (fp32 sums over 4,096 features and 1,024
      positions taken in another order by the two paths);
-  11. summary: one ``{"kernels": [...]}`` line, then the last line
+  11. the LM training step. ``flash_attention_bwd`` against its plain
+     version at Llama-3-8B's training shape (1 x 4,096 tokens, 32 query
+     and 8 kv heads of 128, causal) in bf16 (the main path's launch) and
+     fp32, at a ragged causal shape (2 x 1,000 tokens, 4 and 2 heads of
+     64) and a non-causal one (2 x 512, 8 and 2 heads of 128), each in
+     bf16 and fp32, from the forward's output and log-sum-exp: the lse is
+     held against the plain one at flash's fp32 tolerance (both routes sum
+     l in fp32), the forward's output must be bitwise the same with and
+     without it, two backward launches must give the same bits, and dq,
+     dk and dv are held in fp32 at flash's fp32 tolerance and in bf16 at
+     rtol 1e-2 with an atol of 8e-3 (one bf16 ulp, 2^-7, of a rounded p or
+     ds that a last-bit difference before the rounding can flip) times
+     each element's sum of |rounded factor| x |other factor| (|ds| |k|,
+     |ds|^T |q|, |p|^T |dout|) plus the fp32 allowance. Each line gives
+     the route (``fma``: every product on fp32 FMA from shared-memory
+     tiles), the dk/dv pass's dynamic shared memory, both passes'
+     registers and spills from the build report, the kernel's ms (CUDA
+     events), its plain version's, the yardstick's
+     (``scaled_dot_product_attention``'s backward alone, k and v repeated
+     outside the timing) and the bound: q, k, v, out, dout, lse, dq, dk
+     and dv moved once over 3.35 TB/s against 5 products of 2 D flops per
+     unmasked pair at the card's rate for the operands' type (989 TFLOP/s
+     bf16, 67 fp32). The bf16 lines also hold the kernel's rounding points:
+     its relative Frobenius error against the plain version must stay
+     under 2^-11, and against the plain version with p's or ds's rounding
+     to bf16 removed must exceed it (``rounding``). Then the step at full
+     width (``train``
+     line): Llama-3-8B's widths (d 4,096, 32 / 8 heads, d_ff 14,336,
+     vocab 128,256), 2 layers (the 32 with fp32 moments would need ~128
+     GB), bf16 parameters from ``ModelBundle.init_params``, remat
+     ``"full"``, ``grad_accum`` 2 over 2 x 4,096 numpy-seeded tokens, 3
+     steps of the reference's AdamW on a cosine schedule; every count set
+     to 0 before each step and read after it: exactly 8
+     ``flash_attention_fwd`` (2 layers x 2 micro-batches x the forward and
+     remat's recompute) and 4 ``flash_attention_bwd``, nothing else;
+     finite losses and gradient norms. It prints s a step and tokens/s
+     (medians of steps 2-3), the peak device memory, and step 1 run again
+     from the same parameters and batch under ``torch.profiler`` (warmed
+     first): the flash kernels' share of the device's busy time, null
+     unless the trace saw every launch the counts saw
+     (``trace_complete``), and whether the loss, gradient norm and
+     parameters came out bitwise the same (printed, not failed). The bf16
+     logits of 512 seeded hidden states are held against the fp32 product
+     of the same values at rtol / atol 1e-4 x the largest |logit| (the
+     line's ``logits``). Last, one fp32 micro-step (TF32 off) of the same 2-layer
+     model at 1 x 128 tokens: the loss and every gradient leaf on the card
+     within rtol 1e-4 and atol 1e-4 times the leaf's largest magnitude of
+     the port on the CPU (``train_vs_cpu`` line, with the CPU's seconds);
+  12. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -511,6 +561,27 @@ FLASH_TOL = dict(rtol=1e-4, atol=2e-4)
 WKV_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_RTOL = 1e-2
 FLASH_BF16_P_ATOL = 4e-3
+# the flash backward in bf16: the kernel and the plain version both round p
+# and ds to bf16, so a last-bit difference in an fp32 value before the
+# rounding can move it by one bf16 ulp (2^-7 of it at most): atol 8e-3 x
+# the sum of |rounded factor| x |other factor| of each output element, plus
+# the fp32 allowance
+FLASH_BWD_BF16_ATOL = 8e-3
+# ... and whether it rounds where the plain version does: the relative
+# Frobenius error of each of dq, dk and dv against the plain version must
+# stay under BWD_ROUNDING_LIMIT, and against the plain version with p's (for
+# dv) or ds's (for dq, dk) rounding removed must exceed it. A kernel that
+# rounds there differs from the plain version only where an fp32 last-bit
+# difference moves a bf16 rounding (~3e-5 to 1.2e-4 in a CPU simulation);
+# one that skips a rounding is off by ~2^-9 in every term (~2.5e-3)
+BWD_ROUNDING_LIMIT = 2.0 ** -11
+# the LM training phase: Llama-3-8B at its published widths, TRAIN_LAYERS
+# deep (32 layers with fp32 moments would need ~128 GB), bf16, remat
+# "full", grad_accum 2 over a batch of 2 x 4,096 numpy-seeded tokens,
+# TRAIN_STEPS AdamW steps on a cosine schedule; then one fp32 micro-step
+# of 1 x TRAIN_CPU_SEQ tokens on the card against the CPU
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 4096
+TRAIN_ACCUM, TRAIN_STEPS, TRAIN_CPU_SEQ = 2, 3, 128
 FWD = ("tile_off", "val", "tile_seg", "cols")
 BWD = ("tile_off_t", "val_t", "tile_seg_t", "cols_t")
 COMPACT = ("tile_id", "tile_off", "val", "cols")
@@ -535,6 +606,10 @@ KERNEL_SOURCES = {
         "src/repro/kernels/flash_attention.py:22"),
     "wkv6_chunk": ("src/repro_torch/kernels/csrc/wkv6_chunk.cu",
                    "src/repro/kernels/wkv6.py:20"),
+    # no TPU kernel: the counterpart of the reference's plain-JAX backward
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/nn/attention.py:104"),
 }
 
 
@@ -1559,13 +1634,17 @@ def check_wkv6_launch(name, wk, B, S, H, K, dtype, with_state, main_path,
     return report(row)
 
 
-def traced(fn, cpu: bool = True) -> dict:
+def traced(fn, cpu: bool = True, match: dict | None = None,
+           top: int = 0) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall time (to a
     synchronize), the device kernels it ran, the time the device was busy
     (the union of their intervals, so kernels and copies that overlap on
     two streams count once) and the device's idle share of the wall time.
     ``cpu=False`` traces the device alone, which keeps the profiler off the
-    host's critical path."""
+    host's critical path. ``match`` ({label: substring}) adds, for each
+    label, the count and device ms of the kernels whose name holds the
+    substring; ``top`` > 0 adds the ``top`` kernel names with the most
+    device ms (names cut to 80 characters), with their ms and count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
@@ -1587,10 +1666,25 @@ def traced(fn, cpu: bool = True) -> dict:
             busy_us += hi - end
             end = hi
     busy_ms = busy_us / 1e3
-    return {"wall_ms": wall_ms, "device_kernels": len(kernels),
-            "device_busy_ms": busy_ms,
-            "device_idle_share": (1 - busy_ms / wall_ms) if kernels
-            else None}
+    row = {"wall_ms": wall_ms, "device_kernels": len(kernels),
+           "device_busy_ms": busy_ms,
+           "device_idle_share": (1 - busy_ms / wall_ms) if kernels
+           else None}
+    for label, key in (match or {}).items():
+        hits = [e for e in kernels if key in e.name]
+        row[f"{label}_kernels"] = len(hits)
+        row[f"{label}_ms"] = sum(e.time_range.end - e.time_range.start
+                                 for e in hits) / 1e3
+    if top:
+        by_name = {}
+        for e in kernels:
+            ms, n = by_name.get(e.name[:80], (0.0, 0))
+            by_name[e.name[:80]] = (
+                ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+        row["top_kernels"] = sorted(
+            ([name, ms, n] for name, (ms, n) in by_name.items()),
+            key=lambda r: -r[1])[:top]
+    return row
 
 
 def serve(arch) -> dict:
@@ -1721,6 +1815,325 @@ def consistency(arch) -> dict:
                                            last.argmax(-1)))}
     print("consistency " + json.dumps(row), flush=True)
     del params, cache
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the LM training step: flash_attention_bwd, and a step at full width
+# ---------------------------------------------------------------------------
+
+def flash_bwd_abs(fa, q, k, v, o, lse, do, causal) -> tuple:
+    """The bf16 allowance's sums for (dq, dk, dv): |ds| |k|, |ds|^T |q| and
+    |p|^T |do| (dk's and dv's summed over each kv head's G query heads),
+    with p and ds as the plain backward forms them."""
+    p, ds = fa.flash_attention_bwd_terms(q, k, v, o, lse, do, causal)
+    return fa.flash_attention_bwd_products(p.abs_(), ds.abs_(), q.abs(),
+                                           k.abs(), do.abs())
+
+
+def rel_frobenius(out, ref) -> float:
+    """||out - ref|| / ||ref|| over every element, in fp64."""
+    out, ref = out.double(), ref.double()
+    return float((out - ref).norm() / ref.norm().clamp_min(1e-300))
+
+
+def check_bwd_rounding(name, fa, got, q, k, v, o, lse, do, causal) -> dict:
+    """Holds bf16 (dq, dk, dv) ``got`` of the kernel against the plain
+    version, and against it with p's or ds's rounding to bf16 removed, by
+    BWD_ROUNDING_LIMIT: fails if the kernel is not within it of the plain
+    version, or if it is within it of an unrounded one (the check could not
+    see a missing rounding there). Returns every reading."""
+    p, ds = fa.flash_attention_bwd_terms(q, k, v, o, lse, do, causal)
+    pr, dsr = p.to(do.dtype).float(), ds.to(k.dtype).float()
+    whats = ("dq", "dk", "dv")
+
+    def reading(pp, dd, keep):
+        want = fa.flash_attention_bwd_products(pp, dd, q, k, do)
+        return {w: rel_frobenius(g, r.to(g.dtype)) for w, g, r
+                in zip(whats, got, want) if w in keep}
+    row = {"limit": BWD_ROUNDING_LIMIT,
+           "rounded": reading(pr, dsr, whats),
+           "p_unrounded": reading(p, dsr, ("dv",)),
+           "ds_unrounded": reading(pr, ds, ("dq", "dk"))}
+    del p, ds, pr, dsr
+    for what, err in row["rounded"].items():
+        if not err < BWD_ROUNDING_LIMIT:
+            fail(f"{name}: {what} is {err} (relative) from the plain "
+                 f"version, past {BWD_ROUNDING_LIMIT}: {row}")
+    for key in ("p_unrounded", "ds_unrounded"):
+        for what, err in row[key].items():
+            if not err > BWD_ROUNDING_LIMIT:
+                fail(f"{name}: {what} is within {BWD_ROUNDING_LIMIT} of the "
+                     f"plain version without its rounding ({key}), so the "
+                     f"check cannot see that rounding: {row}")
+    return row
+
+
+def check_flash_bwd_launch(name, fa, B, S, H, KH, D, dtype, causal,
+                           main_path, usage, iters=5, rounding=False):
+    """flash_attention_bwd vs its plain version on the card at (B, S, H, D)
+    with KH kv heads, from the forward's output and lse (the lse held
+    against the plain one, and the output bitwise the forward's without
+    it), twice with the same bits; its times, the yardstick (SDPA's
+    backward alone, k and v repeated to H heads outside the timing) and the
+    bound: the larger of q, k, v, out, dout, lse, dq, dk and dv moved once
+    over the memory rate and 5 products of 2 D flops per unmasked pair at
+    the card's rate for the operands' type (bf16 on the tensor cores,
+    though the kernel's products are fp32 FMA). ``rounding`` (bf16) adds
+    ``check_bwd_rounding``'s readings."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn((B, S, h, D), device="cuda", generator=gen
+                               ).to(dtype) for h in (H, KH, KH, H))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    out = fa.flash_attention_fwd(q, k, v, causal)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    if not torch.equal(o, out):
+        fail(f"{name}: the forward's output changed when its lse was asked "
+             f"for")
+    lse_row = check_within(name, "lse", lse, lse_plain, FLASH_TOL["rtol"],
+                           FLASH_TOL["atol"] * max(
+                               1.0, float(lse_plain.abs().max())))
+    del out, lse_plain
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            fail(f"{name}: two launches gave different {what}")
+    del again
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    terms = (None if dtype == torch.float32
+             else flash_bwd_abs(fa, q, k, v, o, lse, do, causal))
+    errs = {}
+    for i, (what, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+        atol = FLASH_TOL["atol"] * max(1.0, float(w.abs().max()))
+        if terms is None:
+            errs[what] = check_within(name, what, g, w, FLASH_TOL["rtol"],
+                                      atol)
+        else:
+            errs[what] = check_within(name, what, g, w, BF16_RTOL,
+                                      FLASH_BWD_BF16_ATOL * terms[i] + atol)
+    del want, terms
+    rounding_row = (check_bwd_rounding(name, fa, got, q, k, v, o, lse, do,
+                                       causal) if rounding else None)
+    del got
+    G = H // KH
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_() for t in (k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    elt = q.element_size()
+    row = {"kernel": "flash_attention_bwd", "launch": name,
+           "main_path": main_path, "q": [B, S, H, D], "kv": [B, S, KH, D],
+           "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+           "route": "fma", "smem_bytes": fa.flash_attention_bwd_smem_bytes(D),
+           "dkdv": build_usage(usage, "flash_bwd_dkdv"),
+           "dq_pass": build_usage(usage, "flash_bwd_dq"),
+           "lse": lse_row, **{f"{k}_err": e for k, e in errs.items()},
+           **({"rounding": rounding_row} if rounding_row else {}),
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "library": "scaled_dot_product_attention backward",
+           "ms": time_ms(lambda: fa.flash_attention_bwd(
+               q, k, v, o, lse, do, causal), iters=iters, warmup=1),
+           "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
+               q, k, v, o, lse, do, causal), iters=2, warmup=1),
+           "library_ms": time_ms(sdpa_bwd, iters=10)}
+    row.update(bound(elt * (4 * B * S * H * D + 4 * B * S * KH * D)
+                     + 4 * B * H * S, 10 * D * pairs * B * H,
+                     FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
+    row["tflops"] = row["flops"] / row["ms"] / 1e9
+    del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, dot
+    torch.cuda.empty_cache()
+    return report(row)
+
+
+def check_train_logits(embed, cfg, tokens: int = 512) -> dict:
+    """bf16 logits of ``tokens`` seeded hidden states through the model's
+    unembedding (``nn.layers.logits_fn``) against the fp32 product of the
+    same bf16 values (TF32 off: exact products, fp32 sums), within rtol and
+    atol CONSIST_TOL times the largest |logit|: a result rounded to bf16
+    would be off by ~2^-9 of each logit."""
+    from repro_torch.nn.layers import logits_fn
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn((1, tokens, cfg.d_model), device="cuda",
+                    generator=gen).bfloat16()
+    with torch.no_grad():
+        got = logits_fn(embed, x, cfg.vocab_size)
+        table = embed.get("unembed")
+        want = x.float() @ (embed["table"].T if table is None
+                            else table).float()
+    if got.dtype != torch.float32:
+        fail(f"train logits are {got.dtype}, not float32")
+    want[..., cfg.vocab_size:] += -1e30
+    row = check_within("train_logits", "bf16 logits", got, want,
+                       CONSIST_TOL,
+                       CONSIST_TOL * float(want[..., :cfg.vocab_size]
+                                           .abs().max()))
+    del got, want, x
+    return row
+
+
+def lm_train(card) -> dict:
+    """Llama-3-8B's training step at its published widths, TRAIN_LAYERS
+    deep, in bf16 from a seeded init, through ``launch.steps.
+    make_train_step`` (remat "full", grad_accum TRAIN_ACCUM) and AdamW on a
+    cosine schedule, TRAIN_STEPS steps over batches of TRAIN_BATCH x
+    TRAIN_SEQ numpy-seeded tokens. Each step's launch counts are zeroed
+    before and read after: exactly 2 x layers x micro-batches flash
+    forwards (the forward and remat's recompute) and layers x micro-batches
+    backwards. The first step then runs again from the same parameters and
+    batch, under ``torch.profiler``, and its loss, gradient norm and
+    parameters are compared bit for bit with the first run's (printed: a
+    difference is a finding, not a failure)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build as build_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build, sample_inputs
+    from repro_torch.nn.param import flatten
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.optim.schedules import get_schedule
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS,
+                                          grad_accum=TRAIN_ACCUM)
+    bundle = build(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params0 = bundle.init_params(SEED, torch.bfloat16, "cuda")
+    n_params = sum(t.numel() for t in flatten(params0))
+    opt = AdamW(get_schedule("cosine", 3e-4, 10, TRAIN_STEPS))
+    step = make_train_step(bundle, opt)
+    rng = np.random.default_rng(SEED)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = [sample_inputs(cfg, shape, rng, "cuda")
+               for _ in range(TRAIN_STEPS)]
+    micro = TRAIN_ACCUM
+    per_step = {"flash_attention_fwd": 2 * TRAIN_LAYERS * micro,
+                "flash_attention_bwd": TRAIN_LAYERS * micro}
+    want = {**{k: 0 for k in build_mod.launch_counts}, **per_step}
+    launches = {k: 0 for k in per_step}
+    params, state = params0, opt.init(flatten(params0))
+    steps, first = [], None
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        build_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batches[i])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(build_mod.launch_counts)
+        if got != want:
+            fail(f"llama3-8b train step {i + 1} launched {got}, expected "
+                 f"{per_step} and nothing else")
+        for k in launches:
+            launches[k] += got[k]
+        vals = {k: float(v) for k, v in met.items()}
+        if not all(np.isfinite(x) for x in vals.values()):
+            fail(f"llama3-8b train step {i + 1}: non-finite metrics {vals}")
+        steps.append({"step": i + 1, "s": wall, **vals})
+        if i == 0:
+            first = (params, met)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    params = None
+    torch.cuda.empty_cache()
+    s_step = float(np.median([r["s"] for r in steps[1:]]))
+    logits_row = check_train_logits(params0["embed"], cfg)
+    out = {}
+    state0 = opt.init(flatten(params0))
+    traced(lambda: torch.ones(1, device="cuda").add_(1))  # warms CUPTI
+    prof = traced(lambda: out.update(run=step(params0, state0, batches[0])),
+                  match={"flash_bwd": "flash_bwd", "flash_fwd": "flash_fwd"},
+                  top=12)
+    # a share is read only from a trace that saw every launch (a backward
+    # launch runs three kernels: the delta, dk/dv and dq passes)
+    complete = (prof["flash_fwd_kernels"] == per_step["flash_attention_fwd"]
+                and prof["flash_bwd_kernels"]
+                == 3 * per_step["flash_attention_bwd"])
+    p_again, _, met_again = out.pop("run")
+    same = {"loss": bool(torch.equal(met_again["loss"], first[1]["loss"])),
+            "grad_norm": bool(torch.equal(met_again["grad_norm"],
+                                          first[1]["grad_norm"])),
+            "params": all(torch.equal(a, b) for a, b in
+                          zip(flatten(p_again), flatten(first[0])))}
+    busy = prof["device_busy_ms"]
+    run = {"arch": "llama3-8b", "layers": TRAIN_LAYERS,
+           "d_model": cfg.d_model, "params": n_params, "dtype": "bfloat16",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "grad_accum": micro,
+           "remat": cfg.remat, "steps": steps, "s_per_step": s_step,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / s_step,
+           "peak_bytes": peak, "launches_per_step": per_step,
+           "launches": launches, "repeat_bitwise": same,
+           "logits": logits_row, "profiled_step": prof,
+           "trace_complete": complete,
+           "flash_bwd_share_of_busy": (prof["flash_bwd_ms"] / busy
+                                       if complete else None),
+           "flash_fwd_share_of_busy": (prof["flash_fwd_ms"] / busy
+                                       if complete else None),
+           "card": card}
+    print("train " + json.dumps(run), flush=True)
+    del params0, state0, first, p_again, out
+    torch.cuda.empty_cache()
+    return run
+
+
+def lm_train_vs_cpu(card) -> dict:
+    """One fp32 micro-step (TF32 off) of the TRAIN_LAYERS-deep model at
+    full width, 1 x TRAIN_CPU_SEQ tokens: the loss and every gradient leaf
+    on the card (the flash kernels' FMA route, cuBLAS in fp32) against the
+    port on the CPU (the plain versions) from the same parameters, within
+    rtol CONSIST_TOL and atol CONSIST_TOL times the leaf's largest
+    magnitude (fp32 sums over up to 14,336 terms and 128 positions, taken
+    in another order)."""
+    from repro_torch.checkpoint.checkpointing import flatten_with_paths
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.models.registry import build, sample_inputs
+    from repro_torch.nn.param import flatten, unflatten
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    bundle = build(cfg)
+    params = bundle.init_params(SEED + 2, torch.float32, "cuda")
+    batch = sample_inputs(cfg, ShapeSpec("cpu", TRAIN_CPU_SEQ, 1, "train"),
+                          np.random.default_rng(SEED + 2), "cuda")
+
+    def loss_and_grads(p, b):
+        loss, _, grads = _loss_and_grads(bundle, p, flatten(p), b)
+        return loss, grads
+    loss_card, grads_card = loss_and_grads(params, batch)
+    torch.cuda.synchronize()
+    params_cpu = unflatten(params, [t.cpu() for t in flatten(params)])
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = loss_and_grads(
+        params_cpu, {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    names = list(flatten_with_paths(params_cpu))
+    row = check_within("train_fp32", "loss", loss_card.cpu(), loss_cpu,
+                       CONSIST_TOL, CONSIST_TOL * float(loss_cpu.abs()))
+    errs, worst = {"loss": row["max_abs_err"]}, row["tol_used"]
+    for name, g, w in zip(names, grads_card, grads_cpu):
+        w = w.cuda()
+        row = check_within("train_fp32", f"gradient {name}", g, w,
+                           CONSIST_TOL, CONSIST_TOL * float(w.abs().max()))
+        worst = max(worst, row["tol_used"])
+        errs[name] = row["max_abs_err"]
+    row = {"arch": "llama3-8b", "layers": TRAIN_LAYERS, "dtype": "float32",
+           "tokens": TRAIN_CPU_SEQ, "loss_card": float(loss_card),
+           "loss_cpu": float(loss_cpu), "leaves": len(names),
+           "worst_tol_used": worst, "max_abs_err": errs, "cpu_s": cpu_s,
+           "card": card}
+    print("train_vs_cpu " + json.dumps(row), flush=True)
+    del grads_card, grads_cpu, params_cpu
     torch.cuda.empty_cache()
     return row
 
@@ -3491,7 +3904,32 @@ def main() -> None:
     for arch in LM_ARCHS:
         consistency(arch)
 
-    # 11. summary
+    # 11. the LM training step: the flash backward against its plain
+    # version, the step at full width, and fp32 against the CPU
+    t0 = time.perf_counter()
+    rows["flash_attention_bwd"] = [
+        check_flash_bwd_launch("llama3_8b_train", fa, 1, TRAIN_SEQ, 32, 8,
+                               128, bf16, True, True,
+                               usage["flash_attention_bwd"], rounding=True),
+        check_flash_bwd_launch("fp32_llama3_8b_train", fa, 1, TRAIN_SEQ, 32,
+                               8, 128, f32, True, False,
+                               usage["flash_attention_bwd"], iters=2),
+        check_flash_bwd_launch("ragged_causal", fa, 2, 1000, 4, 2, 64, bf16,
+                               True, False, usage["flash_attention_bwd"],
+                               rounding=True),
+        check_flash_bwd_launch("fp32_ragged_causal", fa, 2, 1000, 4, 2, 64,
+                               f32, True, False,
+                               usage["flash_attention_bwd"]),
+        check_flash_bwd_launch("noncausal", fa, 2, 512, 8, 2, 128, bf16,
+                               False, False, usage["flash_attention_bwd"],
+                               rounding=True),
+        check_flash_bwd_launch("fp32_noncausal", fa, 2, 512, 8, 2, 128, f32,
+                               False, False, usage["flash_attention_bwd"])]
+    runs["llama3_8b_train"] = lm_train(card)
+    lm_train_vs_cpu(card)
+    print(f"lm training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 12. summary
     kernels = [kernel_entry(name, rows[name], {
         path: run["launches"].get(name, 0) for path, run in runs.items()})
         for name in KERNEL_SOURCES]

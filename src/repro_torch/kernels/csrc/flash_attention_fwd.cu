@@ -15,7 +15,12 @@
 // the TPU kernel does; keys past Sk do not exist and take no part. p is
 // rounded to v's type before the PV product (p.astype(v.dtype)); the sum
 // l is taken of the unrounded p, clamped at 1e-30; out = acc / l in q's
-// type. D <= 128. The dtype picks one of two routes.
+// type. D <= 128. The dtype picks one of two routes. Where the caller
+// passes an lse buffer, (B, H, Sq) fp32, each route also writes the row's
+// log-sum-exp in natural-log units over the scaled, masked scores, m +
+// log(max(l, 1e-30)) (the reference's _flash_fwd_scan), which the training
+// backward (flash_attention_bwd.cu) reads; a null lse writes nothing more
+// and leaves every other instruction as it was.
 //
 // bfloat16, the dtype the models serve in: the wgmma route (namespace wg).
 // What bounds it on an H100: at Llama-3-8B's prefill (B 4, S 4096, H 32,
@@ -110,6 +115,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) or null
   // (batch, sequence, head) strides in elements of q, k, v, o
   long long qs[3], ks[3], vs[3], os[3];
   int Sq, Sk, G, D, causal;
@@ -255,6 +261,9 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_kernel(Args a) {
     const int qi = q0 + ty + TY * i;
     if (qi >= a.Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    // m and l are the row's own in each of its 16 threads
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((long long)b * gridDim.y + h) * a.Sq + qi] = m[i] + logf(li);
 #pragma unroll
     for (int c = 0; c < CD; ++c) {
       const int d = tx + TX * c;
@@ -288,6 +297,7 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
 constexpr int ROW_BYTES = 128;                  // a swizzled row: 64 bf16
 constexpr int PANEL_BYTES = 128 * ROW_BYTES;    // 128 rows x 64 columns
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 // scores are kept in log2 units (x log2(e)), so exp(x - m) is one exp2 of
 // a difference; the causal mask's -1e30 is taken there as -1e30 log2(e)
 constexpr float MASKED = -1e30f * LOG2E;
@@ -309,6 +319,7 @@ constexpr int smem_bytes() {
 
 struct Args {
   __nv_bfloat16* o;
+  float* lse;       // (B, H, Sq) or null
   long long os[3];  // (batch, sequence, head) strides of out, elements
   int Sq, Sk, G, D, causal;
   float scale;
@@ -596,6 +607,12 @@ __device__ __forceinline__ void consume(Smem<NP>& sm, const Args& a, int q0,
 
   l0 = fmaxf(quad_sum(l0), 1e-30f);
   l1 = fmaxf(quad_sum(l1), 1e-30f);
+  if (a.lse != nullptr && lane % 4 == 0) {
+    // m is in log2 units: the natural-log lse is m ln 2 + ln l
+    float* lr = a.lse + ((long long)b * gridDim.y + h) * a.Sq;
+    if (r0 < a.Sq) lr[r0] = m0 * LN2 + logf(l0);
+    if (r0 + 8 < a.Sq) lr[r0 + 8] = m1 * LN2 + logf(l1);
+  }
   __nv_bfloat16* ob = a.o + b * a.os[0] + h * a.os[2];
 #pragma unroll
   for (int jj = 0; jj < NO / 4; ++jj) {
@@ -760,13 +777,15 @@ int flash_attention_fwd_smem_bytes(int D, int dtype) {
 }
 
 // strides: 12 values, the (batch, sequence, head) strides in elements of
-// q, k, v and out, in that order. dtype: 0 float32 (the FMA route), 1
+// q, k, v and out, in that order. lse: null, or (B, H, Sq) fp32 contiguous
+// for the rows' log-sum-exp. dtype: 0 float32 (the FMA route), 1
 // bfloat16 (the wgmma route: base addresses 16-byte aligned, D a multiple
 // of 8, the strides of dimensions longer than 1 multiples of 8 elements).
 // Launches on `stream` and returns the status right after the launch (0 =
 // launched); does not synchronise and allocates nothing.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                               void* out, const long long* strides, int B,
+                               void* out, float* lse, const long long* strides,
+                               int B,
                                int H, int G, int Sq, int Sk, int D,
                                int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || G <= 0 || Sq <= 0 || Sk < 0 || D <= 0 || D > 128 ||
@@ -780,6 +799,7 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
     a.k = k;
     a.v = v;
     a.o = out;
+    a.lse = lse;
     for (int i = 0; i < 3; ++i) {
       a.qs[i] = strides[i];
       a.ks[i] = strides[3 + i];
@@ -800,6 +820,7 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
     wg::Args a;
     a.o = static_cast<__nv_bfloat16*>(out);
+    a.lse = lse;
     for (int i = 0; i < 3; ++i) a.os[i] = strides[9 + i];
     a.Sq = Sq;
     a.Sk = Sk;

@@ -1,15 +1,19 @@
-"""Decoder-only LM for serving, the dense family (Llama-3-8B): counterpart
-of ``repro.models.lm``.
+"""Decoder-only LM, the dense family (Llama-3-8B): training, prefill and
+decode (counterpart of ``repro.models.lm``).
 
 The parameters stay stacked with the layers on dim 0, as the reference
 keeps them and the weight bridge carries them; ``forward`` loops over the
-layers where the reference ``lax.scan``s. The reference's MoE FFN
-(``cfg.moe``), VLM prefix (``embeds_prefix``) and ``loss_fn`` raise here,
-naming their ROADMAP.md items.
+layers where the reference ``lax.scan``s, and in ``"train"`` mode runs each
+layer under ``torch.utils.checkpoint`` when ``cfg.remat == "full"`` (the
+reference's ``jax.checkpoint``): a layer keeps only its input, and the
+backward recomputes it. Gradients reach the stacked leaves through the
+layers' views. The reference's MoE FFN (``cfg.moe``) and VLM prefix
+(``embeds_prefix``) raise here, naming their ROADMAP.md items.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import layers as L
@@ -63,11 +67,24 @@ def layer_params(tree, l: int):
     return tree[l]
 
 
+def _layer(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor,
+           mode: str, cache_l):
+    """One block: attention and the MLP, each after its norm, each added to
+    the residual. Returns (x, the attention's cache)."""
+    h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
+    a, c = attend(p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                  head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                  positions=positions, mode=mode, cache=cache_l)
+    x = x + a
+    h = L.apply_norm(p["ln2"], x, cfg.norm_eps)
+    return x + L.apply_mlp(p["mlp"], h, cfg.act), c
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
             embeds_prefix=None, mode: str = "prefill", cache=None, pos0=None):
-    """Returns (hidden (B, S, d), cache). ``"prefill"`` builds a new
-    stacked cache at capacity S; ``"decode"`` writes one position (``pos0``)
-    of ``cache`` in place and returns it."""
+    """Returns (hidden (B, S, d), cache). ``"train"`` returns no cache;
+    ``"prefill"`` builds a new stacked cache at capacity S; ``"decode"``
+    writes one position (``pos0``) of ``cache`` in place and returns it."""
     _dense_only(cfg)
     if embeds_prefix is not None:
         raise NotImplementedError(
@@ -85,14 +102,11 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
         p = layer_params(params["layers"], l)
         cache_l = (None if cache is None
                    else {"k": cache["k"][l], "v": cache["v"][l]})
-        h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
-        a, c = attend(p["attn"], h, n_heads=cfg.n_heads,
-                      n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-                      rope_theta=cfg.rope_theta, positions=positions,
-                      mode=mode, cache=cache_l)
-        x = x + a
-        h = L.apply_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + L.apply_mlp(p["mlp"], h, cfg.act)
+        if mode == "train" and cfg.remat == "full":
+            x, c = checkpoint(_layer, cfg, p, x, positions, mode, cache_l,
+                              use_reentrant=False)
+        else:
+            x, c = _layer(cfg, p, x, positions, mode, cache_l)
         if mode == "prefill":
             new_k.append(c["k"])
             new_v.append(c["v"])
@@ -103,9 +117,16 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    raise NotImplementedError(
-        "the LM training step (loss_fn, the flash backward) is not ported "
-        "yet (ROADMAP.md queue A, item A.14.1)")
+    """Causal-LM loss: the mean token cross-entropy of the logits against
+    ``batch["labels"]``, plus 0.01 x the MoE auxiliary loss, 0 for the
+    dense family. Returns (loss, {"loss", "ce", "aux"}), fp32 scalars."""
+    x, _ = forward(params, cfg, batch["tokens"],
+                   embeds_prefix=batch.get("patch_embeds"), mode="train")
+    logits = L.logits_fn(params["embed"], x, cfg.vocab_size)
+    ce = L.cross_entropy(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + 0.01 * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: ArchConfig, batch):

@@ -1,11 +1,12 @@
-"""Model registry for serving (counterpart of ``repro.models.registry``):
-resolves an ArchConfig into a ModelBundle of its parameter spec, an init,
+"""Model registry (counterpart of ``repro.models.registry``): resolves an
+ArchConfig into a ModelBundle of its parameter spec, an init, ``loss_fn``,
 ``prefill_fn`` / ``decode_fn`` and its cache spec, plus per-shape input
 specs.
 
-The port builds the ``dense`` family (``models/lm.py``, without MoE) and
-the ``ssm`` family (``models/rwkv.py``); the others raise, naming their
-ROADMAP.md items. ``loss_fn`` waits for the LM training step (A.14.1).
+The port builds the ``dense`` family (``models/lm.py``, without MoE), which
+trains and serves, and the ``ssm`` family (``models/rwkv.py``), which
+serves; its ``loss_fn`` raises, naming its ROADMAP.md item (A.14.1b), as
+the other families do on ``build``.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ class InputSpec:
 
 @dataclass
 class ModelBundle:
-    """An arch's spec, init and serving functions.
+    """An arch's spec, init, loss and serving functions.
 
     ``decode_fn`` donates the dense family's KV cache: it writes the step's
     k and v into the given cache's tensors in place and returns that same
@@ -45,7 +46,8 @@ class ModelBundle:
     leaves the given one as it was."""
     cfg: ArchConfig
     param_spec: Any
-    loss_fn: Callable        # raises: A.14.1
+    loss_fn: Callable        # (params, batch) -> (loss, metrics);
+    #                          ssm: raises (A.14.1b)
     prefill_fn: Callable     # (params, batch) -> (logits, cache)
     decode_fn: Callable      # (params, cache, batch) -> (logits, cache)
     #                          (dense: the same cache, updated in place)

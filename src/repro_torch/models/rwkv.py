@@ -4,7 +4,8 @@
 The parameters stay stacked with the layers on dim 0; ``forward`` loops
 over the layers where the reference ``lax.scan``s. Prefill returns each
 layer's token-shift and WKV states, stacked, and decode carries them.
-``loss_fn`` waits for the LM training step.
+``loss_fn`` waits for RWKV's training step and its WKV6 backward kernel
+(ROADMAP.md queue A, item A.14.1b).
 """
 from __future__ import annotations
 
@@ -79,8 +80,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *, state=None):
 
 def loss_fn(params, cfg: ArchConfig, batch):
     raise NotImplementedError(
-        "the LM training step is not ported yet (ROADMAP.md queue A, item "
-        "A.14.1)")
+        "RWKV-6's training step is not ported yet: it needs a backward of "
+        "the wkv6_chunk kernel (ROADMAP.md queue A, item A.14.1b)")
 
 
 def prefill(params, cfg: ArchConfig, batch):

@@ -1,14 +1,16 @@
-"""GQA attention for serving: prefill through the flash kernel, decode
+"""GQA attention: flash attention for training and prefill, decode
 against a KV cache (counterpart of ``repro.nn.attention``).
 
 Prefill runs ``kernels.flash_attention.flash_attention_fwd``: the CUDA
 kernel on the card, its plain version on the CPU. The kernel reads kv head
 h // G for query head h, so k and v go in unrepeated; that is the
-reference's ``jnp.repeat(k, G, axis=2)``. Decode runs
+reference's ``jnp.repeat(k, G, axis=2)``. Training runs
+``flash_attention``, the same forward with its gradient
+(``kernels.flash_attention.FlashAttention``: the forward keeps the
+log-sum-exp and the backward kernel recomputes the probabilities from it,
+as the reference's ``_flash_core_bwd`` does). Decode runs
 ``decode_attention``, plain PyTorch as in the reference (no Pallas kernel
-computes it). ``"train"`` mode, with the flash backward (the reference's
-``_flash_core_bwd``), comes with the LM training step (ROADMAP.md queue A,
-item A.14.1). The reference's sharding annotations are dropped: the port
+computes it). The reference's sharding annotations are dropped: the port
 has no mesh.
 """
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_fwd)
 from repro_torch.nn.layers import apply_rope
 from repro_torch.nn.param import PSpec
 
@@ -35,6 +38,16 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk", x, w) as one matmul."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
+    """Softmax attention with its gradient, never holding the (Sq, Sk)
+    matrix past a call. q: (B, Sq, H, D); k, v: (B, Sk, KH, D), NOT
+    repeated (kv head h // G for query head h; the reference takes them
+    repeated and has chunk sizes, which the kernels do not need). Causal
+    assumes q and k start at the same position."""
+    return FlashAttention.apply(q, k, v, causal)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -63,6 +76,9 @@ def attend(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
     """Self-attention block (projections + core; no norm or residual).
     Returns (out, new_cache).
 
+    * ``"train"``: causal attention over the whole sequence through
+      ``flash_attention`` (the flash kernels, forward and backward); the
+      cache it was given (None in the models) comes back as it was.
     * ``"prefill"``: causal attention over the whole sequence through the
       flash kernel; the new cache holds the unrepeated k (rope applied) and
       v in x's dtype, at capacity S.
@@ -93,11 +109,11 @@ def attend(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
     elif mode == "prefill":
         out = flash_attention_fwd(q, k, v, causal=True)
         new_cache = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
+    elif mode == "train":
+        out = flash_attention(q, k, v, causal=True)
+        new_cache = cache
     else:
-        raise NotImplementedError(
-            f"attention mode {mode!r} is not ported yet: training attention "
-            f"and its flash backward come with the LM training step "
-            f"(ROADMAP.md queue A, item A.14.1)")
+        raise ValueError(f"unknown attention mode {mode!r}")
 
     out = out.reshape(B, -1, n_heads * head_dim)
     return out @ p["wo"].reshape(n_heads * head_dim, -1), new_cache

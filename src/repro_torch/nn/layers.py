@@ -70,18 +70,76 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens.long()]
 
 
+def _parts(t: torch.Tensor, dtype: torch.dtype) -> tuple:
+    """fp32 ``t`` beside a ``dtype`` operand: on the card, ``dtype`` hi +
+    lo (16 significant bits for bf16), whose products with it sum to the
+    product with ``t`` as far as fp32 keeps; else ``t`` alone."""
+    if t.device.type != "cuda" or t.dtype == dtype:
+        return (t,)
+    hi = t.to(dtype)
+    return hi, torch.sub(t, hi).to(dtype)
+
+
+def _mm_f32(a_parts, b_parts) -> torch.Tensor:
+    """The sum of a @ b over the 2-D ``a_parts`` and ``b_parts``, with fp32
+    sums and an fp32 result. On the CPU the operands are widened and the
+    product taken in fp32; on the card bf16 operands go to the tensor
+    cores with an fp32 result (``torch.mm``'s ``out_dtype``)."""
+    out = None
+    for a in a_parts:
+        for b in b_parts:
+            y = (a.float() @ b.float() if a.device.type != "cuda"
+                 else torch.mm(a, b, out_dtype=torch.float32))
+            out = y if out is None else out.add_(y)
+    return out
+
+
+class _Logits(torch.autograd.Function):
+    """x @ table in fp32 from bf16 x and table, -1e30 added past
+    ``real_vocab``. The gradients take the fp32 cotangent as it is (on the
+    card, as its two bf16 parts) and come back in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, table, real_vocab: int):
+        ctx.save_for_backward(x, table)
+        out = _mm_f32((x.reshape(-1, x.shape[-1]),), (table,))
+        if out.shape[-1] != real_vocab:
+            out[:, real_vocab:] += -1e30
+        return out.view(*x.shape[:-1], out.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        g = _parts(g.reshape(-1, g.shape[-1]), table.dtype)
+        dx = dt = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g, (table.T,)).to(x.dtype).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            dt = _mm_f32((x.reshape(-1, x.shape[-1]).T,), g).to(table.dtype)
+        return dx, dt, None
+
+
 def logits_fn(p, x: torch.Tensor, real_vocab: int) -> torch.Tensor:
-    """fp32 logits over the padded vocab, -1e30 added past ``real_vocab``.
-    The product runs in x's dtype (fp32 accumulation on the card) and is
-    widened after it: in bf16 it rounds once where the reference's
-    ``preferred_element_type=float32`` keeps fp32."""
+    """fp32 logits over the padded vocab, -1e30 added past ``real_vocab``:
+    the product of x and the table in their dtype with fp32 sums and an
+    fp32 result, as the reference's ``preferred_element_type=float32``."""
     table = p.get("unembed")
     if table is None:
         table = p["table"].T
-    logits = (x @ table).float()
-    if logits.shape[-1] != real_vocab:
-        logits[..., real_vocab:] += -1e30
-    return logits
+    if x.dtype == table.dtype == torch.float32:
+        logits = x @ table
+        if logits.shape[-1] != real_vocab:
+            logits[..., real_vocab:] += -1e30
+        return logits
+    return _Logits.apply(x, table, real_vocab)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, logsumexp - logit[label]. logits (..., V)
+    fp32, labels (...) integer."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean()
 
 
 def mlp_spec(d: int, f: int, act: str):

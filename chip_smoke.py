@@ -377,7 +377,9 @@ measured. Phases, each of which exits non-zero on failure:
      and 8 kv heads of 128, causal) in bf16 (the main path's launch) and
      fp32, at a ragged causal shape (2 x 1,000 tokens, 4 and 2 heads of
      64) and a non-causal one (2 x 512, 8 and 2 heads of 128), each in
-     bf16 and fp32, from the forward's output and log-sum-exp: the lse is
+     bf16 and fp32, and at Whisper large's cross-attention in bf16 (2 x
+     448 queries over 1,500 keys, 20 heads of 64, non-causal: Sq != Sk),
+     from the forward's output and log-sum-exp: the lse is
      held against the plain one at flash's fp32 tolerance (both routes sum
      l in fp32), the forward's output must be bitwise the same with and
      without it, two backward launches must give the same bits, and dq,
@@ -386,10 +388,11 @@ measured. Phases, each of which exits non-zero on failure:
      ds that a last-bit difference before the rounding can flip) times
      each element's sum of |rounded factor| x |other factor| (|ds| |k|,
      |ds|^T |q|, |p|^T |dout|) plus the fp32 allowance. Each line gives
-     the route (``fma``: every product on fp32 FMA from shared-memory
-     tiles), the dk/dv pass's dynamic shared memory, both passes'
-     registers and spills from the build report, the kernel's ms (CUDA
-     events), its plain version's, the yardstick's
+     the route (``fa.ROUTES``: bf16 on ``wgmma``, every product on the
+     tensor cores from TMA-fed tiles; fp32 on ``fma``, every product on
+     fp32 FMA from shared-memory tiles), each pass's registers, spills and
+     dynamic shared memory under its kernel's name (``build_usage``), the
+     kernel's ms (CUDA events), its plain version's, the yardstick's
      (``scaled_dot_product_attention``'s backward alone, k and v repeated
      outside the timing) and the bound: q, k, v, out, dout, lse, dq, dk
      and dv moved once over 3.35 TB/s against 5 products of 2 D flops per
@@ -1870,21 +1873,23 @@ def check_bwd_rounding(name, fa, got, q, k, v, o, lse, do, causal) -> dict:
     return row
 
 
-def check_flash_bwd_launch(name, fa, B, S, H, KH, D, dtype, causal,
+def check_flash_bwd_launch(name, fa, B, Sq, Sk, H, KH, D, dtype, causal,
                            main_path, usage, iters=5, rounding=False):
-    """flash_attention_bwd vs its plain version on the card at (B, S, H, D)
-    with KH kv heads, from the forward's output and lse (the lse held
-    against the plain one, and the output bitwise the forward's without
-    it), twice with the same bits; its times, the yardstick (SDPA's
+    """flash_attention_bwd vs its plain version on the card at q (B, Sq, H,
+    D) and k, v (B, Sk, KH, D), from the forward's output and lse (the lse
+    held against the plain one, and the output bitwise the forward's
+    without it), twice with the same bits; its times, the yardstick (SDPA's
     backward alone, k and v repeated to H heads outside the timing) and the
     bound: the larger of q, k, v, out, dout, lse, dq, dk and dv moved once
     over the memory rate and 5 products of 2 D flops per unmasked pair at
-    the card's rate for the operands' type (bf16 on the tensor cores,
-    though the kernel's products are fp32 FMA). ``rounding`` (bf16) adds
-    ``check_bwd_rounding``'s readings."""
+    the card's rate for the operands' type (bf16 on the tensor cores, where
+    the wgmma route runs 7 products a pair; fp32 FMA). Each pass's
+    registers, spills and shared memory are reported under its kernel's
+    name. ``rounding`` (bf16) adds ``check_bwd_rounding``'s readings."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v, do = (torch.randn((B, S, h, D), device="cuda", generator=gen
-                               ).to(dtype) for h in (H, KH, KH, H))
+                               ).to(dtype)
+                   for S, h in ((Sq, H), (Sk, KH), (Sk, KH), (Sq, H)))
     o, lse = fa.flash_attention_fwd(q, k, v, causal, return_lse=True)
     out = fa.flash_attention_fwd(q, k, v, causal)
     _, lse_plain = fa.flash_attention_plain(q, k, v, causal, return_lse=True)
@@ -1930,14 +1935,19 @@ def check_flash_bwd_launch(name, fa, B, S, H, KH, D, dtype, causal,
     def sdpa_bwd():
         return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                    retain_graph=True)
-    pairs = S * (S + 1) // 2 if causal else S * S
+    m = min(Sq, Sk)
+    pairs = m * (m + 1) // 2 + (Sq - m) * Sk if causal else Sq * Sk
     elt = q.element_size()
+    route = fa.ROUTES[dtype]
+    passes = fa.flash_attention_bwd_smem_bytes(D, dtype)
+    prefix = "flash_bwd_wg_" if route == "wgmma" else "flash_bwd_"
     row = {"kernel": "flash_attention_bwd", "launch": name,
-           "main_path": main_path, "q": [B, S, H, D], "kv": [B, S, KH, D],
+           "main_path": main_path, "q": [B, Sq, H, D], "kv": [B, Sk, KH, D],
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-           "route": "fma", "smem_bytes": fa.flash_attention_bwd_smem_bytes(D),
-           "dkdv": build_usage(usage, "flash_bwd_dkdv"),
-           "dq_pass": build_usage(usage, "flash_bwd_dq"),
+           "route": route,
+           "build_usage": {prefix + p: {**build_usage(usage, prefix + p),
+                                        "smem_bytes": passes[p]}
+                           for p in ("dkdv", "dq")},
            "lse": lse_row, **{f"{k}_err": e for k, e in errs.items()},
            **({"rounding": rounding_row} if rounding_row else {}),
            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
@@ -1947,13 +1957,40 @@ def check_flash_bwd_launch(name, fa, B, S, H, KH, D, dtype, causal,
            "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(
                q, k, v, o, lse, do, causal), iters=2, warmup=1),
            "library_ms": time_ms(sdpa_bwd, iters=10)}
-    row.update(bound(elt * (4 * B * S * H * D + 4 * B * S * KH * D)
-                     + 4 * B * H * S, 10 * D * pairs * B * H,
+    row.update(bound(elt * (4 * B * Sq * H * D + 4 * B * Sk * KH * D)
+                     + 4 * B * H * Sq, 10 * D * pairs * B * H,
                      FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS))
     row["tflops"] = row["flops"] / row["ms"] / 1e9
     del q, k, v, do, o, lse, qt, kt, vt, sdpa_out, dot
     torch.cuda.empty_cache()
     return report(row)
+
+
+def flash_bwd_launches(fa, bwd_usage) -> list:
+    """Phase 11's checked launches of flash_attention_bwd: the Llama-3-8B
+    training shape (the main path) and smaller shapes that exercise G,
+    ragged S, D 64, Sq != Sk and both routes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        check_flash_bwd_launch("llama3_8b_train", fa, 1, TRAIN_SEQ,
+                               TRAIN_SEQ, 32, 8, 128, bf16, True, True,
+                               bwd_usage, rounding=True),
+        check_flash_bwd_launch("fp32_llama3_8b_train", fa, 1, TRAIN_SEQ,
+                               TRAIN_SEQ, 32, 8, 128, f32, True, False,
+                               bwd_usage, iters=2),
+        check_flash_bwd_launch("ragged_causal", fa, 2, 1000, 1000, 4, 2, 64,
+                               bf16, True, False, bwd_usage, rounding=True),
+        check_flash_bwd_launch("fp32_ragged_causal", fa, 2, 1000, 1000, 4, 2,
+                               64, f32, True, False, bwd_usage),
+        check_flash_bwd_launch("noncausal", fa, 2, 512, 512, 8, 2, 128, bf16,
+                               False, False, bwd_usage, rounding=True),
+        # Whisper large's cross-attention: 448 decoder tokens over 1,500
+        # encoder frames, 20 heads of 64
+        check_flash_bwd_launch("noncausal_cross", fa, 2, 448, 1500, 20, 20,
+                               64, bf16, False, False, bwd_usage,
+                               rounding=True),
+        check_flash_bwd_launch("fp32_noncausal", fa, 2, 512, 512, 8, 2, 128,
+                               f32, False, False, bwd_usage)]
 
 
 def check_train_logits(embed, cfg, tokens: int = 512) -> dict:
@@ -3907,24 +3944,8 @@ def main() -> None:
     # 11. the LM training step: the flash backward against its plain
     # version, the step at full width, and fp32 against the CPU
     t0 = time.perf_counter()
-    rows["flash_attention_bwd"] = [
-        check_flash_bwd_launch("llama3_8b_train", fa, 1, TRAIN_SEQ, 32, 8,
-                               128, bf16, True, True,
-                               usage["flash_attention_bwd"], rounding=True),
-        check_flash_bwd_launch("fp32_llama3_8b_train", fa, 1, TRAIN_SEQ, 32,
-                               8, 128, f32, True, False,
-                               usage["flash_attention_bwd"], iters=2),
-        check_flash_bwd_launch("ragged_causal", fa, 2, 1000, 4, 2, 64, bf16,
-                               True, False, usage["flash_attention_bwd"],
-                               rounding=True),
-        check_flash_bwd_launch("fp32_ragged_causal", fa, 2, 1000, 4, 2, 64,
-                               f32, True, False,
-                               usage["flash_attention_bwd"]),
-        check_flash_bwd_launch("noncausal", fa, 2, 512, 8, 2, 128, bf16,
-                               False, False, usage["flash_attention_bwd"],
-                               rounding=True),
-        check_flash_bwd_launch("fp32_noncausal", fa, 2, 512, 8, 2, 128, f32,
-                               False, False, usage["flash_attention_bwd"])]
+    rows["flash_attention_bwd"] = flash_bwd_launches(
+        fa, usage["flash_attention_bwd"])
     runs["llama3_8b_train"] = lm_train(card)
     lm_train_vs_cpu(card)
     print(f"lm training phase: {time.perf_counter() - t0:.1f} s", flush=True)

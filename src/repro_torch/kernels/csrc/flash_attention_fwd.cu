@@ -61,7 +61,8 @@
 //     masked at Sq and D.
 // The two warpgroups overlap each other's softmax and products; overlapping
 // them inside a warpgroup, and storing through shared memory, are later
-// work.
+// work. The Hopper pieces (mbarriers, TMA, descriptors, wgmma, the tensor
+// map encoder) are hopper.cuh's, shared with flash_attention_bwd.cu.
 //
 // float32: the FMA route (namespace fma), the path of the fp32
 // prefill/decode consistency check and of the tests at the reference's
@@ -91,6 +92,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "typed_io.cuh"
 
 namespace {
@@ -291,12 +293,12 @@ int launch(const Args& a, int B, int H, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 namespace wg {
 
+using namespace hopper;
+
 constexpr int BQ = 128, BK = 128, STAGES = 2;
 constexpr int CONSUMERS = 2;                    // warpgroups of 64 q rows
 constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
-constexpr int ROW_BYTES = 128;                  // a swizzled row: 64 bf16
 constexpr int PANEL_BYTES = 128 * ROW_BYTES;    // 128 rows x 64 columns
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 // scores are kept in log2 units (x log2(e)), so exp(x - m) is one exp2 of
 // a difference; the causal mask's -1e30 is taken there as -1e30 log2(e)
@@ -324,166 +326,6 @@ struct Args {
   int Sq, Sk, G, D, causal;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed; a wait of ~2^26
-// polls (seconds) is a fault of the pipeline and traps, so the launch
-// fails where it hangs instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// the box of tensor map `map` at (c0, c1, c2, c3) into shared memory; the
-// bytes complete on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout type 1
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// K-major q and k: rows 128 bytes apart, 8-row groups 1024 bytes apart
-// (the stride offset); the leading offset is unused under the swizzle. A
-// step of 16 head columns inside a panel adds 32 bytes to the start.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return desc(addr, 16, 8 * ROW_BYTES);
-}
-
-// MN-major v (B of P V, its N = head columns contiguous): 64-column panels
-// PANEL_BYTES apart (the leading offset), 8-key groups 1024 bytes apart
-// (the stride offset)
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return desc(addr, PANEL_BYTES, 8 * ROW_BYTES);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of registers across the
-// asynchronous wgmma that owns them
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define ACC8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-// d (64 x 128 fp32) = [d +] A (64 x 16) B (16 x 128), both bf16 in shared
-// memory, K-major; scale_d = 0 drops d
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
-        ACC8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64 fp32) += A (64 x 16, bf16 in registers) B (16 x 64, bf16 in
-// shared memory, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128 fp32) += A (64 x 16, bf16 in registers) B (16 x 128, bf16
-// in shared memory, MN-major: the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
-        ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef ACC8
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -593,7 +435,8 @@ __device__ __forceinline__ void consume(Smem<NP>& sm, const Args& a, int q0,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = mnmajor_desc(v_base + kk * 16 * ROW_BYTES);
+      const uint64_t dv = mnmajor_desc(v_base + kk * 16 * ROW_BYTES,
+                                         PANEL_BYTES);
       if constexpr (NP == 1)
         wgmma_rs_n64(o, pa[kk], dv);
       else
@@ -684,71 +527,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// statuses of this route past the CUDA runtime's own
-constexpr int NO_ENCODER = 100000;     // cuTensorMapEncodeTiled not found
-constexpr int ENCODE_FAILED = 100001;  // + the CUresult
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of one bf16 operand over (D, head, sequence, batch) from
-// the caller's (batch, sequence, head) strides `st` in elements: a box of
-// 64 head columns x 128 rows of one head and batch, 128-byte swizzled,
-// zeros out of bounds. A dimension of size 1 is never stepped along, so
-// its stride is replaced by one TMA takes.
-int make_map(CUtensorMap* map, const void* base, int D, int heads, int S,
-             int B, const long long* st) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return NO_ENCODER;
-  const cuuint64_t dim[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                             (cuuint64_t)S, (cuuint64_t)B};
-  const long long elems[3] = {st[2], st[1], st[0]};
-  cuuint64_t stride[3];
-  cuuint64_t extent = (cuuint64_t)D * 2;
-  for (int i = 0; i < 3; ++i) {
-    stride[i] = dim[i + 1] == 1 ? extent : (cuuint64_t)elems[i] * 2;
-    extent = stride[i] * dim[i + 1];
-  }
-  const cuuint32_t box[4] = {64, 1, 128, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dim,
-      stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
-
 template <int NP>
 int launch(const void* q, const void* k, const void* v, const Args& a,
            const long long* strides, int B, int H, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   const int KH = H / a.G;
-  int err = make_map(&tq, q, a.D, H, a.Sq, B, strides);
-  if (err == 0) err = make_map(&tk, k, a.D, KH, a.Sk, B, strides + 3);
-  if (err == 0) err = make_map(&tv, v, a.D, KH, a.Sk, B, strides + 6);
+  int err = make_map(&tq, q, a.D, H, a.Sq, B, strides, BQ);
+  if (err == 0) err = make_map(&tk, k, a.D, KH, a.Sk, B, strides + 3, BK);
+  if (err == 0) err = make_map(&tv, v, a.D, KH, a.Sk, B, strides + 6, BK);
   if (err != 0) return err;
   const int bytes = smem_bytes<NP>();
   const cudaError_t e = cudaFuncSetAttribute(
@@ -835,9 +621,9 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
 }
 
 const char* flash_attention_fwd_error_string(int status) {
-  if (status == wg::NO_ENCODER)
+  if (status == hopper::NO_ENCODER)
     return "cuTensorMapEncodeTiled is not available from the driver";
-  if (status >= wg::ENCODE_FAILED)
+  if (status >= hopper::ENCODE_FAILED)
     return "cuTensorMapEncodeTiled refused an operand's tensor map";
   return cudaGetErrorString((cudaError_t)status);
 }

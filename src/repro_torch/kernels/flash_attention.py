@@ -20,12 +20,14 @@ the head itself, so the model's projections go in without a transpose and
 the GQA repeat is never materialised. The reference's flattened (BH, S, D)
 layout is the case H = KH = 1 (``kernels/ops.py``).
 
-The dtype picks the kernel's route (``ROUTES``): bfloat16, the dtype the
-models serve in, runs both products on the tensor cores (``wgmma``) on
-operands that TMA copies into shared memory, which needs 16-byte aligned
-base addresses and strides (``check_tma_operands``: the wrapper raises
-rather than copy); float32 keeps the fp32 FMA kernel (``fma``), the route
-of the fp32 consistency checks at the reference's tolerances.
+The dtype picks the route of both kernels (``ROUTES``): bfloat16, the
+dtype the models serve and train in, runs every product on the tensor
+cores (``wgmma``: the forward's two, the backward's seven) on operands that
+TMA copies into shared memory, which needs 16-byte aligned base addresses
+and strides (``check_tma_operands`` on q, k, v and, for the backward, o and
+do: the wrappers raise rather than copy); float32 keeps the fp32 FMA
+kernels (``fma``), the route of the fp32 checks at the reference's
+tolerances.
 """
 from __future__ import annotations
 
@@ -46,10 +48,12 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "flash_attention_bwd_launch": ([_P] * 10 + [_LL] + [_I] * 8 + [_P], _I),
-    "flash_attention_bwd_smem_bytes": ([_I], _I),
+    "flash_attention_bwd_smem_bytes": ([_I, _I, _I], _I),
+    "flash_attention_bwd_scratch_floats": ([_I] * 4, ctypes.c_longlong),
 }
-# element types the kernel takes, by the code csrc/typed_io.cuh uses, and
-# the route each takes through csrc/flash_attention_fwd.cu
+# element types the kernels take, by the code csrc/typed_io.cuh uses, and
+# the route each takes through csrc/flash_attention_fwd.cu and
+# csrc/flash_attention_bwd.cu
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "fma", torch.bfloat16: "wgmma"}
 _TMA_ALIGN = 16  # bytes: TMA's base address and stride granule
@@ -244,9 +248,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient ``do`` (B, Sq, H, D). Returns dq (B, Sq, H, D) and dk, dv (B,
     Sk, KH, D) in their operands' dtype, contiguous; dk and dv sum the G
     query heads of each kv head. A CUDA tensor goes through
-    ``csrc/flash_attention_bwd.cu`` (D <= 128, float32 or bfloat16, the
-    last dim contiguous, any other strides), a CPU tensor through
-    ``flash_attention_bwd_plain``."""
+    ``csrc/flash_attention_bwd.cu`` (D <= 128, the last dim contiguous, any
+    other strides; bfloat16 on the wgmma route, whose q, k, v, o and do
+    must pass ``check_tma_operands``, float32 on the FMA route), a CPU
+    tensor through ``flash_attention_bwd_plain``."""
     _check(q, k, v)
     B, Sq, H, D = q.shape
     for name, t in (("o", o), ("do", do)):
@@ -270,19 +275,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, KH = k.shape[1], k.shape[2]
     q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
                       for t in (q, k, v, o, do))
+    if ROUTES[q.dtype] == "wgmma":
+        check_tma_operands(q, k, v, o, do)
     lse = lse.contiguous()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv)
         for s in (t.stride(0), t.stride(1), t.stride(2))))
     with torch.cuda.device(q.device):
-        status = build.bind(
-            "flash_attention_bwd", _BWD_SIGNATURES).flash_attention_bwd_launch(
+        lib = build.bind("flash_attention_bwd", _BWD_SIGNATURES)
+        delta = torch.empty(lib.flash_attention_bwd_scratch_floats(
+            B, H, Sq, DTYPES[q.dtype]), dtype=torch.float32, device=q.device)
+        status = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), strides, B, H, H // KH, Sq, Sk, D,
@@ -292,11 +300,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def flash_attention_bwd_smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one thread block of the backward's dk/dv
-    pass, the larger of its two, at head dim ``D`` (builds the kernel)."""
-    return build.bind("flash_attention_bwd",
-                      _BWD_SIGNATURES).flash_attention_bwd_smem_bytes(D)
+def flash_attention_bwd_smem_bytes(D: int, dtype: torch.dtype) -> dict:
+    """Dynamic shared memory of one thread block of each of the backward's
+    passes, {"dq": bytes, "dkdv": bytes}, at head dim ``D`` on ``dtype``'s
+    route (builds the kernel)."""
+    lib = build.bind("flash_attention_bwd", _BWD_SIGNATURES)
+    return {name: lib.flash_attention_bwd_smem_bytes(D, DTYPES[dtype], i)
+            for i, name in enumerate(("dq", "dkdv"))}
 
 
 class FlashAttention(torch.autograd.Function):

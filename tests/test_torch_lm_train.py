@@ -5,7 +5,9 @@ log-sum-exp and the plain flash backward against the reference's
 ``cross_entropy``; ``lm.loss_fn`` with its gradients (remat on and off);
 three ``make_train_step`` steps with and without gradient accumulation;
 and the launcher (``launch.train``): its loss falls, a resumed run is
-bitwise the uninterrupted one, and the reference restores its checkpoint.
+bitwise the uninterrupted one, and the reference restores its checkpoint;
+and what the backward's wrapper refuses on the bf16 (wgmma) route before
+any launch (CPU tensors sent down its card path to a stubbed launch).
 Inputs come from numpy seeds, the reference's parameters are carried
 across by ``nn.param.params_from_numpy``, and JAX is imported only inside
 the tests (the card has none).
@@ -40,6 +42,8 @@ and against the plain version with p's or ds's rounding removed exceeds it
 (a CPU simulation of a kernel with other fp32 sums reads 3e-5 to 1.2e-4
 against 2.5e-3).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -84,9 +88,10 @@ def _close(got, want, tol):
                                atol=tol["atol"] * scale)
 
 
-def _qkv_do(seed, B, S, H, KH, D):
-    return (_normal(seed, B, S, H, D), _normal(seed + 1, B, S, KH, D),
-            _normal(seed + 2, B, S, KH, D), _normal(seed + 3, B, S, H, D))
+def _qkv_do(seed, B, S, H, KH, D, Sk=None):
+    Sk = S if Sk is None else Sk
+    return (_normal(seed, B, S, H, D), _normal(seed + 1, B, Sk, KH, D),
+            _normal(seed + 2, B, Sk, KH, D), _normal(seed + 3, B, S, H, D))
 
 
 def _t(dtype, *xs):
@@ -543,6 +548,69 @@ def test_train_mode_raises_for_the_vlm_prefix():
 
 
 # ---------------------------------------------------------------------------
+# the backward's wrapper: what the bf16 (wgmma) route refuses before a launch
+# ---------------------------------------------------------------------------
+
+class _Launched(Exception):
+    pass
+
+
+@pytest.fixture
+def as_if_on_card(monkeypatch):
+    """Sends CPU tensors down the wrapper's card path up to the launch,
+    where binding the library raises ``_Launched``: what the wrapper
+    refuses is refused before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def launch(*_):
+        raise _Launched()
+    monkeypatch.setattr(fa, "on_card", lambda what, t: True)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(kbuild, "bind", launch)
+    return fa
+
+
+def _bwd_operands(dtype, D=64, o_row=None, do_offset=0):
+    """q, k, v, o, lse, do on the CPU, (1, 8, 2, D) with 1 kv head; ``o``
+    cut from rows of ``o_row`` elements (the last dim contiguous, a head
+    stride of o_row), ``do`` starting ``do_offset`` elements into its
+    storage."""
+    q, k, v, do = _t(dtype, *_qkv_do(3, 1, 8, 2, 1, D))
+    o = q.clone()
+    if o_row is not None:
+        o = torch.zeros((1, 8, 2, o_row), dtype=dtype)[..., :D]
+    if do_offset:
+        flat = torch.zeros(do.numel() + do_offset, dtype=dtype)
+        do = flat[do_offset:].view(do.shape)
+    return q, k, v, o, torch.zeros((1, 2, 8)), do
+
+
+@pytest.mark.parametrize("case,what", [
+    (dict(o_row=68), "stride"),        # o's head stride 136 bytes
+    (dict(do_offset=1), "boundary"),   # do's base 2 bytes into a granule
+    (dict(D=12), "head dim"),          # D not a multiple of 8
+])
+def test_bwd_bf16_refuses_what_tma_cannot_read(as_if_on_card, case, what):
+    fa = as_if_on_card
+    before = kbuild.launch_counts["flash_attention_bwd"]
+    with pytest.raises(ValueError, match=what):
+        fa.flash_attention_bwd(*_bwd_operands(torch.bfloat16, **case))
+    assert kbuild.launch_counts["flash_attention_bwd"] == before
+
+
+@pytest.mark.parametrize("dtype,case", [
+    (torch.bfloat16, {}),                  # aligned: on to the launch
+    (torch.float32, dict(o_row=68)),       # the FMA route takes any strides
+    (torch.float32, dict(D=12)),
+])
+def test_bwd_takes_to_the_launch_what_its_route_reads(as_if_on_card, dtype,
+                                                      case):
+    with pytest.raises(_Launched):
+        as_if_on_card.flash_attention_bwd(*_bwd_operands(dtype, **case))
+
+
+# ---------------------------------------------------------------------------
 # on the card: the kernels against their plain versions, one step
 # ---------------------------------------------------------------------------
 
@@ -555,19 +623,23 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,B,S,H,KH,D", [
-    (True, 2, 256, 4, 4, 128),     # G 1, whole tiles
-    (True, 1, 200, 4, 2, 64),      # G 2, ragged S, D 64
-    (True, 2, 130, 8, 2, 128),     # G 4, ragged S
-    (False, 1, 100, 4, 1, 128),    # G 4, non-causal, ragged
-    (False, 2, 192, 2, 2, 40),     # G 1, non-causal, D below a tile
-    (True, 1, 65, 2, 1, 16),       # one row past a tile, D 16
+@pytest.mark.parametrize("causal,B,S,Sk,H,KH,D", [
+    (True, 2, 256, 256, 4, 4, 128),   # G 1, whole tiles
+    (True, 1, 200, 200, 4, 2, 64),    # G 2, ragged S, D 64
+    (True, 2, 130, 130, 8, 2, 128),   # G 4, ragged S
+    (False, 1, 100, 100, 4, 1, 128),  # G 4, non-causal, ragged
+    (False, 2, 192, 192, 2, 2, 40),   # G 1, non-causal, D below a tile
+    (True, 1, 65, 65, 2, 1, 16),      # one row past a tile, D 16
+    (False, 2, 100, 237, 4, 2, 128),  # Sq < Sk, non-causal (cross-attention)
+    (False, 1, 300, 90, 2, 1, 64),    # Sq > Sk, non-causal
+    (True, 1, 1100, 1100, 8, 2, 128),  # G 4, many k and q tiles, ragged
 ])
-def test_flash_bwd_kernel_matches_plain_on_card(causal, B, S, H, KH, D,
+def test_flash_bwd_kernel_matches_plain_on_card(causal, B, S, Sk, H, KH, D,
                                                 dtype):
     _card()
     dt = getattr(torch, dtype)
-    q, k, v, do = (t.cuda() for t in _t(dt, *_qkv_do(7, B, S, H, KH, D)))
+    q, k, v, do = (t.cuda() for t in _t(dt, *_qkv_do(7, B, S, H, KH, D,
+                                                     Sk)))
     o, lse = flash_attention_fwd(q, k, v, causal, return_lse=True)
     before = kbuild.launch_counts["flash_attention_bwd"]
     got = flash_attention_bwd(q, k, v, o, lse, do, causal)

@@ -25,9 +25,10 @@ their published widths and depths through ``models.registry.build``,
 ``ModelBundle.init_params`` and ``launch.steps.make_prefill_step`` /
 ``make_decode_step``: Llama-3-8B (prefill through ``flash_attention_fwd``)
 and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16 from a seeded
-init, and trains Llama-3-8B at its published widths, 2 layers deep,
-through ``launch.steps.make_train_step`` (the flash forward and the
-hand-written ``flash_attention_bwd``). Before the LM zoo it serves GraphSAGE and GAT requests through
+init, and trains Llama-3-8B and RWKV-6-3B at their published widths, 2
+layers deep, through ``launch.steps.make_train_step`` (the flash forward
+and the hand-written ``flash_attention_bwd``; ``wkv6_chunk`` and the
+hand-written ``wkv6_chunk_bwd``). Before the LM zoo it serves GraphSAGE and GAT requests through
 ``core.serving.ServingRuntime`` (one CUDA graph a bucket), then runs the
 paper's Table 2 API (``core.abstraction.HitGNN``): its DSE, one epoch
 through ``Start_training`` and the simulator beside what the card
@@ -423,6 +424,33 @@ measured. Phases, each of which exits non-zero on failure:
      model at 1 x 128 tokens: the loss and every gradient leaf on the card
      within rtol 1e-4 and atol 1e-4 times the leaf's largest magnitude of
      the port on the CPU (``train_vs_cpu`` line, with the CPU's seconds);
+  11b. RWKV-6's training step. ``wkv6_chunk_bwd`` against its plain
+     version at RWKV-6-3B's training shape (1 x 4,096 tokens, 40 heads of
+     64, bf16 r, k, v and dy, fp32 log-decays, no initial state and no
+     final-state cotangent: the main path's launch), in fp32 at 1 x 512
+     tokens and in bf16 at a ragged 1,007, both with an initial state and
+     a final-state cotangent. Two launches must give the same bits. fp32
+     gradients are held at wkv6's fp32 tolerance (rtol 1e-4, atol 1e-4
+     times the plain result's largest magnitude, at least 1); in bf16,
+     dr, dk and dv, which both round to bf16 once, at rtol 1e-2 with that
+     atol, and dlw, du and ds0 (fp32 from the same bf16 inputs) at the
+     fp32 tolerance. Each line gives the route (``fp32 FMA``), each pass's
+     registers, spills and thread blocks (the per-chunk pass's dynamic
+     shared memory too), the kernel's ms (CUDA events), its plain
+     version's, no yardstick (no single PyTorch call computes the
+     gradient), the bound (``wkv6_bwd_flops``: bytes of r, k, v, dy and lw
+     read and dr, dk, dv and dlw written, the products at the TF32 rate,
+     the pairwise flops at 67 TFLOP/s, the exponentials at the SFU's) and
+     the share of its allowance each gradient used; the main-path line
+     adds its device split by kernel. Then the step (``train`` line,
+     ``"arch": "rwkv6-3b"``) as phase 11's: the published widths (d 2,560,
+     40 heads of 64, d_ff 8,960, vocab 65,536), 2 layers (the 32 with fp32
+     moments and AdamW's new moments beside the old would need ~74 GB
+     before activations), bf16, remat ``"full"``, grad_accum 2 over 2 x
+     4,096 tokens, 3 AdamW steps: exactly 8 ``wkv6_chunk`` and 4
+     ``wkv6_chunk_bwd`` a step, nothing else; the wkv6 kernels' share of
+     busy time (null unless the trace saw every launch); and its fp32
+     micro-step against the CPU (``train_vs_cpu``);
   12. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -585,6 +613,14 @@ BWD_ROUNDING_LIMIT = 2.0 ** -11
 # of 1 x TRAIN_CPU_SEQ tokens on the card against the CPU
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 4096
 TRAIN_ACCUM, TRAIN_STEPS, TRAIN_CPU_SEQ = 2, 3, 128
+# each trained model's kernels: {launch count's name: (launches a layer and
+# micro-batch, trace label, substring of its device kernels' names, device
+# kernels a launch)}
+TRAIN_KERNELS = {
+    "llama3-8b": {"flash_attention_fwd": (2, "flash_fwd", "flash_fwd", 1),
+                  "flash_attention_bwd": (1, "flash_bwd", "flash_bwd", 3)},
+    "rwkv6-3b": {"wkv6_chunk": (2, "wkv6_fwd", "wkv6_chunk_kernel", 1),
+                 "wkv6_chunk_bwd": (1, "wkv6_bwd", "wkv6_bwd_", 3)}}
 FWD = ("tile_off", "val", "tile_seg", "cols")
 BWD = ("tile_off_t", "val_t", "tile_seg_t", "cols_t")
 COMPACT = ("tile_id", "tile_off", "val", "cols")
@@ -609,10 +645,12 @@ KERNEL_SOURCES = {
         "src/repro/kernels/flash_attention.py:22"),
     "wkv6_chunk": ("src/repro_torch/kernels/csrc/wkv6_chunk.cu",
                    "src/repro/kernels/wkv6.py:20"),
-    # no TPU kernel: the counterpart of the reference's plain-JAX backward
+    # no TPU kernel: the counterparts of the reference's plain-JAX backwards
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/nn/attention.py:104"),
+    "wkv6_chunk_bwd": ("src/repro_torch/kernels/csrc/wkv6_chunk_bwd.cu",
+                       "src/repro/nn/rwkv6.py:79"),
 }
 
 
@@ -1637,6 +1675,118 @@ def check_wkv6_launch(name, wk, B, S, H, K, dtype, with_state, main_path,
     return report(row)
 
 
+def wkv6_bwd_flops(S: int, K: int, chunk: int = 16) -> tuple:
+    """(products, elementwise flops, exponentials) of the WKV6 backward
+    over S tokens of one head (K = V), counted as ``wkv6_flops`` counts the
+    forward: per chunk of L tokens the products S dy, dS v and k~ dS and
+    the two walks' rank-L updates of the state and of its cotangent (2 L K
+    K each); the pairs' work for A (a difference of exponents, two
+    multiplies and an add a channel), G, dr', dk' (four a channel each) and
+    dv's pairs; the bonus terms, cumsums, decayed rows, du and dlw's scan
+    (20 L K) and its rowsum (2 K K); the exponentials each pair and token
+    needs once (the kernel forms the pairs' three times)."""
+    products = elementwise = exps = 0
+    for t0 in range(0, S, chunk):
+        L = min(chunk, S - t0)
+        pairs = L * (L - 1) // 2
+        products += 5 * 2 * L * K * K
+        elementwise += (12 * pairs * K + 4 * (pairs + L) * K + 20 * L * K
+                        + 2 * K * K)
+        exps += pairs * K + 2 * L * K + K
+    return products, elementwise, exps
+
+
+def check_wkv6_bwd_launch(name, wk, B, S, H, K, dtype, with_state,
+                          main_path, usage, iters=10):
+    """wkv6_chunk_bwd vs its plain version on the card (dr, dk, dv, dlw,
+    du and, with a state, ds0; ``with_state`` also gives the final state a
+    cotangent), two launches bitwise alike, its times and the bound (as
+    ``check_wkv6_launch``'s); no single PyTorch call computes it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * scale
+    r, k, v = (randn(B, S, H, K, scale=0.5).to(dtype) for _ in range(3))
+    lw = -randn(B, S, H, K).exp()
+    u = randn(H, K, scale=0.5).to(dtype)
+    dy = randn(B, S, H, K).to(dtype)
+    s0, ds = ((randn(B, H, K, K), randn(B, H, K, K)) if with_state
+              else (None, None))
+    args = (r, k, v, lw, u, s0, dy, ds)
+    got = wk.wkv6_chunk_bwd(*args)
+    again = wk.wkv6_chunk_bwd(*args)
+    plain = wk.wkv6_chunk_bwd_plain(*args)
+    torch.cuda.synchronize()
+    if not all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, again)):
+        fail(f"{name}: two wkv6_chunk_bwd launches gave different bits")
+    used, err = {}, 0.0
+    for what, g, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got,
+                          plain):
+        if w is None or g is None:
+            if g is not None or w is not None:
+                fail(f"{name}: {what} is {g} on the kernel, {w} plain")
+            continue
+        rtol = (BF16_RTOL if what in ("dr", "dk", "dv")
+                and dtype != torch.float32 else WKV_TOL["rtol"])
+        tol = check_within(name, what, g, w, rtol, WKV_TOL["atol"] * max(
+            1.0, float(w.abs().max())))
+        used[what] = tol["tol_used"]
+        err = max(err, tol["max_abs_err"])
+    products, elementwise, exps = (n * B * H for n in wkv6_bwd_flops(S, K))
+    t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+
+    def pass_usage(key):   # the build report's, static shared memory too
+        return {**build_usage(usage, key), "static_smem_bytes": max(
+            u["smem_bytes"] for fn, u in usage.items() if key in fn)}
+    passes = {
+        "walk": {**pass_usage(f"wkv6_bwd_walkI{t}Li{K}E"),
+                 "thread_blocks": 2 * B * H},
+        "chunk": {**pass_usage(f"wkv6_bwd_chunkI{t}Li{K}E"),
+                  "thread_blocks": B * H * -(-S // 16),
+                  "smem_bytes": wk.wkv6_chunk_bwd_smem_bytes(K)},
+        "du": pass_usage("wkv6_bwd_du")}
+    elt = r.element_size()
+    row = {"kernel": "wkv6_chunk_bwd", "launch": name,
+           "main_path": main_path, "r": [B, S, H, K],
+           "dtype": str(dtype).replace("torch.", ""),
+           "initial_state": with_state, "final_cotangent": with_state,
+           "route": "fp32 FMA", "passes": passes, "max_abs_err": err,
+           "tol_used": max(used.values()), "tol_used_by_grad": used,
+           "repeat_bitwise": True,
+           "ms": time_ms(lambda: wk.wkv6_chunk_bwd(*args), iters=iters),
+           "plain_ms": time_ms(lambda: wk.wkv6_chunk_bwd_plain(*args),
+                               iters=2, warmup=1),
+           "library_ms": None, "yardstick": None}
+    if main_path:   # by pass; a first trace this late can come back empty
+        traced(lambda: torch.ones(1, device="cuda").add_(1))
+        row["device_split"] = device_split(
+            lambda: wk.wkv6_chunk_bwd(*args), calls=5)
+    row.update(bound_parts(
+        elt * (7 * B * S * H * K + H * K) + 4 * (2 * B * S * H * K + H * K)
+        + 4 * B * H * K * K * (3 if with_state else 0),
+        {"products_tf32": (products, TF32_FLOPS),
+         "elementwise_fp32": (elementwise, FP32_FLOPS),
+         "exponentials": (exps, SFU_EXP_PER_S)},
+        products + elementwise))
+    row["tflops"] = (products + elementwise) / row["ms"] / 1e9
+    del args, got, again, plain, r, k, v, lw, dy, s0, ds
+    torch.cuda.empty_cache()
+    return report(row)
+
+
+def wkv6_bwd_launches(wk, usage) -> list:
+    """Phase 11b's checked launches of wkv6_chunk_bwd: RWKV-6-3B's training
+    shape (the main path), fp32 with both states, and a ragged length."""
+    return [
+        check_wkv6_bwd_launch("rwkv6_3b_train", wk, 1, TRAIN_SEQ, 40, 64,
+                              torch.bfloat16, False, True, usage),
+        check_wkv6_bwd_launch("fp32_with_states", wk, 1, 512, 40, 64,
+                              torch.float32, True, False, usage),
+        check_wkv6_bwd_launch("ragged_with_states", wk, 1, 1007, 40, 64,
+                              torch.bfloat16, True, False, usage)]
+
+
 def traced(fn, cpu: bool = True, match: dict | None = None,
            top: int = 0) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall time (to a
@@ -2019,18 +2169,19 @@ def check_train_logits(embed, cfg, tokens: int = 512) -> dict:
     return row
 
 
-def lm_train(card) -> dict:
-    """Llama-3-8B's training step at its published widths, TRAIN_LAYERS
-    deep, in bf16 from a seeded init, through ``launch.steps.
-    make_train_step`` (remat "full", grad_accum TRAIN_ACCUM) and AdamW on a
-    cosine schedule, TRAIN_STEPS steps over batches of TRAIN_BATCH x
-    TRAIN_SEQ numpy-seeded tokens. Each step's launch counts are zeroed
-    before and read after: exactly 2 x layers x micro-batches flash
-    forwards (the forward and remat's recompute) and layers x micro-batches
-    backwards. The first step then runs again from the same parameters and
-    batch, under ``torch.profiler``, and its loss, gradient norm and
-    parameters are compared bit for bit with the first run's (printed: a
-    difference is a finding, not a failure)."""
+def lm_train(card, arch: str = "llama3-8b") -> dict:
+    """``arch``'s training step at its published widths, TRAIN_LAYERS deep,
+    in bf16 from a seeded init, through ``launch.steps.make_train_step``
+    (remat "full", grad_accum TRAIN_ACCUM) and AdamW on a cosine schedule,
+    TRAIN_STEPS steps over batches of TRAIN_BATCH x TRAIN_SEQ numpy-seeded
+    tokens. Each step's launch counts are zeroed before and read after:
+    exactly 2 x layers x micro-batches of the model's forward kernel (the
+    forward and remat's recompute) and layers x micro-batches of its
+    backward (``TRAIN_KERNELS``), nothing else. The first step then runs
+    again from the same parameters and batch, under ``torch.profiler``,
+    and its loss, gradient norm and parameters are compared bit for bit
+    with the first run's (printed: a difference is a finding, not a
+    failure)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build as build_mod
@@ -2039,8 +2190,8 @@ def lm_train(card) -> dict:
     from repro_torch.nn.param import flatten
     from repro_torch.optim.adam import AdamW
     from repro_torch.optim.schedules import get_schedule
-    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS,
-                                          grad_accum=TRAIN_ACCUM)
+    cfg = get_config(arch).replace(n_layers=TRAIN_LAYERS,
+                                   grad_accum=TRAIN_ACCUM)
     bundle = build(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2053,8 +2204,9 @@ def lm_train(card) -> dict:
     batches = [sample_inputs(cfg, shape, rng, "cuda")
                for _ in range(TRAIN_STEPS)]
     micro = TRAIN_ACCUM
-    per_step = {"flash_attention_fwd": 2 * TRAIN_LAYERS * micro,
-                "flash_attention_bwd": TRAIN_LAYERS * micro}
+    kernels = TRAIN_KERNELS[arch]
+    per_step = {name: per_layer * TRAIN_LAYERS * micro
+                for name, (per_layer, *_) in kernels.items()}
     want = {**{k: 0 for k in build_mod.launch_counts}, **per_step}
     launches = {k: 0 for k in per_step}
     params, state = params0, opt.init(flatten(params0))
@@ -2068,13 +2220,13 @@ def lm_train(card) -> dict:
         wall = time.perf_counter() - t0
         got = dict(build_mod.launch_counts)
         if got != want:
-            fail(f"llama3-8b train step {i + 1} launched {got}, expected "
+            fail(f"{arch} train step {i + 1} launched {got}, expected "
                  f"{per_step} and nothing else")
         for k in launches:
             launches[k] += got[k]
         vals = {k: float(v) for k, v in met.items()}
         if not all(np.isfinite(x) for x in vals.values()):
-            fail(f"llama3-8b train step {i + 1}: non-finite metrics {vals}")
+            fail(f"{arch} train step {i + 1}: non-finite metrics {vals}")
         steps.append({"step": i + 1, "s": wall, **vals})
         if i == 0:
             first = (params, met)
@@ -2088,13 +2240,13 @@ def lm_train(card) -> dict:
     state0 = opt.init(flatten(params0))
     traced(lambda: torch.ones(1, device="cuda").add_(1))  # warms CUPTI
     prof = traced(lambda: out.update(run=step(params0, state0, batches[0])),
-                  match={"flash_bwd": "flash_bwd", "flash_fwd": "flash_fwd"},
+                  match={label: key for _, label, key, _ in kernels.values()},
                   top=12)
     # a share is read only from a trace that saw every launch (a backward
-    # launch runs three kernels: the delta, dk/dv and dq passes)
-    complete = (prof["flash_fwd_kernels"] == per_step["flash_attention_fwd"]
-                and prof["flash_bwd_kernels"]
-                == 3 * per_step["flash_attention_bwd"])
+    # launch runs three kernels: flash's delta, dk/dv and dq passes, wkv6's
+    # walks, chunks and du)
+    complete = all(prof[f"{label}_kernels"] == n * per_step[name]
+                   for name, (_, label, _, n) in kernels.items())
     p_again, _, met_again = out.pop("run")
     same = {"loss": bool(torch.equal(met_again["loss"], first[1]["loss"])),
             "grad_norm": bool(torch.equal(met_again["grad_norm"],
@@ -2102,7 +2254,7 @@ def lm_train(card) -> dict:
             "params": all(torch.equal(a, b) for a, b in
                           zip(flatten(p_again), flatten(first[0])))}
     busy = prof["device_busy_ms"]
-    run = {"arch": "llama3-8b", "layers": TRAIN_LAYERS,
+    run = {"arch": arch, "layers": TRAIN_LAYERS,
            "d_model": cfg.d_model, "params": n_params, "dtype": "bfloat16",
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "grad_accum": micro,
            "remat": cfg.remat, "steps": steps, "s_per_step": s_step,
@@ -2111,10 +2263,9 @@ def lm_train(card) -> dict:
            "launches": launches, "repeat_bitwise": same,
            "logits": logits_row, "profiled_step": prof,
            "trace_complete": complete,
-           "flash_bwd_share_of_busy": (prof["flash_bwd_ms"] / busy
-                                       if complete else None),
-           "flash_fwd_share_of_busy": (prof["flash_fwd_ms"] / busy
-                                       if complete else None),
+           **{f"{label}_share_of_busy": (prof[f"{label}_ms"] / busy
+                                         if complete else None)
+              for _, label, _, _ in kernels.values()},
            "card": card}
     print("train " + json.dumps(run), flush=True)
     del params0, state0, first, p_again, out
@@ -2122,21 +2273,21 @@ def lm_train(card) -> dict:
     return run
 
 
-def lm_train_vs_cpu(card) -> dict:
-    """One fp32 micro-step (TF32 off) of the TRAIN_LAYERS-deep model at
-    full width, 1 x TRAIN_CPU_SEQ tokens: the loss and every gradient leaf
-    on the card (the flash kernels' FMA route, cuBLAS in fp32) against the
-    port on the CPU (the plain versions) from the same parameters, within
-    rtol CONSIST_TOL and atol CONSIST_TOL times the leaf's largest
-    magnitude (fp32 sums over up to 14,336 terms and 128 positions, taken
-    in another order)."""
+def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
+    """One fp32 micro-step (TF32 off) of ``arch``'s TRAIN_LAYERS-deep model
+    at full width, 1 x TRAIN_CPU_SEQ tokens: the loss and every gradient
+    leaf on the card (flash's FMA route or wkv6's fp32 kernels, cuBLAS in
+    fp32) against the port on the CPU (the plain versions) from the same
+    parameters, within rtol CONSIST_TOL and atol CONSIST_TOL times the
+    leaf's largest magnitude (fp32 sums over up to 14,336 terms and 128
+    positions, taken in another order)."""
     from repro_torch.checkpoint.checkpointing import flatten_with_paths
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.steps import _loss_and_grads
     from repro_torch.models.registry import build, sample_inputs
     from repro_torch.nn.param import flatten, unflatten
-    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    cfg = get_config(arch).replace(n_layers=TRAIN_LAYERS)
     bundle = build(cfg)
     params = bundle.init_params(SEED + 2, torch.float32, "cuda")
     batch = sample_inputs(cfg, ShapeSpec("cpu", TRAIN_CPU_SEQ, 1, "train"),
@@ -2164,7 +2315,7 @@ def lm_train_vs_cpu(card) -> dict:
                            CONSIST_TOL, CONSIST_TOL * float(w.abs().max()))
         worst = max(worst, row["tol_used"])
         errs[name] = row["max_abs_err"]
-    row = {"arch": "llama3-8b", "layers": TRAIN_LAYERS, "dtype": "float32",
+    row = {"arch": arch, "layers": TRAIN_LAYERS, "dtype": "float32",
            "tokens": TRAIN_CPU_SEQ, "loss_card": float(loss_card),
            "loss_cpu": float(loss_cpu), "leaves": len(names),
            "worst_tol_used": worst, "max_abs_err": errs, "cpu_s": cpu_s,
@@ -3949,6 +4100,15 @@ def main() -> None:
     runs["llama3_8b_train"] = lm_train(card)
     lm_train_vs_cpu(card)
     print(f"lm training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 11b. RWKV-6's training step: the WKV6 backward against its plain
+    # version, the step at full width, and fp32 against the CPU
+    t0 = time.perf_counter()
+    rows["wkv6_chunk_bwd"] = wkv6_bwd_launches(wk, usage["wkv6_chunk_bwd"])
+    runs["rwkv6_3b_train"] = lm_train(card, "rwkv6-3b")
+    lm_train_vs_cpu(card, "rwkv6-3b")
+    print(f"rwkv training phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # 12. summary
     kernels = [kernel_entry(name, rows[name], {

@@ -39,11 +39,6 @@ def make_train_step(bundle: ModelBundle, optimizer):
     ``ce``, ``aux``) for one micro-batch, else ``loss``; and the
     optimizer's (``lr``, ``grad_norm``)."""
     cfg = bundle.cfg
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: RWKV-6's training step is not ported yet: it needs "
-            f"a backward of the wkv6_chunk kernel (ROADMAP.md queue A, item "
-            f"A.14.1b)")
     accum = max(1, cfg.grad_accum)
 
     def step(params, opt_state, batch):

@@ -3,10 +3,9 @@ ArchConfig into a ModelBundle of its parameter spec, an init, ``loss_fn``,
 ``prefill_fn`` / ``decode_fn`` and its cache spec, plus per-shape input
 specs.
 
-The port builds the ``dense`` family (``models/lm.py``, without MoE), which
-trains and serves, and the ``ssm`` family (``models/rwkv.py``), which
-serves; its ``loss_fn`` raises, naming its ROADMAP.md item (A.14.1b), as
-the other families do on ``build``.
+The port builds the ``dense`` family (``models/lm.py``, without MoE) and
+the ``ssm`` family (``models/rwkv.py``), each of which trains and serves;
+the other families raise on ``build``, naming their ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -46,8 +45,7 @@ class ModelBundle:
     leaves the given one as it was."""
     cfg: ArchConfig
     param_spec: Any
-    loss_fn: Callable        # (params, batch) -> (loss, metrics);
-    #                          ssm: raises (A.14.1b)
+    loss_fn: Callable        # (params, batch) -> (loss, metrics)
     prefill_fn: Callable     # (params, batch) -> (logits, cache)
     decode_fn: Callable      # (params, cache, batch) -> (logits, cache)
     #                          (dense: the same cache, updated in place)

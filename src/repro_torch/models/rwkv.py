@@ -1,15 +1,18 @@
-"""RWKV-6 (Finch) causal LM for serving (counterpart of
+"""RWKV-6 (Finch) causal LM, training and serving (counterpart of
 ``repro.models.rwkv``): attention-free, its state O(1) in sequence length.
 
 The parameters stay stacked with the layers on dim 0; ``forward`` loops
-over the layers where the reference ``lax.scan``s. Prefill returns each
-layer's token-shift and WKV states, stacked, and decode carries them.
-``loss_fn`` waits for RWKV's training step and its WKV6 backward kernel
-(ROADMAP.md queue A, item A.14.1b).
+over the layers where the reference ``lax.scan``s, and in ``"train"`` mode
+runs each layer under ``torch.utils.checkpoint`` when ``cfg.remat ==
+"full"`` (the reference's ``jax.checkpoint``): a layer keeps only its
+input, and the backward recomputes it, the ``wkv6_chunk`` launch too.
+Prefill returns each layer's token-shift and WKV states, stacked, and
+decode carries them.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import layer_params
@@ -55,43 +58,59 @@ def state_spec(cfg: ArchConfig, batch: int, seq: int):
     }
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *, state=None):
-    """Returns (hidden (B, S, d), the new stacked states)."""
+def _layer(cfg: ArchConfig, p, x: torch.Tensor, st):
+    """One block: time-mix and channel-mix, each after its norm, each
+    added to the residual. Returns (x, its token-shift and WKV states)."""
+    y, tm = timemix(p["tm"], L.apply_norm(p["ln1"], x, cfg.norm_eps),
+                    cfg.rwkv, state=None if st is None else
+                    {"shift": st["tm_shift"], "wkv": st["wkv"]})
+    x = x + y
+    y, cm = channelmix(p["cm"], L.apply_norm(p["ln2"], x, cfg.norm_eps),
+                       state=None if st is None else
+                       {"shift": st["cm_shift"]})
+    return x + y, (tm["shift"], tm["wkv"], cm["shift"])
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            mode: str = "train", state=None):
+    """Returns (hidden (B, S, d), the new stacked states). ``mode`` is the
+    reference's (``"train"``, ``"prefill"``, ``"decode"``): only
+    ``"train"`` with ``cfg.remat == "full"`` differs, by its remat."""
     x = L.embed_tokens(params["embed"], tokens)
     x = L.apply_norm(params["ln_in"], x, cfg.norm_eps)
     new = {"tm_shift": [], "wkv": [], "cm_shift": []}
     for l in range(cfg.n_layers):
         p = layer_params(params["layers"], l)
         st = None if state is None else layer_params(state, l)
-        y, tm = timemix(p["tm"], L.apply_norm(p["ln1"], x, cfg.norm_eps),
-                        cfg.rwkv, state=None if st is None else
-                        {"shift": st["tm_shift"], "wkv": st["wkv"]})
-        x = x + y
-        y, cm = channelmix(p["cm"], L.apply_norm(p["ln2"], x, cfg.norm_eps),
-                           state=None if st is None else
-                           {"shift": st["cm_shift"]})
-        x = x + y
-        new["tm_shift"].append(tm["shift"])
-        new["wkv"].append(tm["wkv"])
-        new["cm_shift"].append(cm["shift"])
+        if mode == "train" and cfg.remat == "full":
+            x, sts = checkpoint(_layer, cfg, p, x, st, use_reentrant=False)
+        else:
+            x, sts = _layer(cfg, p, x, st)
+        for name, t in zip(("tm_shift", "wkv", "cm_shift"), sts):
+            new[name].append(t)
     x = L.apply_norm(params["ln_f"], x, cfg.norm_eps)
     return x, {k: torch.stack(v) for k, v in new.items()}
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    raise NotImplementedError(
-        "RWKV-6's training step is not ported yet: it needs a backward of "
-        "the wkv6_chunk kernel (ROADMAP.md queue A, item A.14.1b)")
+    """Causal-LM loss: the mean token cross-entropy of the fp32 logits
+    against ``batch["labels"]``. Returns (ce, {"loss", "ce"}), fp32
+    scalars."""
+    x, _ = forward(params, cfg, batch["tokens"], mode="train")
+    logits = L.logits_fn(params["embed"], x, cfg.vocab_size)
+    ce = L.cross_entropy(logits, batch["labels"])
+    return ce, {"loss": ce, "ce": ce}
 
 
 def prefill(params, cfg: ArchConfig, batch):
     """Returns (last-token logits (B, 1, V) fp32, states)."""
-    x, states = forward(params, cfg, batch["tokens"])
+    x, states = forward(params, cfg, batch["tokens"], mode="prefill")
     return L.logits_fn(params["embed"], x[:, -1:], cfg.vocab_size), states
 
 
 def decode_step(params, cfg: ArchConfig, state, batch):
     """batch: {"tokens": (B, 1), ...}. Returns (logits (B, 1, V) fp32, new
     states)."""
-    x, state = forward(params, cfg, batch["tokens"], state=state)
+    x, state = forward(params, cfg, batch["tokens"], mode="decode",
+                       state=state)
     return L.logits_fn(params["embed"], x, cfg.vocab_size), state

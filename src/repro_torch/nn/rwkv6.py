@@ -5,10 +5,13 @@ WKV6 recurrence per head (K = V = head_size):
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T          w_t in (0,1), data-dependent
 
-* prefill (S > 1): ``kernels.wkv6.wkv6_chunk``, the CUDA kernel on the
-  card and its plain version on the CPU, in chunks of 16 (the reference's
-  ``wkv6_chunked`` default; ``RWKVSpec.chunk`` is not read), returning the
-  final state that decode starts from;
+* prefill and training (S > 1): ``kernels.wkv6.WKV6Chunk``, the CUDA
+  kernel ``wkv6_chunk`` on the card and its plain version on the CPU, in
+  chunks of 16 (the reference's ``wkv6_chunked`` default;
+  ``RWKVSpec.chunk`` is not read), returning the final state that decode
+  starts from; its gradient is the CUDA kernel ``wkv6_chunk_bwd`` (the
+  reference differentiates ``wkv6_chunked`` by ``jax.vjp``). Serving runs
+  without autograd and launches only the forward;
 * decode (S = 1): ``wkv6_recurrent``, plain PyTorch.
 
 r, k and v stay in the model's dtype and the log-decay ``lw`` in fp32, as
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RWKVSpec
-from repro_torch.kernels.wkv6 import wkv6_chunk
+from repro_torch.kernels.wkv6 import WKV6Chunk
 from repro_torch.nn.layers import apply_norm
 from repro_torch.nn.param import PSpec
 
@@ -116,7 +119,7 @@ def timemix(p, x, spec: RWKVSpec, *, state=None):
 
     wkv = None if state is None else state["wkv"]      # None: zeros
     if S > 1:
-        y, new_wkv = wkv6_chunk(r, k, v, lw, p["u"].to(r.dtype), wkv)
+        y, new_wkv = WKV6Chunk.apply(r, k, v, lw, p["u"].to(r.dtype), wkv)
     else:
         y, new_wkv = wkv6_recurrent(r, k, v, lw, p["u"], wkv)
 

@@ -526,16 +526,14 @@ def test_reference_restores_the_launchers_checkpoint(tmp_path):
 # what still raises
 # ---------------------------------------------------------------------------
 
-def test_rwkv_training_raises_naming_its_item():
-    tb = build(get_smoke_config("rwkv6-3b"))
-    with pytest.raises(NotImplementedError, match=r"A\.14\.1b"):
-        tb.loss_fn(None, {})
-    with pytest.raises(NotImplementedError, match=r"A\.14\.1b"):
-        make_train_step(tb, AdamW(get_schedule("cosine", 1e-3, 2, 10)))
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b"])
+def test_launcher_defaults_to_the_card_and_names_the_cpu_option(arch):
+    """Without a card the launcher's default device raises, naming
+    ``device='cpu'``."""
     if not torch.cuda.is_available():  # the launcher's default is the card
         from repro_torch.launch import train
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            train.main(["--steps", "1"])
+            train.main(["--arch", arch, "--steps", "1"])
 
 
 def test_train_mode_raises_for_the_vlm_prefix():

@@ -156,9 +156,3 @@ def test_rwkv_prefill_and_decode_match_reference(B, S):
             _close(ts[name], js[name], MODEL_TOL)
         tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))[:, None].astype(
             np.int32)
-
-
-def test_rwkv_loss_raises_naming_its_item():
-    tb = build(get_smoke_config("rwkv6-3b"))
-    with pytest.raises(NotImplementedError, match=r"A\.14\.1"):
-        tb.loss_fn(None, {})

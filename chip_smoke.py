@@ -434,9 +434,10 @@ measured. Phases, each of which exits non-zero on failure:
      times the plain result's largest magnitude, at least 1); in bf16,
      dr, dk and dv, which both round to bf16 once, at rtol 1e-2 with that
      atol, and dlw, du and ds0 (fp32 from the same bf16 inputs) at the
-     fp32 tolerance. Each line gives the route (``fp32 FMA``), each pass's
-     registers, spills and thread blocks (the per-chunk pass's dynamic
-     shared memory too), the kernel's ms (CUDA events), its plain
+     fp32 tolerance. Each line gives the route (``mma.sync 3xTF32``), each
+     pass's registers, spills, thread blocks and shared memory (the walks'
+     and the span pass's dynamic shared memory, and how many blocks of
+     each the runtime fits on an SM), the kernel's ms (CUDA events), its plain
      version's, no yardstick (no single PyTorch call computes the
      gradient), the bound (``wkv6_bwd_flops``: bytes of r, k, v, dy and lw
      read and dr, dk, dv and dlw written, the products at the TF32 rate,
@@ -1684,7 +1685,7 @@ def wkv6_bwd_flops(S: int, K: int, chunk: int = 16) -> tuple:
     multiplies and an add a channel), G, dr', dk' (four a channel each) and
     dv's pairs; the bonus terms, cumsums, decayed rows, du and dlw's scan
     (20 L K) and its rowsum (2 K K); the exponentials each pair and token
-    needs once (the kernel forms the pairs' three times)."""
+    needs once (the kernel forms each pair's once, too)."""
     products = elementwise = exps = 0
     for t0 in range(0, S, chunk):
         L = min(chunk, S - t0)
@@ -1739,19 +1740,23 @@ def check_wkv6_bwd_launch(name, wk, B, S, H, K, dtype, with_state,
     def pass_usage(key):   # the build report's, static shared memory too
         return {**build_usage(usage, key), "static_smem_bytes": max(
             u["smem_bytes"] for fn, u in usage.items() if key in fn)}
+    smem = wk.wkv6_chunk_bwd_smem_bytes(K, dtype)
+    fits = wk.wkv6_chunk_bwd_blocks_per_sm(K, dtype)   # the runtime's count
     passes = {
         "walk": {**pass_usage(f"wkv6_bwd_walkI{t}Li{K}E"),
-                 "thread_blocks": 2 * B * H},
-        "chunk": {**pass_usage(f"wkv6_bwd_chunkI{t}Li{K}E"),
-                  "thread_blocks": B * H * -(-S // 16),
-                  "smem_bytes": wk.wkv6_chunk_bwd_smem_bytes(K)},
+                 "thread_blocks": 2 * B * H * K // 16,
+                 "smem_bytes": smem["walk"], "blocks_per_sm": fits["walk"]},
+        "span": {**pass_usage(f"wkv6_bwd_spanI{t}Li{K}E"),
+                 "thread_blocks": B * H * -(-S // wk.SPAN),
+                 "smem_bytes": smem["span"], "blocks_per_sm": fits["span"]},
         "du": pass_usage("wkv6_bwd_du")}
     elt = r.element_size()
     row = {"kernel": "wkv6_chunk_bwd", "launch": name,
            "main_path": main_path, "r": [B, S, H, K],
            "dtype": str(dtype).replace("torch.", ""),
            "initial_state": with_state, "final_cotangent": with_state,
-           "route": "fp32 FMA", "passes": passes, "max_abs_err": err,
+           "route": "mma.sync 3xTF32", "passes": passes,
+           "max_abs_err": err,
            "tol_used": max(used.values()), "tol_used_by_grad": used,
            "repeat_bitwise": True,
            "ms": time_ms(lambda: wk.wkv6_chunk_bwd(*args), iters=iters),

@@ -37,11 +37,13 @@ _SIGNATURES = {"wkv6_chunk_launch": ([_P] * 8 + [_I] * 4
                "wkv6_chunk_smem_bytes": ([_I, _I, _I], _I)}
 _BWD_SIGNATURES = {"wkv6_chunk_bwd_launch": (
     [_P] * 15 + [_I] * 4 + [ctypes.c_longlong, _I, _P], _I),
-    "wkv6_chunk_bwd_smem_bytes": ([_I], _I)}
+    "wkv6_chunk_bwd_smem_bytes": ([_I, _I, _I], _I),
+    "wkv6_chunk_bwd_blocks_per_sm": ([_I, _I, _I], _I)}
 # element types of r, k, v, u and y, by the code csrc/typed_io.cuh uses
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (16, 32, 64)
 CHUNK = 16   # the kernel's chunk length, the model's default
+SPAN = 64    # the backward's walk step and per-block span: four chunks
 
 
 def wkv6_chunk_plain(r, k, v, lw, u, state=None, chunk: int = CHUNK
@@ -263,17 +265,31 @@ def wkv6_chunk(r, k, v, lw, u, state: Optional[torch.Tensor] = None
 
 
 def wkv6_chunk_bwd_scratch_floats(B: int, S: int, H: int, K: int) -> int:
-    """Floats of the scratch one backward launch takes: the state and its
-    cotangent at each chunk's boundary, then du's part of each chunk
-    (``csrc/wkv6_chunk_bwd.cu``)."""
-    return B * H * -(-S // CHUNK) * K * (2 * K + 1)
+    """Floats of the scratch one backward launch takes
+    (``csrc/wkv6_chunk_bwd.cu``): for each head and span of ``SPAN``
+    tokens, the (K, K) state at the span's start, then the same for the
+    state's cotangent at the span's end, then du's part of each span."""
+    return B * H * -(-S // SPAN) * K * (2 * K + 1)
 
 
-def wkv6_chunk_bwd_smem_bytes(K: int) -> int:
-    """Dynamic shared memory of one block of the backward's per-chunk pass
-    (builds the kernel)."""
-    return build.bind("wkv6_chunk_bwd", _BWD_SIGNATURES
-                      ).wkv6_chunk_bwd_smem_bytes(K)
+def wkv6_chunk_bwd_smem_bytes(K: int, dtype: torch.dtype) -> dict:
+    """Dynamic shared memory of one block of the backward's walks and of
+    its span pass, {"walk": bytes, "span": bytes} (builds the kernel)."""
+    lib = build.bind("wkv6_chunk_bwd", _BWD_SIGNATURES)
+    return {name: lib.wkv6_chunk_bwd_smem_bytes(K, DTYPES[dtype], p)
+            for p, name in enumerate(("walk", "span"))}
+
+
+def wkv6_chunk_bwd_blocks_per_sm(K: int, dtype: torch.dtype) -> dict:
+    """Thread blocks of the backward's walks and of its span pass that the
+    runtime fits on one SM at once, {"walk": n, "span": n} (builds the
+    kernel; needs the card)."""
+    lib = build.bind("wkv6_chunk_bwd", _BWD_SIGNATURES)
+    got = {name: lib.wkv6_chunk_bwd_blocks_per_sm(K, DTYPES[dtype], p)
+           for p, name in enumerate(("walk", "span"))}
+    if min(got.values()) < 0:
+        raise RuntimeError(f"wkv6_chunk_bwd_blocks_per_sm failed: {got}")
+    return got
 
 
 def wkv6_chunk_bwd(r, k, v, lw, u, state, dy, ds_out=None
@@ -282,8 +298,9 @@ def wkv6_chunk_bwd(r, k, v, lw, u, state, dy, ds_out=None
     and results. A CUDA tensor goes through ``csrc/wkv6_chunk_bwd.cu`` (r,
     k, v, u and dy float32 or bfloat16 alike, lw, the state and ds_out
     float32, K = V in 16, 32, 64, every tensor contiguous, r, k, v, dy and
-    lw 16-byte aligned; one launch runs its three kernels); a CPU tensor
-    through ``wkv6_chunk_bwd_plain``."""
+    lw 16-byte aligned; one launch runs its three kernels: the walks, the
+    span pass and du's sum); a CPU tensor through
+    ``wkv6_chunk_bwd_plain``."""
     _check(r, k, v, lw, u, state)
     if dy.shape != v.shape:
         raise ValueError(f"dy has shape {tuple(dy.shape)}; expected "
@@ -328,10 +345,11 @@ def wkv6_chunk_bwd(r, k, v, lw, u, state, dy, ds_out=None
 class WKV6Chunk(torch.autograd.Function):
     """``wkv6_chunk`` with its gradient: the forward is the same launch
     (the same bits, one ``wkv6_chunk`` count) and keeps only its inputs;
-    the backward is ``wkv6_chunk_bwd``, which walks the chunks again for
-    their states (the reference's ``jax.checkpoint`` of its chunk scan).
-    Returns (y, final state); the final state's cotangent is None when
-    nothing used it."""
+    the backward is ``wkv6_chunk_bwd``, which walks the sequence again for
+    the states (the reference's ``jax.checkpoint`` of its chunk scan), a
+    span of ``SPAN`` tokens a step, and rebuilds the states at the chunk
+    boundaries inside each span. Returns (y, final state); the final
+    state's cotangent is None when nothing used it."""
 
     @staticmethod
     def forward(ctx, r, k, v, lw, u, state):

@@ -1,8 +1,11 @@
 """RWKV-6's training step in the port against ``repro``: the plain WKV6
 backward (``wkv6_chunk_bwd_plain``) against ``jax.vjp`` of the reference's
 ``wkv6_chunked`` and against autograd through ``wkv6_chunk_plain``; the
-``WKV6Chunk`` autograd op; ``timemix`` in train mode; ``rwkv.loss_fn`` with
-every gradient leaf (remat on and off, fp32 and bf16); three
+CUDA backward's design in plain PyTorch (walks a span of 64 tokens a step
+against the 16-token walk's boundaries, the span pass's algebra, the
+scratch layout); the ``WKV6Chunk`` autograd op; ``timemix`` in train
+mode; ``rwkv.loss_fn`` with every gradient leaf (remat on and off, fp32
+and bf16); three
 ``make_train_step`` steps with gradient accumulation; the launcher
 (``launch.train --arch rwkv6-3b``); and what the backward's wrapper refuses
 before any launch (CPU tensors sent down its card path to a stubbed
@@ -180,6 +183,223 @@ def test_wkv6chunk_gradients_are_the_plain_backward(state, dtype):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype or w.dtype == torch.float32
             assert torch.equal(g, w.to(g.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's design in plain PyTorch: walks a span of 64 tokens a step,
+# chunk boundaries rebuilt inside each span, the pairs in four groups
+# ---------------------------------------------------------------------------
+
+def _chunk_walks(r, k, v, lw, s0, dy, ds, chunk=wk.CHUNK):
+    """``wkv6_chunk_bwd_plain``'s walks, 16 tokens a step: the state at each
+    chunk's start, the cotangent at each chunk's end, and ds0."""
+    starts, s = [], s0
+    for t0 in range(0, k.shape[1], chunk):
+        starts.append(s)
+        kc, vc, lwc = (a[:, t0:t0 + chunk] for a in (k, v, lw))
+        c = torch.cumsum(lwc, dim=1)
+        s = torch.exp(c[:, -1])[..., None] * s + torch.einsum(
+            "blhk,blhv->bhkv", kc * torch.exp(c[:, -1:] - c), vc)
+    ends, d = [None] * len(starts), ds
+    for ci in reversed(range(len(starts))):
+        ends[ci] = d
+        rc, dyc, lwc = (a[:, ci * chunk:(ci + 1) * chunk] for a in (r, dy, lw))
+        c = torch.cumsum(lwc, dim=1)
+        d = torch.exp(c[:, -1])[..., None] * d + torch.einsum(
+            "blhk,blhv->bhkv", rc * torch.exp(c - lwc), dyc)
+    return starts, ends, d
+
+
+def _span_walks(r, k, v, lw, s0, dy, ds, span=wk.SPAN):
+    """The kernel's walks (``wkv6_bwd_walk``), a span a step: the state at
+    each span's start, the cotangent at each span's end, and ds0. The
+    state's tokens decay by D_t, the sum of lw after t in the span; the
+    cotangent's by E_t, the sum before t; each sum is taken in its own
+    direction, so no difference of two long cumsums enters an exponent."""
+    def shift(x, first):   # x moved one token on, `first` filling the gap
+        pad = torch.zeros_like(x[:, :1])
+        return (torch.cat([pad, x[:, :-1]], 1) if first
+                else torch.cat([x[:, 1:], pad], 1))
+    starts, s = [], s0
+    for t0 in range(0, k.shape[1], span):
+        starts.append(s)
+        kc, vc, lwc = (a[:, t0:t0 + span] for a in (k, v, lw))
+        after = torch.cumsum(lwc.flip(1), 1).flip(1)          # sum_{u>=t}
+        s = torch.exp(after[:, 0])[..., None] * s + torch.einsum(
+            "blhk,blhv->bhkv", kc * torch.exp(shift(after, False)), vc)
+    ends, d = [None] * len(starts), ds
+    for n in reversed(range(len(starts))):
+        ends[n] = d
+        rc, dyc, lwc = (a[:, n * span:(n + 1) * span] for a in (r, dy, lw))
+        upto = torch.cumsum(lwc, 1)                           # sum_{u<=t}
+        d = torch.exp(upto[:, -1])[..., None] * d + torch.einsum(
+            "blhk,blhv->bhkv", rc * torch.exp(shift(upto, True)), dyc)
+    return starts, ends, d
+
+
+def _rebuilt(r, k, v, lw, dy, starts, ends, span=wk.SPAN, chunk=wk.CHUNK):
+    """Every chunk's start state and end cotangent rebuilt inside its span
+    from the span's records, as ``wkv6_bwd_span`` does: the state forward
+    from the span's start, the cotangent backward from its end."""
+    S = k.shape[1]
+    s_all, d_all = [], []
+    for n, t0 in enumerate(range(0, S, span)):
+        cs = list(range(t0, min(t0 + span, S), chunk))
+        s, d_span = starts[n], [None] * len(cs)
+        for t1 in cs:
+            s_all.append(s)
+            kc, vc, lwc = (a[:, t1:t1 + chunk] for a in (k, v, lw))
+            c = torch.cumsum(lwc, dim=1)
+            s = torch.exp(c[:, -1])[..., None] * s + torch.einsum(
+                "blhk,blhv->bhkv", kc * torch.exp(c[:, -1:] - c), vc)
+        d = ends[n]
+        for i in reversed(range(len(cs))):
+            d_span[i] = d
+            rc, dyc, lwc = (a[:, cs[i]:cs[i] + chunk] for a in (r, dy, lw))
+            c = torch.cumsum(lwc, dim=1)
+            d = torch.exp(c[:, -1])[..., None] * d + torch.einsum(
+                "blhk,blhv->bhkv", rc * torch.exp(c - lwc), dyc)
+        d_all += d_span
+    return s_all, d_all
+
+
+@pytest.mark.parametrize("S,strong", [(4096, True), (4096, False),
+                                      (4111, True), (50, False)])
+def test_span_walks_give_every_chunk_boundary(S, strong):
+    """The span-stepped walks' states and cotangents at every span
+    boundary, the boundaries inside each span rebuilt from them, and ds0
+    against the 16-token walk of ``wkv6_chunk_bwd_plain`` at WKV_TOL, over
+    4,096 tokens with decays down to e^-20 a token (an overflow, or a
+    cancellation in an exponent, would show here before any chip run)."""
+    r, k, v, lw, u, s0, dy, ds = map(torch.from_numpy, _wkv_case(
+        1, S, 2, 16, seed=11, strong=strong))
+    starts, ends, ds0 = _chunk_walks(r, k, v, lw, s0, dy, ds)
+    sp_starts, sp_ends, sp_ds0 = _span_walks(r, k, v, lw, s0, dy, ds)
+    span = wk.SPAN // wk.CHUNK
+    assert len(sp_starts) == -(-S // wk.SPAN)
+    for n, (s, d) in enumerate(zip(sp_starts, sp_ends)):
+        _close(s, starts[n * span].numpy(), WKV_TOL)
+        _close(d, ends[min((n + 1) * span, len(ends)) - 1].numpy(), WKV_TOL)
+    _close(sp_ds0, ds0.numpy(), WKV_TOL)
+    s_all, d_all = _rebuilt(r, k, v, lw, dy, sp_starts, sp_ends)
+    assert len(s_all) == len(starts) == len(d_all)
+    for a, b in zip(s_all + d_all, starts + ends):
+        _close(a, b.numpy(), WKV_TOL)
+
+
+# the kernel's four groups of a chunk's pairs (t, j): rows, columns, and
+# whether only j < t; each warp pair takes one
+_PAIR_GROUPS = ((range(0, 8), range(0, 8), True),
+                (range(8, 16), range(8, 16), True),
+                (range(8, 12), range(0, 8), False),
+                (range(12, 16), range(0, 8), False))
+
+
+def _group_masks(L=wk.CHUNK):
+    """The groups' masks over a chunk's (t, j); they must cover the pairs
+    j < t, each once, and each fit the 32 slots of its warp's
+    transpose-reduce."""
+    masks = []
+    for rows, cols, tri in _PAIR_GROUPS:
+        m = torch.zeros((L, L), dtype=torch.bool)
+        for t in rows:
+            for j in cols:
+                m[t, j] = j < t or not tri
+        masks.append(m)
+    count = torch.stack(masks).sum(0)
+    assert torch.equal(count, torch.tril(torch.ones(L, L, dtype=torch.long),
+                                         diagonal=-1))
+    assert max(int(m.sum()) for m in masks) <= 32
+    return masks
+
+
+def _span_pass(r, k, v, lw, u, dy, starts, ends, span=wk.SPAN,
+               chunk=wk.CHUNK):
+    """``wkv6_bwd_span``'s algebra in plain fp32 PyTorch: chunk boundaries
+    rebuilt inside each span, the chunks last to first, the pairs' terms by
+    the kernel's groups and joined in its order (dr' rows 8-15: rows 8-11 or
+    12-15 against 0-7, then 8-15 among themselves; dk' columns 0-7: rows
+    0-7, then 8-11, then 12-15), dlw's sums inside each chunk. Returns dr,
+    dk, dv, dlw and du (per batch)."""
+    B, S, H, K = k.shape
+    f = torch.float32
+    masks = [m[None, :, :, None, None] for m in _group_masks()]
+    uf = (u if u.dim() == 3 else u[None]).to(f)
+    out = [torch.zeros((B, S, H, K), dtype=f) for _ in range(4)]
+    du = torch.zeros((B, H, K), dtype=f)
+    s_all, d_all = _rebuilt(r, k, v, lw, dy, starts, ends, span, chunk)
+    for ci in reversed(range(len(s_all))):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        rc, kc, vc, lwc, dyc = (a[:, sl] for a in (r, k, v, lw, dy))
+        s, d = s_all[ci], d_all[ci]
+        c = torch.cumsum(lwc, 1)
+        ce = c - lwc
+        n = kc.shape[1]
+        dec = ce[:, :, None] - c[:, None, :]                  # (B, t, j, H, K)
+        G = torch.einsum("blhv,bmhv->blmh", dyc, vc)[..., None]
+        part = [torch.exp(dec.masked_fill(~m[:, :n, :n], -1e30))
+                for m in masks]
+        drp = [torch.einsum("bljhk,bljhk,bjhk->blhk", p, G.expand_as(p), kc)
+               for p in part]
+        dkp = [torch.einsum("bljhk,bljhk,blhk->bjhk", p, G.expand_as(p), rc)
+               for p in part]
+        A = sum(torch.einsum("blhk,bjhk,bljhk->bljh", rc, kc, p) for p in part)
+        drp = drp[0] + (drp[2] + drp[3] + drp[1])
+        dkp = dkp[1] + ((dkp[0] + dkp[2]) + dkp[3])
+        bonus = (rc * uf[:, None] * kc).sum(-1)
+        Gd = torch.diagonal(G[..., 0], dim1=1, dim2=2).movedim(-1, 1)
+        etl, ece = torch.exp(c[:, -1:] - c), torch.exp(ce)
+        dr_f = ece * torch.einsum("bhkv,blhv->blhk", s, dyc) + drp
+        dsv = etl * torch.einsum("bhkv,blhv->blhk", d, vc)
+        dk_f = dkp + dsv
+        out[0][:, sl] = dr_f + Gd[..., None] * uf[:, None] * kc
+        out[1][:, sl] = dk_f + Gd[..., None] * uf[:, None] * rc
+        out[2][:, sl] = (torch.einsum("bljh,blhv->bjhv", A, dyc)
+                         + bonus[..., None] * dyc
+                         + torch.einsum("blhk,bhkv->blhv", kc * etl, d))
+        end = (torch.exp(c[:, -1]) * (d * s).sum(-1) + (kc * dsv).sum(1))
+        p, q = rc * dr_f, kc * dk_f
+        out[3][:, sl] = (p.flip(1).cumsum(1).flip(1) - p
+                         - q.flip(1).cumsum(1).flip(1) + end[:, None])
+        du += (Gd[..., None] * rc * kc).sum(1)
+    return (*out, du if u.dim() == 3 else du.sum(0))
+
+
+@pytest.mark.parametrize("S,state,final,batch_u,strong", [
+    (200, True, True, False, False),    # ragged last span of 8 tokens
+    (64, False, True, True, True),      # one span, decays to e^-20
+    (37, True, False, False, False),    # shorter than a span
+])
+def test_span_pass_algebra_matches_the_plain_backward(S, state, final,
+                                                      batch_u, strong):
+    """The span pass's algebra (``_span_pass``) from the span walks'
+    records against ``wkv6_chunk_bwd_plain`` at WKV_TOL: dr, dk, dv, dlw
+    and du, with the pairs split as the kernel splits them."""
+    r, k, v, lw, u, s0, dy, ds = map(torch.from_numpy, _wkv_case(
+        2, S, 3, 16, seed=S, strong=strong, batch_u=batch_u))
+    s0 = s0 if state else torch.zeros_like(s0)
+    ds = ds if final else torch.zeros_like(ds)
+    starts, ends, _ = _span_walks(r, k, v, lw, s0, dy, ds)
+    got = _span_pass(r, k, v, lw, u, dy, starts, ends)
+    want = wkv6_chunk_bwd_plain(r, k, v, lw, u, s0 if state else None, dy,
+                                ds if final else None)
+    for name, g, w in zip(GRADS, got, want):
+        assert g.shape == w.shape, name
+        _close(g, w.numpy(), WKV_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,K,spans", [(1, 4096, 40, 64, 64),
+                                           (2, 4111, 3, 32, 65),
+                                           (1, 1, 2, 16, 1)])
+def test_bwd_scratch_floats_follow_the_span_layout(B, S, H, K, spans):
+    """The scratch holds, for each head and span of 64 tokens, the (K, K)
+    state at the span's start and its cotangent at the span's end, then
+    du's part of the span: 84.5 MB at RWKV-6-3B's training shape (a
+    16-token layout took 338 MB)."""
+    n = wk.wkv6_chunk_bwd_scratch_floats(B, S, H, K)
+    assert n == B * H * spans * (2 * K * K + K)
+    if (B, S, H, K) == (1, 4096, 40, 64):
+        assert 4 * n == 84_541_440
 
 
 # ---------------------------------------------------------------------------
@@ -456,10 +676,11 @@ def _card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _bwd_on_card(B, S, H, K, dtype, state, final, batch_u, seed=0):
+def _bwd_on_card(B, S, H, K, dtype, state, final, batch_u, seed=0,
+                 strong=False):
     r, k, v, lw, u, s0, dy, ds = (torch.from_numpy(a).cuda() for a in
                                   _wkv_case(B, S, H, K, seed=seed,
-                                            batch_u=batch_u))
+                                            batch_u=batch_u, strong=strong))
     r, k, v, u, dy = (t.to(dtype) for t in (r, k, v, u, dy))
     return (r, k, v, lw, u, s0 if state else None, dy,
             ds if final else None)
@@ -472,12 +693,35 @@ def _bwd_on_card(B, S, H, K, dtype, state, final, batch_u, seed=0):
     (1, 37, 2, 32, True, True, False),    # ragged, both states
     (3, 17, 2, 16, False, True, True),    # one token past a chunk
     (1, 1007, 4, 64, True, True, False),  # many chunks, ragged
+    (1, 1, 2, 64, True, True, False),     # one token
+    (1, 15, 2, 64, True, True, False),    # shorter than a chunk and a span
+    (1, 65, 2, 64, True, True, False),    # one token past a span
+    (1, 4111, 2, 64, True, True, False),  # many spans, ragged
+    (1, 300, 3, 16, True, True, False),   # K 16 over several spans
+    (1, 300, 3, 32, True, True, False),   # K 32 over several spans
+    (2, 200, 3, 64, True, True, True),    # B 2, a per-batch u
 ])
 def test_wkv6_bwd_kernel_matches_plain_on_card(B, S, H, K, state, final,
                                                batch_u, dtype):
     _card()
-    dt = getattr(torch, dtype)
-    args = _bwd_on_card(B, S, H, K, dt, state, final, batch_u)
+    _check_bwd_on_card(_bwd_on_card(B, S, H, K, getattr(torch, dtype), state,
+                                    final, batch_u))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_bwd_kernel_holds_strong_decays_on_card(dtype):
+    """Decays down to e^-20 a token over 4,096 tokens (64 spans), both
+    states: an exponent that overflowed or cancelled would show here."""
+    _card()
+    _check_bwd_on_card(_bwd_on_card(1, 4096, 4, 64, getattr(torch, dtype),
+                                    True, True, False, seed=2, strong=True))
+
+
+def _check_bwd_on_card(args):
+    """One launch (one count) against the plain version at the kernel's
+    tolerances."""
+    dt = args[0].dtype
     before = kbuild.launch_counts["wkv6_chunk_bwd"]
     got = wkv6_chunk_bwd(*args)
     torch.cuda.synchronize()

@@ -20,15 +20,16 @@ block and so takes ``fused_bwd_merged``, GraphSAGE on ``"pallas"`` (dense
 tiles densified on the card, then ``aggregate_blockcsr``, then the update
 matmul), and ``ops.update`` / ``ops.aggregate`` / ``ops.aggregate_update``
 (``update_mlp``, ``aggregate_blockcsr``, ``aggregate_fused`` and, unfused,
-``aggregate_edges``). It then serves the LM zoo's two ported models at
+``aggregate_edges``). It then serves the LM zoo's ported models at
 their published widths and depths through ``models.registry.build``,
 ``ModelBundle.init_params`` and ``launch.steps.make_prefill_step`` /
-``make_decode_step``: Llama-3-8B (prefill through ``flash_attention_fwd``)
+``make_decode_step``: Llama-3-8B and the MoE models OLMoE-1B-7B and
+Grok-1 (prefill through ``flash_attention_fwd``; Grok cut to 2 layers)
 and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16 from a seeded
-init, and trains Llama-3-8B and RWKV-6-3B at their published widths, 2
-layers deep, through ``launch.steps.make_train_step`` (the flash forward
-and the hand-written ``flash_attention_bwd``; ``wkv6_chunk`` and the
-hand-written ``wkv6_chunk_bwd``). Before the LM zoo it serves GraphSAGE and GAT requests through
+init, and trains Llama-3-8B, RWKV-6-3B and OLMoE-1B-7B at their published
+widths, 2 layers deep, through ``launch.steps.make_train_step`` (the flash
+forward and the hand-written ``flash_attention_bwd``; ``wkv6_chunk`` and
+the hand-written ``wkv6_chunk_bwd``). Before the LM zoo it serves GraphSAGE and GAT requests through
 ``core.serving.ServingRuntime`` (one CUDA graph a bucket), then runs the
 paper's Table 2 API (``core.abstraction.HitGNN``): its DSE, one epoch
 through ``Start_training`` and the simulator beside what the card
@@ -326,7 +327,8 @@ measured. Phases, each of which exits non-zero on failure:
   8. the LM kernels vs their plain versions, at the models' shapes:
      ``flash_attention_fwd`` at Llama-3-8B's prefill (4 x 4,096 tokens,
      32 query and 8 kv heads of 128, bf16, causal), in fp32 at 1 x 1,024,
-     and non-causal with Sq 1,000 != Sk 1,537 (bf16); ``wkv6_chunk`` at
+     non-causal with Sq 1,000 != Sk 1,537 (bf16), and at OLMoE-1B-7B's
+     and Grok-1's prefills (16 heads over 16, 48 over 8); ``wkv6_chunk`` at
      RWKV-6-3B's prefill (4 x 4,096 tokens, 40 heads of 64, bf16 r/k/v and
      fp32 log-decays, y and the final state), in fp32 at 1 x 512, and at a
      ragged 1,007 tokens from a given state. fp32 launches are held at the
@@ -364,15 +366,27 @@ measured. Phases, each of which exits non-zero on failure:
      warm-up prefill, the prefill of 4 prompts of 4,096 numpy-seeded
      tokens, the KV cache grown by 16 slots (``examples/lm_serve.py``),
      16 greedy decode steps, then the last step once more under
-     ``torch.profiler`` (device busy time and kernel count). Exactly 32
-     launches of the model's kernel per prefill and none per decode step;
-     finite logits. Printed: init, prefill and decode times, tokens/s,
-     the peak device memory of the init and of serving;
+     ``torch.profiler`` (device busy time and kernel count). Llama-3-8B,
+     RWKV-6-3B and OLMoE-1B-7B at full depth, Grok-1 at its published
+     widths cut to 2 of 64 layers (``SERVE_LAYERS``). Exactly one launch
+     of the model's kernel a layer per prefill (``flash_attention_fwd``
+     for the dense and MoE models, ``wkv6_chunk`` for RWKV) and none per
+     decode step; finite logits over the padded vocab. Printed: init,
+     prefill and decode times, tokens/s, the peak device memory of the
+     init and of serving; a MoE model's line adds the prefill's (token,
+     slot) pairs dropped at capacity, layer by layer. Then one OLMoE MoE
+     layer split into its parts (``moe`` line, ``moe_parts``): each part's
+     device ms at the prefill's shape and a decode step's, the kept and
+     dropped pairs, and the experts', the dispatch's and the combine's
+     bounds;
   10. prefill/decode consistency in fp32 (TF32 off) at full width and 2
-     layers: the last logits of a 1,024-token prefill against a
-     1,023-token prefill and one decode step, within rtol 1e-4 and atol
-     1e-4 times the largest logit (fp32 sums over 4,096 features and 1,024
-     positions taken in another order by the two paths);
+     layers (Grok-1 at 1): the last logits of a 1,024-token prefill against
+     a 1,023-token prefill and one decode step, within rtol 1e-4 and atol
+     1e-4 times the largest logit of the real vocab (fp32 sums over up to
+     6,144 features and 1,024 positions taken in another order by the two
+     paths). The MoE models run at capacity_factor E / K, so that C = S and
+     no pair can drop: a prefill that drops one of the last token's pairs
+     differs from a decode step by the reference's own semantics;
   11. the LM training step. ``flash_attention_bwd`` against its plain
      version at Llama-3-8B's training shape (1 x 4,096 tokens, 32 query
      and 8 kv heads of 128, causal) in bf16 (the main path's launch) and
@@ -452,6 +466,20 @@ measured. Phases, each of which exits non-zero on failure:
      ``wkv6_chunk_bwd`` a step, nothing else; the wkv6 kernels' share of
      busy time (null unless the trace saw every launch); and its fp32
      micro-step against the CPU (``train_vs_cpu``);
+  11c. OLMoE-1B-7B's training step: ``flash_attention_bwd`` against its
+     plain version at its training shape (1 x 4,096 tokens, 16 heads over
+     16 of 128, bf16), then phase 11's step (``train`` line, ``"arch":
+     "olmoe-1b-7b"``) at the published widths (d 2,048, 64 experts of
+     1,024, top 8, vocab 50,304), 2 of 16 layers (1.045 B parameters; the
+     16 at ~16 B a parameter would need ~111 GB), bf16, remat ``"full"``,
+     grad_accum 2 over 2 x 4,096 tokens, 3 AdamW steps: exactly 8
+     ``flash_attention_fwd`` and 4 ``flash_attention_bwd`` a step, nothing
+     else, and its repeat bitwise or not; and the fp32 micro-step against
+     the CPU (``train_vs_cpu``) with the routing's smallest margin between
+     the K-th and (K+1)-th router probability, each token whose experts
+     differ between the card and the CPU printed first. Grok-1's step does
+     not run here (one layer at full width is 6.53 B parameters, ~65 GB
+     of state even with bf16 moments);
   12. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -460,6 +488,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -581,10 +610,16 @@ SFU_EXP_PER_S = None
 # the LM zoo's serving paths: 4 prompts of 4,096 tokens, the cache grown by
 # 16 slots, 16 greedy decode steps; a 256-token prefill first warms cuBLAS
 # and the allocator; prefill/decode consistency in fp32 at 2 layers
-LM_ARCHS = ("llama3-8b", "rwkv6-3b")
+LM_ARCHS = ("llama3-8b", "rwkv6-3b", "olmoe-1b-7b", "grok-1-314b")
 LM_BATCH, LM_PROMPT, LM_WARM_PROMPT, LM_DECODE = 4, 4096, 256, 16
 CONSIST_LAYERS, CONSIST_BATCH, CONSIST_PROMPT = 2, 2, 1024
 CONSIST_TOL = 1e-4
+# depth cuts, where the published depth does not fit the card: Grok-1
+# serves 2 of its 64 layers (11.45 B parameters, ~22.9 GB in bf16; all 64
+# would need ~633 GB) and runs the fp32 consistency check at 1 (6.53 B
+# parameters, ~26 GB)
+SERVE_LAYERS = {"grok-1-314b": 2}
+CONSIST_LAYERS_BY_ARCH = {"grok-1-314b": 1}
 # kernel vs plain on the card: fp32 at the reference's own kernel-test
 # tolerances; bf16 at rtol 1e-2 (one bf16 rounding of the output on each
 # side) with flash's atol 4e-3 x (P|v|) element-wise (each p rounded to
@@ -607,8 +642,9 @@ FLASH_BWD_BF16_ATOL = 8e-3
 # difference moves a bf16 rounding (~3e-5 to 1.2e-4 in a CPU simulation);
 # one that skips a rounding is off by ~2^-9 in every term (~2.5e-3)
 BWD_ROUNDING_LIMIT = 2.0 ** -11
-# the LM training phase: Llama-3-8B at its published widths, TRAIN_LAYERS
-# deep (32 layers with fp32 moments would need ~128 GB), bf16, remat
+# the LM training phase: Llama-3-8B (and RWKV-6-3B, OLMoE-1B-7B) at its
+# published widths, TRAIN_LAYERS deep (Llama's 32 layers with fp32 moments
+# would need ~128 GB, OLMoE's 16 ~111 GB), bf16, remat
 # "full", grad_accum 2 over a batch of 2 x 4,096 numpy-seeded tokens,
 # TRAIN_STEPS AdamW steps on a cosine schedule; then one fp32 micro-step
 # of 1 x TRAIN_CPU_SEQ tokens on the card against the CPU
@@ -617,9 +653,11 @@ TRAIN_ACCUM, TRAIN_STEPS, TRAIN_CPU_SEQ = 2, 3, 128
 # each trained model's kernels: {launch count's name: (launches a layer and
 # micro-batch, trace label, substring of its device kernels' names, device
 # kernels a launch)}
+_FLASH_TRAIN = {"flash_attention_fwd": (2, "flash_fwd", "flash_fwd", 1),
+                "flash_attention_bwd": (1, "flash_bwd", "flash_bwd", 3)}
 TRAIN_KERNELS = {
-    "llama3-8b": {"flash_attention_fwd": (2, "flash_fwd", "flash_fwd", 1),
-                  "flash_attention_bwd": (1, "flash_bwd", "flash_bwd", 3)},
+    "llama3-8b": _FLASH_TRAIN,
+    "olmoe-1b-7b": _FLASH_TRAIN,
     "rwkv6-3b": {"wkv6_chunk": (2, "wkv6_fwd", "wkv6_chunk_kernel", 1),
                  "wkv6_chunk_bwd": (1, "wkv6_bwd", "wkv6_bwd_", 3)}}
 FWD = ("tile_off", "val", "tile_seg", "cols")
@@ -1845,6 +1883,37 @@ def traced(fn, cpu: bool = True, match: dict | None = None,
     return row
 
 
+@contextlib.contextmanager
+def recording_ranks(out: list):
+    """While active, each call of ``nn.moe.rank`` appends (its kept pairs,
+    a count on the card, and its pairs) to ``out``: one entry a MoE layer
+    a forward. Reading the counts waits for the card, so the caller reads
+    them after its timing."""
+    from repro_torch.nn import moe
+    rank = moe.rank
+
+    def recording(experts, m, C):
+        slots = rank(experts, m, C)
+        out.append((slots.keep.sum(), slots.keep.numel()))
+        return slots
+    moe.rank = recording
+    try:
+        yield out
+    finally:
+        moe.rank = rank
+
+
+def drop_shares(kept: list) -> dict:
+    """The (token, slot) pairs dropped at capacity, layer by layer, from a
+    forward's ``recording_ranks`` entries."""
+    pairs = [n for _, n in kept]
+    dropped = [n - int(k) for k, n in kept]
+    return {"pairs_per_layer": pairs[0] if pairs else 0,
+            "dropped_pairs_by_layer": dropped,
+            "drop_share_by_layer": [d / n for d, n in zip(dropped, pairs)],
+            "drop_share": sum(dropped) / max(1, sum(pairs))}
+
+
 def serve(arch) -> dict:
     """One model at its published width and depth through the serving
     entry points, in bf16 from a seeded init: a warm-up prefill, the
@@ -1857,9 +1926,14 @@ def serve(arch) -> dict:
     from repro_torch.kernels import build as build_mod
     from repro_torch.launch import steps
     from repro_torch.models.registry import build
+    from repro_torch.nn.layers import pad_vocab
+    from repro_torch.nn.moe import capacity
     from repro_torch.nn.param import flatten
     cfg = get_config(arch)
-    kernel = {"dense": "flash_attention_fwd", "ssm": "wkv6_chunk"}[cfg.family]
+    cfg = cfg.replace(n_layers=SERVE_LAYERS.get(arch, cfg.n_layers))
+    vocab = pad_vocab(cfg.vocab_size)  # -1e30 past the real vocab
+    kernel = {"dense": "flash_attention_fwd", "moe": "flash_attention_fwd",
+              "ssm": "wkv6_chunk"}[cfg.family]
     bundle = build(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1881,8 +1955,10 @@ def serve(arch) -> dict:
             0, cfg.vocab_size, (LM_BATCH, S)).astype(np.int32)).cuda()
         torch.cuda.synchronize()
         build_mod.reset_launch_counts()
+        kept = []
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens})
+        with recording_ranks(kept):
+            logits, cache = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = dict(build_mod.launch_counts)
@@ -1890,11 +1966,11 @@ def serve(arch) -> dict:
             fail(f"{arch}: {label} launched {got}, expected "
                  f"{cfg.n_layers} {kernel} and nothing else")
         launches[kernel] += got[kernel]
-        if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) \
+        if tuple(logits.shape) != (LM_BATCH, 1, vocab) \
                 or not torch.isfinite(logits).all():
             fail(f"{arch}: {label} logits {tuple(logits.shape)} are not "
-                 f"finite of shape ({LM_BATCH}, 1, {cfg.vocab_size})")
-    if cfg.family == "dense":  # grow the KV capacity as lm_serve does
+                 f"finite of shape ({LM_BATCH}, 1, {vocab})")
+    if cfg.family != "ssm":  # grow the KV capacity as lm_serve does
         cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, LM_DECODE))
                  for k, v in cache.items()}
     tok = logits[:, -1].argmax(-1, keepdim=True).int()
@@ -1933,10 +2009,107 @@ def serve(arch) -> dict:
            "decode_step_profile": profile, "kernel": kernel,
            "launches_per_prefill": cfg.n_layers,
            "launches_per_decode_step": 0, "launches": launches}
+    if cfg.moe is not None:  # the prefill's pairs dropped at capacity
+        run.update(published_layers=get_config(arch).n_layers,
+                   params=sum(t.numel() for t in flatten(params)),
+                   experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                   capacity_per_row=capacity(LM_PROMPT, cfg.moe),
+                   **drop_shares(kept))
     print("serve " + json.dumps(run), flush=True)
     del params, cache, logits
     torch.cuda.empty_cache()
     return run
+
+
+def moe_parts(card, arch: str = "olmoe-1b-7b") -> dict:
+    """One MoE layer of ``arch`` in bf16 (a stack of 1 drawn by the model's
+    init laws from the seed: the layer-0 laws) on seeded unit-RMS tokens,
+    at the serving prefill's shape (LM_BATCH x LM_PROMPT) and a decode
+    step's (LM_BATCH x 1), without autograd. Each part's device ms by CUDA
+    events: route (the router's product, softmax, top-k, aux), rank and
+    dispatch, the expert products, the combine, and the whole layer; the
+    parts composed must give the layer's bits. Kept and dropped pairs.
+    Bounds: the experts' FLOPs at capacity (every buffer row) at 989
+    TFLOP/s bf16 against their bytes (weights, buffer read, output written)
+    at 3.35 TB/s, the larger; the route's, the dispatch's (tokens read
+    once, the whole buffer written) and the combine's (the kept rows read,
+    the weights, the output written) bytes at 3.35 TB/s. Also the bytes of
+    the reference's layout (the repeated tokens, a (B, E, C + 1) buffer,
+    the gathered rows) and of the port's (no repeated copy, an (E, B, C)
+    buffer and its ``OVERFLOW_ROWS``, the gathered rows)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import moe
+    from repro_torch.nn.param import materialize, stack_layers
+    cfg = get_config(arch)
+    m, d = cfg.moe, cfg.d_model
+    E, K = m.num_experts, m.top_k
+    f = m.expert_d_ff or cfg.d_ff
+    stack = materialize(stack_layers(moe.moe_spec(d, cfg.d_ff, m), 1), SEED,
+                        torch.bfloat16, "cuda")
+    p = {k: v[0] for k, v in stack.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    row = {"arch": arch, "d_model": d, "experts": E, "top_k": K,
+           "expert_d_ff": f, "dtype": "bfloat16"}
+    el = 2
+    w_bytes = 3 * E * d * f * el
+    with torch.no_grad():
+        for label, S in (("prefill", LM_PROMPT), ("decode", 1)):
+            B, N = LM_BATCH, LM_BATCH * S
+            x = torch.randn((B, S, d), device="cuda", generator=gen
+                            ).bfloat16()
+            C = moe.capacity(S, m)
+            weights, experts, _ = moe.route(p["router"], x.view(N, d), m)
+            slots = moe.rank(experts.view(B, S, K), m, C)
+            buf = moe.dispatch(x, slots, E)
+            out_buf = moe.expert_ffn(p, buf)
+            got = moe.combine(out_buf, weights.view(B, S, K), slots)
+            whole, _ = moe.moe_ffn(p, x, m)
+            if not torch.equal(got, whole):
+                fail(f"moe/{label}: the parts composed differ from moe_ffn")
+            kept = int(slots.keep.sum())
+            rows = E * B * C
+            parts = {
+                "route": time_ms(lambda: moe.route(p["router"], x.view(N, d),
+                                                   m)),
+                "rank_dispatch": time_ms(lambda: moe.dispatch(
+                    x, moe.rank(experts.view(B, S, K), m, C), E)),
+                "experts": time_ms(lambda: moe.expert_ffn(p, buf)),
+                "combine": time_ms(lambda: moe.combine(
+                    out_buf, weights.view(B, S, K), slots)),
+                "layer": time_ms(lambda: moe.moe_ffn(p, x, m))}
+            flops = 6 * rows * d * f
+            bounds = {
+                "route": bound(N * d * el + d * E * el + N * K * 12, 2 * N
+                               * d * E, BF16_FLOPS),
+                "rank_dispatch": bound(N * d * el + rows * d * el
+                                       + N * K * 8, 0),
+                "experts": bound(w_bytes + 2 * rows * d * el, flops,
+                                 BF16_FLOPS),
+                "combine": bound(kept * d * el + N * K * 4 + N * d * el, 0)}
+            row[label] = {
+                "batch": B, "seq": S, "capacity_per_row": C,
+                "pairs": N * K, "kept_pairs": kept,
+                "dropped_pairs": N * K - kept, "buffer_rows": rows,
+                "ms": parts, "parts_sum_ms": sum(
+                    v for k, v in parts.items() if k != "layer"),
+                "expert_flops_at_capacity": flops,
+                "expert_flops_kept": 6 * kept * d * f,
+                "bound_ms": {k: v["bound_ms"] for k, v in bounds.items()},
+                "bound_by": {k: v["bound_by"] for k, v in bounds.items()},
+                "layout_bytes": {
+                    "reference": {"repeated_tokens": N * K * d * el,
+                                  "buffer": B * E * (C + 1) * d * el,
+                                  "gathered": N * K * d * el},
+                    "port": {"repeated_tokens": 0,
+                             "buffer": (rows + moe.OVERFLOW_ROWS) * d
+                             * el,
+                             "gathered": N * K * d * el}}}
+            del x, weights, experts, slots, buf, out_buf, got, whole
+    row["card"] = card
+    print("moe " + json.dumps(row), flush=True)
+    del p, stack
+    torch.cuda.empty_cache()
+    return row
 
 
 def consistency(arch) -> dict:
@@ -1944,12 +2117,21 @@ def consistency(arch) -> dict:
     must match prefilling all but the last token and decoding it: the
     kernel path (flash or wkv6) against the plain decode path
     (``decode_attention``, ``wkv6_recurrent``), in fp32 with TF32 off, at
-    full width and CONSIST_LAYERS layers, within rtol CONSIST_TOL and atol
-    CONSIST_TOL times the largest logit (at least 1)."""
+    full width and CONSIST_LAYERS layers (``CONSIST_LAYERS_BY_ARCH``
+    where that does not fit), within rtol CONSIST_TOL and atol
+    CONSIST_TOL times the largest logit (at least 1). A MoE model runs at
+    capacity_factor E / K, so that C = S and no pair can drop: a prefill
+    that drops one of the last token's pairs differs from a decode step
+    (C = 8, nothing dropped) by the reference's own semantics."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import steps
     from repro_torch.models.registry import build
-    cfg = get_config(arch).replace(n_layers=CONSIST_LAYERS)
+    from repro_torch.nn.moe import capacity
+    layers = CONSIST_LAYERS_BY_ARCH.get(arch, CONSIST_LAYERS)
+    cfg = get_config(arch).replace(n_layers=layers)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     bundle = build(cfg)
     params = bundle.init_params(SEED + 1, torch.float32, "cuda")
     prefill = steps.make_prefill_step(bundle)
@@ -1959,18 +2141,23 @@ def consistency(arch) -> dict:
         0, cfg.vocab_size, (CONSIST_BATCH, S)).astype(np.int32)).cuda()
     full, _ = prefill(params, {"tokens": tokens})
     _, cache = prefill(params, {"tokens": tokens[:, :-1]})
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
                  for k, v in cache.items()}
     last, _ = decode(params, cache, {"tokens": tokens[:, -1:], "pos": S - 1})
     torch.cuda.synchronize()
+    # the real vocab only: past it both hold -1e30 (a padded vocab)
+    last, full = last[..., :cfg.vocab_size], full[..., :cfg.vocab_size]
     err = check_close(f"{arch}/consistency", "last logits", last, full,
                       rtol=CONSIST_TOL, atol=CONSIST_TOL)
-    row = {"arch": arch, "layers": CONSIST_LAYERS, "batch": CONSIST_BATCH,
+    row = {"arch": arch, "layers": layers, "batch": CONSIST_BATCH,
            "prompt": S, "dtype": "float32", "max_abs_err": err,
            "max_abs_logit": float(full.abs().max()),
            "same_argmax": bool(torch.equal(full.argmax(-1),
                                            last.argmax(-1)))}
+    if cfg.moe is not None:
+        row.update(capacity_factor=cfg.moe.capacity_factor,
+                   capacity_per_row=capacity(S, cfg.moe))
     print("consistency " + json.dumps(row), flush=True)
     del params, cache
     torch.cuda.empty_cache()
@@ -2278,6 +2465,45 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
     return run
 
 
+@contextlib.contextmanager
+def recording_routes(out: list, K: int):
+    """While active, each call of ``nn.moe.ranked_probs`` (one a MoE
+    layer a forward, remat's recompute included) appends to ``out`` its
+    top ``K`` experts, as ``route`` takes them, and the smallest margin
+    over its tokens between the K-th and the (K+1)-th probability."""
+    from repro_torch.nn import moe
+    ranked = moe.ranked_probs
+
+    def recording(router_w, x):
+        probs, top = ranked(router_w, x)
+        with torch.no_grad():
+            margin = (top.values[:, K - 1] - top.values[:, K]).min()
+        out.append((top.indices[:, :K].detach().clone(), margin))
+        return probs, top
+    moe.ranked_probs = recording
+    try:
+        yield out
+    finally:
+        moe.ranked_probs = ranked
+
+
+def routing_row(card_routes: list, cpu_routes: list) -> dict:
+    """The card's expert choices against the CPU's, call by call: the
+    smallest K-th / (K+1)-th margin over every call (the CPU's), and each
+    token whose experts differ, with its margins on both sides."""
+    flips = []
+    for i, ((e_card, m_card), (e_cpu, m_cpu)) in enumerate(
+            zip(card_routes, cpu_routes)):
+        diff = (e_card.cpu() != e_cpu).any(-1).nonzero().flatten().tolist()
+        flips += [{"call": i, "token": t, "card": e_card[t].tolist(),
+                   "cpu": e_cpu[t].tolist(), "margin_card": float(m_card),
+                   "margin_cpu": float(m_cpu)} for t in diff]
+    return {"calls": len(cpu_routes),
+            "min_margin": min(float(m) for _, m in cpu_routes),
+            "min_margin_card": min(float(m) for _, m in card_routes),
+            "flips": flips}
+
+
 def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     """One fp32 micro-step (TF32 off) of ``arch``'s TRAIN_LAYERS-deep model
     at full width, 1 x TRAIN_CPU_SEQ tokens: the loss and every gradient
@@ -2285,7 +2511,11 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     fp32) against the port on the CPU (the plain versions) from the same
     parameters, within rtol CONSIST_TOL and atol CONSIST_TOL times the
     leaf's largest magnitude (fp32 sums over up to 14,336 terms and 128
-    positions, taken in another order)."""
+    positions, taken in another order). A MoE model's line adds its
+    routing (``routing_row``): the smallest margin between the K-th and the
+    (K+1)-th router probability over its tokens and layers, and every
+    token whose experts differ between the card and the CPU, printed with
+    its margins before the gradients are judged."""
     from repro_torch.checkpoint.checkpointing import flatten_with_paths
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_config
@@ -2298,18 +2528,24 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     batch = sample_inputs(cfg, ShapeSpec("cpu", TRAIN_CPU_SEQ, 1, "train"),
                           np.random.default_rng(SEED + 2), "cuda")
 
-    def loss_and_grads(p, b):
-        loss, _, grads = _loss_and_grads(bundle, p, flatten(p), b)
+    def loss_and_grads(p, b, routes):
+        with (recording_routes(routes, cfg.moe.top_k) if cfg.moe
+              else contextlib.nullcontext()):
+            loss, _, grads = _loss_and_grads(bundle, p, flatten(p), b)
         return loss, grads
-    loss_card, grads_card = loss_and_grads(params, batch)
+    routes_card, routes_cpu = [], []
+    loss_card, grads_card = loss_and_grads(params, batch, routes_card)
     torch.cuda.synchronize()
     params_cpu = unflatten(params, [t.cpu() for t in flatten(params)])
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     loss_cpu, grads_cpu = loss_and_grads(
-        params_cpu, {k: v.cpu() for k, v in batch.items()})
+        params_cpu, {k: v.cpu() for k, v in batch.items()}, routes_cpu)
     cpu_s = time.perf_counter() - t0
+    routing = routing_row(routes_card, routes_cpu) if routes_cpu else None
+    if routing and routing["flips"]:  # printed before the checks judge
+        print("train_vs_cpu_routing " + json.dumps(routing), flush=True)
     names = list(flatten_with_paths(params_cpu))
     row = check_within("train_fp32", "loss", loss_card.cpu(), loss_cpu,
                        CONSIST_TOL, CONSIST_TOL * float(loss_cpu.abs()))
@@ -2325,6 +2561,8 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
            "loss_cpu": float(loss_cpu), "leaves": len(names),
            "worst_tol_used": worst, "max_abs_err": errs, "cpu_s": cpu_s,
            "card": card}
+    if routing is not None:
+        row["routing"] = routing
     print("train_vs_cpu " + json.dumps(row), flush=True)
     del grads_card, grads_cpu, params_cpu
     torch.cuda.empty_cache()
@@ -4080,7 +4318,13 @@ def main() -> None:
         check_flash_launch("fp32_causal", fa, 1, 1024, 1024, 32, 8, 128,
                            f32, True, False),
         check_flash_launch("noncausal_ragged", fa, 2, 1000, 1537, 8, 2, 128,
-                           bf16, False, False)]
+                           bf16, False, False),
+        # the MoE models' prefills: OLMoE's 16 heads over 16, Grok's 48
+        # over 8
+        check_flash_launch("olmoe_1b_7b_prefill", fa, LM_BATCH, LM_PROMPT,
+                           LM_PROMPT, 16, 16, 128, bf16, True, True),
+        check_flash_launch("grok_1_314b_prefill", fa, LM_BATCH, LM_PROMPT,
+                           LM_PROMPT, 48, 8, 128, bf16, True, True)]
     rows["wkv6_chunk"] = [
         check_wkv6_launch("rwkv6_3b_prefill", wk, LM_BATCH, LM_PROMPT, 40, 64,
                           bf16, False, True, usage["wkv6_chunk"]),
@@ -4089,13 +4333,23 @@ def main() -> None:
         check_wkv6_launch("ragged_with_state", wk, 2, 1007, 40, 64, bf16,
                           True, False, usage["wkv6_chunk"])]
 
-    # 9. serving at the published widths and depths
+    # 9. serving at the published widths and depths (Grok-1 cut to 2
+    # layers), then one MoE layer split into its parts
     for arch in LM_ARCHS:
+        t0 = time.perf_counter()
         runs[arch] = serve(arch)
+        print(f"serving {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    moe_parts(card)
+    print(f"moe parts: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 10. prefill/decode consistency in fp32 (TF32 is off since the start)
     for arch in LM_ARCHS:
+        t0 = time.perf_counter()
         consistency(arch)
+        print(f"consistency {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     # 11. the LM training step: the flash backward against its plain
     # version, the step at full width, and fp32 against the CPU
@@ -4113,6 +4367,17 @@ def main() -> None:
     runs["rwkv6_3b_train"] = lm_train(card, "rwkv6-3b")
     lm_train_vs_cpu(card, "rwkv6-3b")
     print(f"rwkv training phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 11c. OLMoE-1B-7B's training step (the same flash kernels): the
+    # backward at its shape, the step at full width, fp32 against the CPU
+    t0 = time.perf_counter()
+    rows["flash_attention_bwd"].append(check_flash_bwd_launch(
+        "olmoe_1b_7b_train", fa, 1, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 128,
+        torch.bfloat16, True, True, usage["flash_attention_bwd"]))
+    runs["olmoe_1b_7b_train"] = lm_train(card, "olmoe-1b-7b")
+    lm_train_vs_cpu(card, "olmoe-1b-7b")
+    print(f"moe training phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # 12. summary

@@ -4,8 +4,8 @@ copy so that it imports nothing of the reference).
 
 Every architecture gets one ``configs/<id>.py`` exporting ``CONFIG`` (the
 published config) and ``smoke()`` (a reduced same-family config for CPU
-tests). The port carries ``RWKVSpec``; the other families' spec classes
-(``MoESpec``, ``HybridSpec``, ``EncDecSpec``, ``VLMSpec``) come with those
+tests). The port carries ``MoESpec`` and ``RWKVSpec``; the other families'
+spec classes (``HybridSpec``, ``EncDecSpec``, ``VLMSpec``) come with those
 families (ROADMAP.md queue A, item A.14), and their fields here stay
 ``None``.
 """
@@ -37,6 +37,15 @@ SHAPES: dict[str, ShapeSpec] = {
 
 
 @dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # d_ff of each expert (ArchConfig.d_ff is reused when 0)
+    expert_d_ff: int = 0
+
+
+@dataclass(frozen=True)
 class RWKVSpec:
     head_size: int = 64
     decay_lora: int = 64  # rank of the data-dependent decay LoRA
@@ -54,7 +63,7 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0           # 0 => d_model // n_heads
-    moe: Optional[Any] = None
+    moe: Optional[MoESpec] = None
     hybrid: Optional[Any] = None
     rwkv: Optional[RWKVSpec] = None
     encdec: Optional[Any] = None

@@ -1,8 +1,9 @@
 """Architecture registry (counterpart of ``repro.configs.registry``).
 
-The port serves ``llama3-8b`` and ``rwkv6-3b``. The reference's other
-architectures are listed in ``ARCH_IDS`` and raise ``NotImplementedError``
-naming the ROADMAP.md item that ports their family.
+The port serves ``llama3-8b``, ``rwkv6-3b``, ``olmoe-1b-7b`` and
+``grok-1-314b``. The reference's other architectures are listed in
+``ARCH_IDS`` and raise ``NotImplementedError`` naming the ROADMAP.md item
+that ports their family.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from repro_torch.configs.base import ArchConfig
 _ARCH_MODULES: dict[str, str] = {
     "llama3-8b": "llama3_8b",
     "rwkv6-3b": "rwkv6_3b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "grok-1-314b": "grok_1_314b",
 }
 
 # the reference's other archs -> the ROADMAP.md item that ports them
@@ -21,8 +24,6 @@ _NOT_PORTED: dict[str, str] = {
     "minicpm-2b": "A.14.7 (the other dense configs)",
     "starcoder2-7b": "A.14.7 (the other dense configs)",
     "yi-9b": "A.14.7 (the other dense configs)",
-    "olmoe-1b-7b": "A.14.2 (MoE)",
-    "grok-1-314b": "A.14.2 (MoE)",
     "zamba2-2.7b": "A.14.4 (the hybrid family with mamba2)",
     "llava-next-34b": "A.14.3 (the VLM prefix)",
     "whisper-small": "A.14.5 (whisper)",

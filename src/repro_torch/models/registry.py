@@ -3,7 +3,7 @@ ArchConfig into a ModelBundle of its parameter spec, an init, ``loss_fn``,
 ``prefill_fn`` / ``decode_fn`` and its cache spec, plus per-shape input
 specs.
 
-The port builds the ``dense`` family (``models/lm.py``, without MoE) and
+The port builds the ``dense`` and ``moe`` families (``models/lm.py``) and
 the ``ssm`` family (``models/rwkv.py``), each of which trains and serves;
 the other families raise on ``build``, naming their ROADMAP.md items.
 """
@@ -21,7 +21,7 @@ from repro_torch.models import lm, rwkv
 from repro_torch.nn.param import PSpec, materialize
 
 # families the port does not build yet -> their ROADMAP.md item
-_NOT_PORTED = {"moe": "A.14.2 (MoE)", "vlm": "A.14.3 (the VLM prefix)",
+_NOT_PORTED = {"vlm": "A.14.3 (the VLM prefix)",
                "hybrid": "A.14.4 (the hybrid family with mamba2)",
                "audio": "A.14.5 (whisper)"}
 
@@ -37,11 +37,11 @@ class InputSpec:
 class ModelBundle:
     """An arch's spec, init, loss and serving functions.
 
-    ``decode_fn`` donates the dense family's KV cache: it writes the step's
-    k and v into the given cache's tensors in place and returns that same
-    dict (the reference returns new arrays; the port saves copying the
-    whole cache every step), so a caller that needs the cache from before
-    a step keeps a clone. The ssm family's decode returns a new state and
+    ``decode_fn`` donates the dense and MoE families' KV cache: it writes
+    the step's k and v into the given cache's tensors in place and returns
+    that same dict (the reference returns new arrays; the port saves
+    copying the whole cache every step), so a caller that needs the cache
+    from before a step keeps a clone. The ssm family's decode returns a new state and
     leaves the given one as it was."""
     cfg: ArchConfig
     param_spec: Any
@@ -65,13 +65,13 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP.md queue A, item {_NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
     _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return ModelBundle(
             cfg, lm.param_spec(cfg),
             loss_fn=lambda p, b: lm.loss_fn(p, cfg, b),

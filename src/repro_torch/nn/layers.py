@@ -119,6 +119,15 @@ class _Logits(torch.autograd.Function):
         return dx, dt, None
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w (w 2-D) with fp32 sums and an fp32 result, as the reference's
+    ``preferred_element_type=float32``: the logits' product (``_Logits``)
+    without a mask, its gradients included (the MoE router's)."""
+    if x.dtype == w.dtype == torch.float32:
+        return x @ w
+    return _Logits.apply(x, w, w.shape[-1])
+
+
 def logits_fn(p, x: torch.Tensor, real_vocab: int) -> torch.Tensor:
     """fp32 logits over the padded vocab, -1e30 added past ``real_vocab``:
     the product of x and the table in their dtype with fp32 sums and an

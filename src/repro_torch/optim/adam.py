@@ -4,6 +4,9 @@ reference's AdamW clips to a global gradient norm, uses b2 = 0.95, folds
 weight decay into the step and applies bias correction by division; its
 SGDM keeps an fp32 momentum ``m = m * momentum + g`` and steps ``p - lr *
 m``, with no clip and no weight decay. The port must take the same steps.
+AdamW's ``moment_dtype="bfloat16"`` keeps m and v in bf16 (half the
+state's bytes): each step computes them in fp32 from the stored values
+and casts them back, as the reference does.
 
 Parameters, gradients and moments are flat lists of tensors (the order of
 ``nn.param.flatten``); the update returns new tensors and leaves its inputs
@@ -28,11 +31,14 @@ class AdamW:
     b2: float = 0.95
     eps: float = 1e-8
     weight_decay: float = 0.1
+    moment_dtype: str = "float32"
     grad_clip: float = 1.0
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
-        return {"m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
-                "v": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+        dt = (torch.bfloat16 if self.moment_dtype == "bfloat16"
+              else torch.float32)
+        return {"m": [torch.zeros_like(p, dtype=dt) for p in params],
+                "v": [torch.zeros_like(p, dtype=dt) for p in params],
                 "step": 0}
 
     def update(self, grads: Sequence[torch.Tensor], state: dict,
@@ -51,15 +57,15 @@ class AdamW:
         new_v: List[torch.Tensor] = []
         for p, g, m, v in zip(params, grads, state["m"], state["v"]):
             g = g.float() * scale
-            m32 = m * b1 + (1 - b1) * g
-            v32 = v * b2 + (1 - b2) * g.square()
+            m32 = m.float() * b1 + (1 - b1) * g
+            v32 = v.float() * b2 + (1 - b2) * g.square()
             mhat = m32 / bc1
             vhat = v32 / bc2
             delta = (mhat / (vhat.sqrt() + self.eps)
                      + self.weight_decay * p.float())
             new_p.append((p.float() - lr * delta).to(p.dtype))
-            new_m.append(m32)
-            new_v.append(v32)
+            new_m.append(m32.to(m.dtype))
+            new_v.append(v32.to(v.dtype))
         return (new_p, {"m": new_m, "v": new_v, "step": step},
                 {"lr": lr, "grad_norm": gnorm})
 

@@ -1,7 +1,8 @@
-"""The port's dense LM (Llama-3-8B's ``smoke()`` config) against
-``repro``: the weight bridge, the standalone init's laws, the building
-blocks (norms, rope, MLP, logits, attention in prefill and decode) and
-the whole model's ``prefill_fn`` and ``decode_fn``, on the same
+"""The port's LM zoo (the ``smoke()`` configs of Llama-3-8B, RWKV-6-3B,
+OLMoE-1B-7B and Grok-1) against ``repro``: the configs, the weight
+bridge, the standalone init's laws, the dense model's building blocks
+(norms, rope, MLP, logits, attention in prefill and decode) and the
+dense and MoE models' ``prefill_fn`` and ``decode_fn``, on the same
 numpy-seeded inputs and bridged parameters, in fp32 on the CPU.
 
 Tolerance: rtol 1e-4 / atol 1e-5 for the blocks (fp32 products over at
@@ -27,7 +28,7 @@ from repro_torch.nn.param import (flatten, param_count, params_from_numpy,
 
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ("llama3-8b", "rwkv6-3b")
+ARCHS = ("llama3-8b", "rwkv6-3b", "olmoe-1b-7b", "grok-1-314b")
 
 
 def _normal(seed, *shape, scale=1.0):
@@ -84,7 +85,7 @@ def test_unported_archs_raise_naming_their_item():
     for arch in set(ARCH_IDS) - set(ARCHS):
         with pytest.raises(NotImplementedError, match=r"A\.14\.\d"):
             get_config(arch)
-    # both ported families train (RWKV's step takes the WKV6 backward)
+    # every ported family trains (RWKV's step takes the WKV6 backward)
     for arch in ARCHS:
         assert callable(make_train_step(build(get_smoke_config(arch)), None))
 
@@ -275,13 +276,12 @@ def _grow(cache, extra, prompt_len):
             for k, v in cache.items()}
 
 
-@pytest.mark.parametrize("B,S", [(2, 16), (1, 13)])
-def test_llama_prefill_and_decode_match_reference(B, S):
+def _prefill_and_decode_match_reference(arch, B, S):
     import jax
     import jax.numpy as jnp
     from repro.configs.base import ShapeSpec as JShape
     from repro.models.registry import sample_inputs as j_sample
-    jb, jp, tb, tp = _jax_bundle("llama3-8b", seed=1)
+    jb, jp, tb, tp = _jax_bundle(arch, seed=1)
     cfg = tb.cfg
     shape = JShape("t", S, B, "prefill")
     jbatch = j_sample(jb.cfg, shape, np.random.default_rng(4))
@@ -315,23 +315,37 @@ def test_llama_prefill_and_decode_match_reference(B, S):
             np.int32)
 
 
+@pytest.mark.parametrize("B,S", [(2, 16), (1, 13)])
+def test_llama_prefill_and_decode_match_reference(B, S):
+    _prefill_and_decode_match_reference("llama3-8b", B, S)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "grok-1-314b"])
+@pytest.mark.parametrize("B,S", [(2, 16), (1, 13)])
+def test_moe_prefill_and_decode_match_reference(arch, B, S):
+    """The MoE models: the capacity is per batch row, C = capacity(S) for
+    the prefill and 8 for each decode step, as in the reference."""
+    _prefill_and_decode_match_reference(arch, B, S)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_fn_cache_contract(arch):
-    """dense: decode_fn writes the step into the given cache's tensors and
-    returns them (the cache is donated); ssm: it returns a new state and
-    leaves the given one as it was."""
+    """dense and moe: decode_fn writes the step into the given cache's
+    tensors and returns them (the cache is donated); ssm: it returns a new
+    state and leaves the given one as it was."""
     tb = build(get_smoke_config(arch))
     p = tb.init_params(0, torch.float32, "cpu")
     tokens = torch.from_numpy(
         np.random.default_rng(5).integers(0, tb.cfg.vocab_size, (2, 6))
         .astype(np.int32))
     _, cache = tb.prefill_fn(p, {"tokens": tokens})
-    if tb.cfg.family == "dense":
+    kv = tb.cfg.family in ("dense", "moe")
+    if kv:
         cache = _grow(cache, 2, 6)
     before = {k: v.clone() for k, v in cache.items()}
     _, after = tb.decode_fn(p, cache, {"tokens": tokens[:, :1], "pos": 6})
     for name, t in cache.items():
-        if tb.cfg.family == "dense":
+        if kv:
             assert after[name] is t
             assert torch.equal(t[:, :, :6], before[name][:, :, :6])
             assert not torch.equal(t[:, :, 6], before[name][:, :, 6])

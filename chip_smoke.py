@@ -23,13 +23,15 @@ matmul), and ``ops.update`` / ``ops.aggregate`` / ``ops.aggregate_update``
 ``aggregate_edges``). It then serves the LM zoo's ported models at
 their published widths and depths through ``models.registry.build``,
 ``ModelBundle.init_params`` and ``launch.steps.make_prefill_step`` /
-``make_decode_step``: Llama-3-8B and the MoE models OLMoE-1B-7B and
-Grok-1 (prefill through ``flash_attention_fwd``; Grok cut to 2 layers)
-and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16 from a seeded
-init, and trains Llama-3-8B, RWKV-6-3B and OLMoE-1B-7B at their published
-widths, 2 layers deep, through ``launch.steps.make_train_step`` (the flash
-forward and the hand-written ``flash_attention_bwd``; ``wkv6_chunk`` and
-the hand-written ``wkv6_chunk_bwd``). Before the LM zoo it serves GraphSAGE and GAT requests through
+``make_decode_step``: Llama-3-8B, MiniCPM-2B, StarCoder2-7B, Yi-9B, the
+MoE models OLMoE-1B-7B and Grok-1 and the VLM backbone LLaVA-NeXT-34B with
+its patch-embedding prefix (prefill through ``flash_attention_fwd``; Grok
+cut to 2 layers) and RWKV-6-3B (prefill through ``wkv6_chunk``), in bf16
+from a seeded init, and trains Llama-3-8B, RWKV-6-3B, OLMoE-1B-7B and
+LLaVA-NeXT-34B at their published widths, 2 layers deep, through
+``launch.steps.make_train_step`` (the flash forward and the hand-written
+``flash_attention_bwd``; ``wkv6_chunk`` and the hand-written
+``wkv6_chunk_bwd``). Before the LM zoo it serves GraphSAGE and GAT requests through
 ``core.serving.ServingRuntime`` (one CUDA graph a bucket), then runs the
 paper's Table 2 API (``core.abstraction.HitGNN``): its DSE, one epoch
 through ``Start_training`` and the simulator beside what the card
@@ -174,7 +176,8 @@ measured. Phases, each of which exits non-zero on failure:
      and pipelined with 2, 4 and min(8, usable CPUs - 2) sampler workers;
      one pooled epoch (2 workers) on ``"pallas_fused"`` with a worker
      killed at batch 13 of the first epoch, which must be respawned; the
-     host gather on ``"pallas_fused"``, sequential against pipelined;
+     host gather on ``"pallas_fused"``, sequential against pipelined, one
+     epoch each;
      p = 4 on ``"pallas_fused"`` with the ``"load"`` policy,
      sequential against 4 workers that gather the miss rows (which must
      cross the ring); P3 at p = 4 on ``"pallas_fused"``, resident,
@@ -187,7 +190,7 @@ measured. Phases, each of which exits non-zero on failure:
      cache-off twin) and with 4 workers that gather (bitwise the cached
      sequential run in every cache key too; epoch 3's miss bytes an
      iteration below epoch 1's and its hit rate above), and the host
-     gather refreshed every 4 iterations, 2 epochs sequential against 4
+     gather refreshed every 4 iterations, 1 epoch sequential against 4
      workers that gather (the generation handshake under real process
      timing: equal refreshes and generation, both above 0); one
      ``cache`` line a run gives the capacity, refreshes, generation, each
@@ -276,7 +279,7 @@ measured. Phases, each of which exits non-zero on failure:
      with 2 pool workers, and one whose first task's worker is killed
      (one respawn, not degraded), answer the same requests bit for bit;
      GAT at 8 and 1,024 ids, bitwise its eager forward; closed-loop load
-     at 1, 2 and 4 clients x 200 one-id requests, after a discarded
+     at 1, 2 and 4 clients x 100 one-id requests, after a discarded
      window of 20 (the coalescer's estimate settles), no error and no new
      graph.
      ``serve_bucket`` lines give each bucket's N_0 and, as medians over 9
@@ -327,8 +330,12 @@ measured. Phases, each of which exits non-zero on failure:
   8. the LM kernels vs their plain versions, at the models' shapes:
      ``flash_attention_fwd`` at Llama-3-8B's prefill (4 x 4,096 tokens,
      32 query and 8 kv heads of 128, bf16, causal), in fp32 at 1 x 1,024,
-     non-causal with Sq 1,000 != Sk 1,537 (bf16), and at OLMoE-1B-7B's
-     and Grok-1's prefills (16 heads over 16, 48 over 8); ``wkv6_chunk`` at
+     non-causal with Sq 1,000 != Sk 1,537 (bf16), at OLMoE-1B-7B's
+     and Grok-1's prefills (16 heads over 16, 48 over 8), at phase 9b's
+     (``vlm_dense_flash_launches``: LLaVA-NeXT-34B's one request of 4,096
+     positions, 56 heads over 8, a GQA group of 7; MiniCPM-2B's 36 over 36
+     of 64, StarCoder2-7B's 36 over 4 and Yi-9B's 32 over 4 at 4 x 4,096)
+     and at LLaVA's shape in fp32; ``wkv6_chunk`` at
      RWKV-6-3B's prefill (4 x 4,096 tokens, 40 heads of 64, bf16 r/k/v and
      fp32 log-decays, y and the final state), in fp32 at 1 x 512, and at a
      ragged 1,007 tokens from a given state. fp32 launches are held at the
@@ -379,9 +386,20 @@ measured. Phases, each of which exits non-zero on failure:
      device ms at the prefill's shape and a decode step's, the kept and
      dropped pairs, and the experts', the dispatch's and the combine's
      bounds;
+  9b. the same serving at full depth for LLaVA-NeXT-34B (60 layers, 34.39
+     B parameters, ~68.8 GB in bf16, so one request: ``SERVE_BATCH``) and
+     for MiniCPM-2B, StarCoder2-7B and Yi-9B (4 prompts). LLaVA's request
+     is 2,880 patch rows, numpy-seeded on the host as the reference's
+     input spec draws them (the vision tower is a stub there too), and
+     1,216 text tokens; both cross the bus in one copy through the pinned
+     staging ring (``core.staging.upload_tensors``), inside the prefill's
+     time, and decoding goes on at position 4,096. Each line adds its
+     stages' seconds (``stage_s``);
   10. prefill/decode consistency in fp32 (TF32 off) at full width and 2
      layers (Grok-1 at 1): the last logits of a 1,024-token prefill against
-     a 1,023-token prefill and one decode step, within rtol 1e-4 and atol
+     a 1,023-token prefill and one decode step (LLaVA-NeXT-34B's behind its
+     2,880 seeded patch rows, the decode step at position 3,903), within
+     rtol 1e-4 and atol
      1e-4 times the largest logit of the real vocab (fp32 sums over up to
      6,144 features and 1,024 positions taken in another order by the two
      paths). The MoE models run at capacity_factor E / K, so that C = S and
@@ -480,6 +498,18 @@ measured. Phases, each of which exits non-zero on failure:
      differ between the card and the CPU printed first. Grok-1's step does
      not run here (one layer at full width is 6.53 B parameters, ~65 GB
      of state even with bf16 moments);
+  11d. LLaVA-NeXT-34B's training step: ``flash_attention_bwd`` against
+     its plain version at its training shape (1 x 4,096 positions, 56
+     heads over 8 of 128, bf16, with the rounding readings), then phase
+     11's step (``train`` line, ``"arch": "llava-next-34b"``) at the
+     published widths (d 7,168, d_ff 20,480, vocab 64,000), 2 of 60 layers
+     (2.03 B parameters; the 60 at ~16 B a parameter would need ~550 GB),
+     bf16, remat ``"full"``, grad_accum 2 over 2 sequences of 2,880
+     numpy-seeded patch rows and 1,216 text tokens (the prefix's positions
+     unsupervised), 3 AdamW steps: exactly 8 ``flash_attention_fwd`` and 4
+     ``flash_attention_bwd`` a step, nothing else; and the fp32
+     micro-step against the CPU (``train_vs_cpu``) at 64 patch rows and 64
+     text tokens;
   12. summary: one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -519,6 +549,10 @@ GAT_ITERATIONS = 5
 # partition 0's batch 13 of the first epoch (epoch 1: every epoch starts
 # with a reset)
 HOST_EPOCHS = 2
+# ... but one epoch for the host gather's pipelined twin (17-24 s an epoch
+# on a slow host; its twin check holds within an epoch), cut from 2 for
+# the script's time limit
+HOST_GATHER_EPOCHS = 1
 HOST_BACKENDS = ("pallas_fused", "pallas_edges")
 HOST_P4 = 4
 HOST_FAULT = "kill@0.1.13"
@@ -549,11 +583,12 @@ MESH_CACHE_EPOCHS = 2
 # the feature cache in the host runtime phase: p = 4, round-robin, a
 # quarter of the smallest static share of a device under DistDGL;
 # resident runs refresh at epoch boundaries over 3 epochs, the host
-# gather every 4 iterations over 2
+# gather every 4 iterations over 1 (its 7 iterations refresh once; cut
+# from 2 for the script's time limit)
 CACHE_P = 4
 CACHE_EPOCHS = 3
 CACHE_K = 4
-CACHE_K_EPOCHS = 2
+CACHE_K_EPOCHS = 1
 # the checkpoint phase: the cache family's resident configuration (p = 4,
 # round-robin, epoch-boundary refresh), two sequential epochs saved every
 # CKPT_EVERY iterations, resumed from epoch 2's second iteration
@@ -569,8 +604,9 @@ SGDM_ITERATIONS = 3
 # bucket's stages the medians over 9 full requests, and its replay and
 # eager forward timed 20 times on the host clock; a pool of 2 workers and
 # one with a worker killed at its first task answering the same requests;
-# GAT at two sizes; closed-loop load points of 200 one-id requests a
-# client, after a discarded window of 20 at the first point
+# GAT at two sizes; closed-loop load points of 100 one-id requests a
+# client, after a discarded window of 20 at the first point (halved from
+# 200 for the script's time limit once the LM zoo grew; no check dropped)
 SERVE_SIZES = (1, 5, 8, 20, 33, 200, 1024, 1500)
 SERVE_BUCKETS = 5
 SERVE_EAGER = (33, 1024)
@@ -582,7 +618,7 @@ SERVE_FAULT = "kill#1"
 SERVE_GAT_SIZES = (8, 1024)
 SERVE_CLIENTS = (1, 2, 4)
 SERVE_LOAD_WARMUP = 20
-SERVE_LOAD_REQUESTS = 200
+SERVE_LOAD_REQUESTS = 100
 # the paper's API phase: the Listing-1 design at the paper configuration
 # (GraphSAGE, 2 layers, hidden 128, fanouts (25, 10), 1,024 targets,
 # metis_like at p = 4, DistDGL), one epoch through Start_training beside a
@@ -612,6 +648,14 @@ SFU_EXP_PER_S = None
 # and the allocator; prefill/decode consistency in fp32 at 2 layers
 LM_ARCHS = ("llama3-8b", "rwkv6-3b", "olmoe-1b-7b", "grok-1-314b")
 LM_BATCH, LM_PROMPT, LM_WARM_PROMPT, LM_DECODE = 4, 4096, 256, 16
+# phase 9b: the VLM backbone and the other dense configs at full depth;
+# LLaVA-NeXT-34B serves one request (34.39 B parameters are ~68.8 GB in
+# bf16): its 2,880 patch rows and 1,216 text tokens fill LM_PROMPT, the
+# patch rows fetched on the host and uploaded with the tokens through
+# the pinned staging ring, one copy a request
+VLM_ARCH = "llava-next-34b"
+DENSE_ARCHS = ("minicpm-2b", "starcoder2-7b", "yi-9b")
+SERVE_BATCH = {VLM_ARCH: 1}
 CONSIST_LAYERS, CONSIST_BATCH, CONSIST_PROMPT = 2, 2, 1024
 CONSIST_TOL = 1e-4
 # depth cuts, where the published depth does not fit the card: Grok-1
@@ -650,6 +694,9 @@ BWD_ROUNDING_LIMIT = 2.0 ** -11
 # of 1 x TRAIN_CPU_SEQ tokens on the card against the CPU
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 4096
 TRAIN_ACCUM, TRAIN_STEPS, TRAIN_CPU_SEQ = 2, 3, 128
+# the VLM's fp32 micro-step against the CPU takes 64 patch rows and 64
+# text tokens (its 2,880 patch rows would not fit TRAIN_CPU_SEQ)
+TRAIN_CPU_PATCHES = 64
 # each trained model's kernels: {launch count's name: (launches a layer and
 # micro-batch, trace label, substring of its device kernels' names, device
 # kernels a launch)}
@@ -658,6 +705,7 @@ _FLASH_TRAIN = {"flash_attention_fwd": (2, "flash_fwd", "flash_fwd", 1),
 TRAIN_KERNELS = {
     "llama3-8b": _FLASH_TRAIN,
     "olmoe-1b-7b": _FLASH_TRAIN,
+    VLM_ARCH: _FLASH_TRAIN,
     "rwkv6-3b": {"wkv6_chunk": (2, "wkv6_fwd", "wkv6_chunk_kernel", 1),
                  "wkv6_chunk_bwd": (1, "wkv6_bwd", "wkv6_bwd_", 3)}}
 FWD = ("tile_off", "val", "tile_seg", "cols")
@@ -1638,6 +1686,28 @@ def check_flash_launch(name, fa, B, Sq, Sk, H, KH, D, dtype, causal,
     return report(row)
 
 
+def vlm_dense_flash_launches(fa) -> list:
+    """flash_attention_fwd against its plain version at the prefills of
+    phase 9b (the main path's launches): LLaVA-NeXT-34B's one request of
+    4,096 positions (56 query heads over 8: a GQA group of 7), MiniCPM-2B
+    (36 over 36 of 64), StarCoder2-7B (36 over 4: G 9) and Yi-9B (32 over
+    4: G 8) at 4 x 4,096; and LLaVA's shape on the fp32 (FMA) route."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        check_flash_launch("llava_next_34b_prefill", fa,
+                           SERVE_BATCH[VLM_ARCH], LM_PROMPT, LM_PROMPT, 56,
+                           8, 128, bf16, True, True),
+        check_flash_launch("llava_next_34b_prefill_fp32", fa,
+                           SERVE_BATCH[VLM_ARCH], LM_PROMPT, LM_PROMPT, 56,
+                           8, 128, f32, True, False),
+        check_flash_launch("minicpm_2b_prefill", fa, LM_BATCH, LM_PROMPT,
+                           LM_PROMPT, 36, 36, 64, bf16, True, True),
+        check_flash_launch("starcoder2_7b_prefill", fa, LM_BATCH, LM_PROMPT,
+                           LM_PROMPT, 36, 4, 128, bf16, True, True),
+        check_flash_launch("yi_9b_prefill", fa, LM_BATCH, LM_PROMPT,
+                           LM_PROMPT, 32, 4, 128, bf16, True, True)]
+
+
 def wkv6_flops(S: int, K: int, chunk: int = 16) -> tuple:
     """(products, elementwise flops, exponentials) of the chunked WKV6
     recurrence over S tokens of one head (K = V): per chunk of L tokens the
@@ -1921,19 +1991,27 @@ def serve(arch) -> dict:
     grown by LM_DECODE slots (``examples/lm_serve.py``), then LM_DECODE
     greedy decode steps. Launch counts are zeroed before and read after
     each prefill and each decode step: exactly one launch of the model's
-    kernel per layer and prefill, none per decode step."""
+    kernel per layer and prefill, none per decode step. A VLM serves
+    SERVE_BATCH requests: the warm-up is text alone; the prefill's P patch
+    rows (numpy-seeded on the host, ``models.registry.sample_inputs``) and
+    LM_PROMPT - P text tokens cross the bus in one copy a request through
+    the pinned staging ring (``core.staging.upload_tensors``), inside the
+    prefill's time, and decoding goes on at position LM_PROMPT."""
+    from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_config
+    from repro_torch.core.staging import StagingRing, upload_tensors
     from repro_torch.kernels import build as build_mod
     from repro_torch.launch import steps
-    from repro_torch.models.registry import build
+    from repro_torch.models.registry import build, sample_inputs
     from repro_torch.nn.layers import pad_vocab
     from repro_torch.nn.moe import capacity
     from repro_torch.nn.param import flatten
     cfg = get_config(arch)
     cfg = cfg.replace(n_layers=SERVE_LAYERS.get(arch, cfg.n_layers))
+    B = SERVE_BATCH.get(arch, LM_BATCH)
     vocab = pad_vocab(cfg.vocab_size)  # -1e30 past the real vocab
     kernel = {"dense": "flash_attention_fwd", "moe": "flash_attention_fwd",
-              "ssm": "wkv6_chunk"}[cfg.family]
+              "vlm": "flash_attention_fwd", "ssm": "wkv6_chunk"}[cfg.family]
     bundle = build(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1950,26 +2028,44 @@ def serve(arch) -> dict:
     rng = np.random.default_rng(SEED)
     launches = {kernel: 0}
     none = {k: 0 for k in build_mod.launch_counts}
+    upload, stage_s = {}, {}
     for label, S in (("warmup", LM_WARM_PROMPT), ("prefill", LM_PROMPT)):
-        tokens = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (LM_BATCH, S)).astype(np.int32)).cuda()
+        t_in = time.perf_counter()
+        if cfg.family == "vlm" and label == "prefill":
+            host = sample_inputs(cfg, ShapeSpec("serve", S, B, "prefill"),
+                                 rng, "cpu")
+            ring = StagingRing(1, torch.device("cuda"))
+        else:
+            host = None
+            batch = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()}
         torch.cuda.synchronize()
         build_mod.reset_launch_counts()
         kept = []
         t0 = time.perf_counter()
+        if host is not None:  # the request's one copy, then its prefill
+            batch = upload_tensors(ring, host)
+            torch.cuda.synchronize()
+            upload = {"upload_s": time.perf_counter() - t0,
+                      "upload_bytes": sum(v.numel() * v.element_size()
+                                          for v in host.values()),
+                      "prefix_rows": host["patch_embeds"].shape[1],
+                      "text_tokens": host["tokens"].shape[1]}
         with recording_ranks(kept):
-            logits, cache = prefill(params, {"tokens": tokens})
+            logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        stage_s[f"{label}_inputs"] = t0 - t_in
+        stage_s[label] = wall
         got = dict(build_mod.launch_counts)
         if got != {**none, kernel: cfg.n_layers}:
             fail(f"{arch}: {label} launched {got}, expected "
                  f"{cfg.n_layers} {kernel} and nothing else")
         launches[kernel] += got[kernel]
-        if tuple(logits.shape) != (LM_BATCH, 1, vocab) \
+        if tuple(logits.shape) != (B, 1, vocab) \
                 or not torch.isfinite(logits).all():
             fail(f"{arch}: {label} logits {tuple(logits.shape)} are not "
-                 f"finite of shape ({LM_BATCH}, 1, {vocab})")
+                 f"finite of shape ({B}, 1, {vocab})")
     if cfg.family != "ssm":  # grow the KV capacity as lm_serve does
         cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, LM_DECODE))
                  for k, v in cache.items()}
@@ -1993,26 +2089,30 @@ def serve(arch) -> dict:
         fail(f"{arch}: decode logits are not finite")
     # the last step once more under the profiler: device busy time and
     # kernel count of one decode step (the result is dropped)
+    t0 = time.perf_counter()
     profile = traced(lambda: decode(params, cache, {
         "tokens": tok, "pos": LM_PROMPT + LM_DECODE - 1}))
+    stage_s["profile"] = time.perf_counter() - t0
     run = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "batch": LM_BATCH, "prompt": LM_PROMPT, "dtype": "bfloat16",
+           "batch": B, "prompt": LM_PROMPT, "dtype": "bfloat16",
+           **upload,
            "weight_bytes": weight_bytes, "allocated_before_bytes": before,
            "init_s": init_s, "init_peak_bytes": init_peak,
-           "prefill_s": wall, "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
+           "prefill_s": wall, "prefill_tokens_per_s": B * LM_PROMPT
            / wall, "decode_steps": LM_DECODE, "decode_s": decode_s,
            "decode_first_step_s": first_s,
-           "decode_tokens_per_s": LM_BATCH * LM_DECODE / decode_s,
-           "decode_steady_tokens_per_s": LM_BATCH * (LM_DECODE - 1)
+           "decode_tokens_per_s": B * LM_DECODE / decode_s,
+           "decode_steady_tokens_per_s": B * (LM_DECODE - 1)
            / (decode_s - first_s),
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "decode_step_profile": profile, "kernel": kernel,
            "launches_per_prefill": cfg.n_layers,
-           "launches_per_decode_step": 0, "launches": launches}
+           "launches_per_decode_step": 0, "launches": launches,
+           "stage_s": stage_s}
+    run.update(published_layers=get_config(arch).n_layers,
+               params=sum(t.numel() for t in flatten(params)))
     if cfg.moe is not None:  # the prefill's pairs dropped at capacity
-        run.update(published_layers=get_config(arch).n_layers,
-                   params=sum(t.numel() for t in flatten(params)),
-                   experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+        run.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
                    capacity_per_row=capacity(LM_PROMPT, cfg.moe),
                    **drop_shares(kept))
     print("serve " + json.dumps(run), flush=True)
@@ -2119,7 +2219,9 @@ def consistency(arch) -> dict:
     (``decode_attention``, ``wkv6_recurrent``), in fp32 with TF32 off, at
     full width and CONSIST_LAYERS layers (``CONSIST_LAYERS_BY_ARCH``
     where that does not fit), within rtol CONSIST_TOL and atol
-    CONSIST_TOL times the largest logit (at least 1). A MoE model runs at
+    CONSIST_TOL times the largest logit (at least 1). A VLM puts its
+    patch rows (numpy-seeded, bf16) ahead of both prompts and decodes at
+    position P + CONSIST_PROMPT - 1. A MoE model runs at
     capacity_factor E / K, so that C = S and no pair can drop: a prefill
     that drops one of the last token's pairs differs from a decode step
     (C = 8, nothing dropped) by the reference's own semantics."""
@@ -2137,21 +2239,29 @@ def consistency(arch) -> dict:
     prefill = steps.make_prefill_step(bundle)
     decode = steps.make_decode_step(bundle)
     S = CONSIST_PROMPT
-    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+    rng = np.random.default_rng(SEED + 1)
+    pre, P = {}, 0
+    if cfg.family == "vlm":  # the prefix's rows, then S text tokens
+        P = cfg.vlm.num_patches
+        pre = {"patch_embeds": torch.from_numpy(rng.standard_normal(
+            (CONSIST_BATCH, P, cfg.d_model))).to("cuda", torch.bfloat16)}
+    tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (CONSIST_BATCH, S)).astype(np.int32)).cuda()
-    full, _ = prefill(params, {"tokens": tokens})
-    _, cache = prefill(params, {"tokens": tokens[:, :-1]})
+    full, _ = prefill(params, {**pre, "tokens": tokens})
+    _, cache = prefill(params, {**pre, "tokens": tokens[:, :-1]})
     if cfg.family != "ssm":
         cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
                  for k, v in cache.items()}
-    last, _ = decode(params, cache, {"tokens": tokens[:, -1:], "pos": S - 1})
+    last, _ = decode(params, cache, {"tokens": tokens[:, -1:],
+                                     "pos": P + S - 1})
     torch.cuda.synchronize()
     # the real vocab only: past it both hold -1e30 (a padded vocab)
     last, full = last[..., :cfg.vocab_size], full[..., :cfg.vocab_size]
     err = check_close(f"{arch}/consistency", "last logits", last, full,
                       rtol=CONSIST_TOL, atol=CONSIST_TOL)
     row = {"arch": arch, "layers": layers, "batch": CONSIST_BATCH,
-           "prompt": S, "dtype": "float32", "max_abs_err": err,
+           "prompt": S, "prefix_rows": P, "dtype": "float32",
+           "max_abs_err": err,
            "max_abs_logit": float(full.abs().max()),
            "same_argmax": bool(torch.equal(full.argmax(-1),
                                            last.argmax(-1)))}
@@ -2448,7 +2558,9 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
     busy = prof["device_busy_ms"]
     run = {"arch": arch, "layers": TRAIN_LAYERS,
            "d_model": cfg.d_model, "params": n_params, "dtype": "bfloat16",
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "grad_accum": micro,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "prefix_rows": cfg.vlm.num_patches if cfg.vlm else 0,
+           "grad_accum": micro,
            "remat": cfg.remat, "steps": steps, "s_per_step": s_step,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / s_step,
            "peak_bytes": peak, "launches_per_step": per_step,
@@ -2510,12 +2622,13 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     leaf on the card (flash's FMA route or wkv6's fp32 kernels, cuBLAS in
     fp32) against the port on the CPU (the plain versions) from the same
     parameters, within rtol CONSIST_TOL and atol CONSIST_TOL times the
-    leaf's largest magnitude (fp32 sums over up to 14,336 terms and 128
-    positions, taken in another order). A MoE model's line adds its
-    routing (``routing_row``): the smallest margin between the K-th and the
-    (K+1)-th router probability over its tokens and layers, and every
-    token whose experts differ between the card and the CPU, printed with
-    its margins before the gradients are judged."""
+    leaf's largest magnitude (fp32 sums over up to 20,480 terms and 128
+    positions, taken in another order). A VLM's 128 positions are
+    TRAIN_CPU_PATCHES patch rows and the text tokens. A MoE model's line
+    adds its routing (``routing_row``): the smallest margin between the
+    K-th and the (K+1)-th router probability over its tokens and layers,
+    and every token whose experts differ between the card and the CPU,
+    printed with its margins before the gradients are judged."""
     from repro_torch.checkpoint.checkpointing import flatten_with_paths
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_config
@@ -2523,6 +2636,9 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     from repro_torch.models.registry import build, sample_inputs
     from repro_torch.nn.param import flatten, unflatten
     cfg = get_config(arch).replace(n_layers=TRAIN_LAYERS)
+    if cfg.vlm is not None:
+        cfg = cfg.replace(vlm=dataclasses.replace(
+            cfg.vlm, num_patches=TRAIN_CPU_PATCHES))
     bundle = build(cfg)
     params = bundle.init_params(SEED + 2, torch.float32, "cuda")
     batch = sample_inputs(cfg, ShapeSpec("cpu", TRAIN_CPU_SEQ, 1, "train"),
@@ -2557,7 +2673,9 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
         worst = max(worst, row["tol_used"])
         errs[name] = row["max_abs_err"]
     row = {"arch": arch, "layers": TRAIN_LAYERS, "dtype": "float32",
-           "tokens": TRAIN_CPU_SEQ, "loss_card": float(loss_card),
+           "tokens": TRAIN_CPU_SEQ,
+           "prefix_rows": cfg.vlm.num_patches if cfg.vlm else 0,
+           "loss_card": float(loss_card),
            "loss_cpu": float(loss_cpu), "leaves": len(names),
            "worst_tol_used": worst, "max_abs_err": errs, "cpu_s": cpu_s,
            "card": card}
@@ -2823,10 +2941,10 @@ def host_runtime(SyncGNNTrainer, graph, cfg, params0, counts, agg, flatten,
                 fail(f"{key}: no worker was respawned "
                      f"({fault['metrics'][0]})")
     twin = run("pallas_fused/host_gather/sequential", "pallas_fused",
-               pipeline=False, data_parallel=False)
+               HOST_GATHER_EPOCHS, pipeline=False, data_parallel=False)
     check_twin("pallas_fused/host_gather/pipelined",
                run("pallas_fused/host_gather/pipelined", "pallas_fused",
-                   data_parallel=False), twin)
+                   HOST_GATHER_EPOCHS, data_parallel=False), twin)
     p4 = dict(p=HOST_P4, balance_policy="load")
     twin = run(f"pallas_fused/p{HOST_P4}/load/sequential", "pallas_fused",
                pipeline=False, **p4)
@@ -4324,7 +4442,8 @@ def main() -> None:
         check_flash_launch("olmoe_1b_7b_prefill", fa, LM_BATCH, LM_PROMPT,
                            LM_PROMPT, 16, 16, 128, bf16, True, True),
         check_flash_launch("grok_1_314b_prefill", fa, LM_BATCH, LM_PROMPT,
-                           LM_PROMPT, 48, 8, 128, bf16, True, True)]
+                           LM_PROMPT, 48, 8, 128, bf16, True, True)
+        ] + vlm_dense_flash_launches(fa)
     rows["wkv6_chunk"] = [
         check_wkv6_launch("rwkv6_3b_prefill", wk, LM_BATCH, LM_PROMPT, 40, 64,
                           bf16, False, True, usage["wkv6_chunk"]),
@@ -4344,8 +4463,16 @@ def main() -> None:
     moe_parts(card)
     print(f"moe parts: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 9b. the VLM backbone at full depth, one request with its patch rows,
+    # and the other dense configs at full depth
+    for arch in (VLM_ARCH,) + DENSE_ARCHS:
+        t0 = time.perf_counter()
+        runs[arch] = serve(arch)
+        print(f"serving {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     # 10. prefill/decode consistency in fp32 (TF32 is off since the start)
-    for arch in LM_ARCHS:
+    for arch in LM_ARCHS + (VLM_ARCH,) + DENSE_ARCHS:
         t0 = time.perf_counter()
         consistency(arch)
         print(f"consistency {arch}: {time.perf_counter() - t0:.1f} s",
@@ -4378,6 +4505,19 @@ def main() -> None:
     runs["olmoe_1b_7b_train"] = lm_train(card, "olmoe-1b-7b")
     lm_train_vs_cpu(card, "olmoe-1b-7b")
     print(f"moe training phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 11d. LLaVA-NeXT-34B's training step (the same flash kernels at a GQA
+    # group of 7): the backward at its shape, the step at full width with
+    # the patch rows as the prefix, fp32 against the CPU
+    t0 = time.perf_counter()
+    rows["flash_attention_bwd"].append(check_flash_bwd_launch(
+        "llava_next_34b_train", fa, 1, TRAIN_SEQ, TRAIN_SEQ, 56, 8, 128,
+        torch.bfloat16, True, True, usage["flash_attention_bwd"],
+        rounding=True))
+    runs["llava_next_34b_train"] = lm_train(card, VLM_ARCH)
+    lm_train_vs_cpu(card, VLM_ARCH)
+    print(f"vlm training phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # 12. summary

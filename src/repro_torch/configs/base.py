@@ -4,10 +4,10 @@ copy so that it imports nothing of the reference).
 
 Every architecture gets one ``configs/<id>.py`` exporting ``CONFIG`` (the
 published config) and ``smoke()`` (a reduced same-family config for CPU
-tests). The port carries ``MoESpec`` and ``RWKVSpec``; the other families'
-spec classes (``HybridSpec``, ``EncDecSpec``, ``VLMSpec``) come with those
-families (ROADMAP.md queue A, item A.14), and their fields here stay
-``None``.
+tests). The port carries ``MoESpec``, ``RWKVSpec`` and ``VLMSpec``; the
+other families' spec classes (``HybridSpec``, ``EncDecSpec``) come with
+those families (ROADMAP.md queue A, items A.14.4 and A.14.5), and their
+fields here stay ``None``.
 """
 from __future__ import annotations
 
@@ -53,6 +53,15 @@ class RWKVSpec:
 
 
 @dataclass(frozen=True)
+class VLMSpec:
+    """LLaVA-NeXT-style VLM. Vision tower + projector are a STUB: the model
+    consumes precomputed patch embeddings (B, num_patches, d_model) that are
+    concatenated before the text tokens (anyres tiling => num_patches)."""
+
+    num_patches: int = 2_880  # 5 tiles x 576 patches (anyres 672x672)
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str  # dense | moe | hybrid | vlm | audio | ssm
@@ -67,7 +76,7 @@ class ArchConfig:
     hybrid: Optional[Any] = None
     rwkv: Optional[RWKVSpec] = None
     encdec: Optional[Any] = None
-    vlm: Optional[Any] = None
+    vlm: Optional[VLMSpec] = None
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     act: str = "silu"           # silu (gated) | gelu | relu_sq

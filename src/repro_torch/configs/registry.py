@@ -1,9 +1,11 @@
 """Architecture registry (counterpart of ``repro.configs.registry``).
 
-The port serves ``llama3-8b``, ``rwkv6-3b``, ``olmoe-1b-7b`` and
-``grok-1-314b``. The reference's other architectures are listed in
-``ARCH_IDS`` and raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports their family.
+The port serves the dense family (``minicpm-2b``, ``starcoder2-7b``,
+``yi-9b``, ``llama3-8b``), the MoE family (``olmoe-1b-7b``,
+``grok-1-314b``), the VLM backbone (``llava-next-34b``) and ``rwkv6-3b``.
+The reference's other architectures are listed in ``ARCH_IDS`` and raise
+``NotImplementedError`` naming the ROADMAP.md item that ports their
+family.
 """
 from __future__ import annotations
 
@@ -17,15 +19,15 @@ _ARCH_MODULES: dict[str, str] = {
     "rwkv6-3b": "rwkv6_3b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "grok-1-314b": "grok_1_314b",
+    "llava-next-34b": "llava_next_34b",
+    "minicpm-2b": "minicpm_2b",
+    "starcoder2-7b": "starcoder2_7b",
+    "yi-9b": "yi_9b",
 }
 
 # the reference's other archs -> the ROADMAP.md item that ports them
 _NOT_PORTED: dict[str, str] = {
-    "minicpm-2b": "A.14.7 (the other dense configs)",
-    "starcoder2-7b": "A.14.7 (the other dense configs)",
-    "yi-9b": "A.14.7 (the other dense configs)",
     "zamba2-2.7b": "A.14.4 (the hybrid family with mamba2)",
-    "llava-next-34b": "A.14.3 (the VLM prefix)",
     "whisper-small": "A.14.5 (whisper)",
 }
 

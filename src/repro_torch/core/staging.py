@@ -1,4 +1,6 @@
-"""Pinned staging ring for the batches the trainer moves to the card.
+"""Pinned staging ring for the batches the trainer moves to the card, and
+for an LM serving request's inputs (``upload_tensors``: a VLM's patch
+embeddings, fetched on the host, cross the bus in one copy a request).
 
 Each batch crosses the bus from one slot of a ring of pinned host buffers:
 its arrays are packed into the slot back to back (each at a 256-byte
@@ -157,3 +159,20 @@ class StagingRing:
             else:
                 out.setdefault(key, []).append(t)
         return out, base
+
+
+def upload_tensors(ring: StagingRing,
+                   tensors: Dict[str, torch.Tensor]) -> Dict[str,
+                                                             torch.Tensor]:
+    """Host tensors of any dtype (a serving request's token ids and its
+    bf16 patch embeddings) to ``ring.device`` through one slot of ``ring``:
+    their bytes packed back to back, ONE asynchronous copy, and each
+    returned tensor a view of that copy with its own dtype and shape. The
+    copy is queued on the current stream, so work queued after it on that
+    stream reads it."""
+    pack = UploadPack()
+    for key, t in tensors.items():
+        pack.add(key, t.contiguous().reshape(-1).view(torch.uint8).numpy())
+    flat, _ = ring.upload(pack)
+    return {key: flat[key].view(t.dtype).view(t.shape)
+            for key, t in tensors.items()}

@@ -67,7 +67,12 @@ def aggregate_edges_plain(tile_off: torch.Tensor, val: torch.Tensor,
                           h: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: every valid edge ``e <
     seg[-1]`` finds its tile slot ``t`` (``seg[t] <= e < seg[t+1]``), then
-    adds ``val[e] * h[src]`` into ``out[dst]``. Returns (n_dstb*128, F)."""
+    adds ``val[e] * h[src]`` into ``out[dst]``. Returns (n_dstb*128, F).
+    The sums run in one order on every run: ``index_add_`` on the CPU, and
+    on the card ``index_put_`` with ``accumulate`` (a stable sort of the
+    rows, each row's messages summed in edge order), where ``index_add_``
+    sums with atomics, so a row of many edges changed its last bits from
+    run to run (ROADMAP.md C.9)."""
     n_dstb, max_blk = cols.shape
     out = torch.zeros((n_dstb * BLK, h.shape[1]), dtype=h.dtype,
                       device=h.device)
@@ -80,8 +85,10 @@ def aggregate_edges_plain(tile_off: torch.Tensor, val: torch.Tensor,
     off = tile_off[:n_valid].long()
     dst = i * BLK + off // BLK
     src = cols[i, k].long() * BLK + off % BLK
-    out.index_add_(0, dst, val[:n_valid, None].to(h.dtype) * h[src])
-    return out
+    msg = val[:n_valid, None].to(h.dtype) * h[src]
+    if h.is_cuda:
+        return out.index_put_((dst,), msg, accumulate=True)
+    return out.index_add_(0, dst, msg)
 
 
 def _check(tile_off, val, seg, cols, h) -> None:

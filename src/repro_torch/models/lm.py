@@ -1,4 +1,5 @@
-"""Decoder-only LM, the dense (Llama-3-8B) and MoE (OLMoE-1B-7B, Grok-1)
+"""Decoder-only LM, the dense (MiniCPM-2B, StarCoder2-7B, Yi-9B,
+Llama-3-8B), MoE (OLMoE-1B-7B, Grok-1) and VLM-backbone (LLaVA-NeXT-34B)
 families: training, prefill and decode (counterpart of
 ``repro.models.lm``).
 
@@ -11,8 +12,15 @@ backward recomputes it (the MoE layer's routing too, from the same
 inputs). Gradients reach the stacked leaves through the layers' views.
 Each layer returns its aux loss (the MoE layer's load-balance loss, 0 for
 a dense MLP); ``forward`` averages it over the layers and ``loss_fn`` adds
-0.01 x that mean, as the reference does. The reference's VLM prefix
-(``embeds_prefix``) raises here, naming its ROADMAP.md item.
+0.01 x that mean, as the reference does.
+
+The VLM backbone takes precomputed patch embeddings (``embeds_prefix``,
+(B, P, d), the vision tower and projector being a stub in the reference
+too): they are cast to the embeddings' dtype and put ahead of the text
+tokens, and positions run over the whole sequence, so a decode step after a
+prefixed prefill of S text tokens is at position P + S. ``loss_fn`` leaves
+the prefix's positions unsupervised: their hidden states are dropped
+before the logits.
 """
 from __future__ import annotations
 
@@ -92,11 +100,15 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``"train"`` returns no cache; ``"prefill"`` builds a new stacked cache
     at capacity S; ``"decode"`` writes one position (``pos0``) of ``cache``
     in place and returns it."""
-    if embeds_prefix is not None:
-        raise NotImplementedError(
-            "the VLM prefix is not ported yet (ROADMAP.md queue A, item "
-            "A.14.3)")
     x = L.embed_tokens(params["embed"], tokens)
+    if embeds_prefix is not None:
+        if (embeds_prefix.dim() != 3
+                or embeds_prefix.shape[0] != x.shape[0]
+                or embeds_prefix.shape[2] != x.shape[2]):
+            raise ValueError(
+                f"embeds_prefix has shape {tuple(embeds_prefix.shape)}; "
+                f"expected ({x.shape[0]}, P, {x.shape[2]})")
+        x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     if mode == "decode":
         positions = torch.as_tensor(pos0, device=x.device).reshape(
@@ -126,12 +138,16 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Causal-LM loss: the mean token cross-entropy of the logits against
-    ``batch["labels"]``, plus 0.01 x the layers' mean MoE auxiliary loss,
-    0 for the dense family. Returns (loss, {"loss", "ce", "aux"}), fp32
+    """Causal-LM loss: the mean token cross-entropy of the text tokens'
+    logits against ``batch["labels"]`` (the VLM's patch-embedding prefix is
+    unsupervised), plus 0.01 x the layers' mean MoE auxiliary loss, 0 for
+    the dense family. Returns (loss, {"loss", "ce", "aux"}), fp32
     scalars."""
-    x, _, aux = forward(params, cfg, batch["tokens"],
-                        embeds_prefix=batch.get("patch_embeds"), mode="train")
+    prefix = batch.get("patch_embeds")
+    x, _, aux = forward(params, cfg, batch["tokens"], embeds_prefix=prefix,
+                        mode="train")
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]
     logits = L.logits_fn(params["embed"], x, cfg.vocab_size)
     ce = L.cross_entropy(logits, batch["labels"])
     loss = ce + 0.01 * aux
@@ -139,7 +155,8 @@ def loss_fn(params, cfg: ArchConfig, batch):
 
 
 def prefill(params, cfg: ArchConfig, batch):
-    """Returns (last-token logits (B, 1, V) fp32, cache)."""
+    """Returns (last-token logits (B, 1, V) fp32, cache of P + S
+    positions, P the length of ``batch["patch_embeds"]`` where given)."""
     x, cache, _ = forward(params, cfg, batch["tokens"],
                           embeds_prefix=batch.get("patch_embeds"),
                           mode="prefill")

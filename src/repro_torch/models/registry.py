@@ -3,9 +3,10 @@ ArchConfig into a ModelBundle of its parameter spec, an init, ``loss_fn``,
 ``prefill_fn`` / ``decode_fn`` and its cache spec, plus per-shape input
 specs.
 
-The port builds the ``dense`` and ``moe`` families (``models/lm.py``) and
-the ``ssm`` family (``models/rwkv.py``), each of which trains and serves;
-the other families raise on ``build``, naming their ROADMAP.md items.
+The port builds the ``dense``, ``moe`` and ``vlm`` families
+(``models/lm.py``) and the ``ssm`` family (``models/rwkv.py``), each of
+which trains and serves; the other families raise on ``build``, naming
+their ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -21,8 +22,7 @@ from repro_torch.models import lm, rwkv
 from repro_torch.nn.param import PSpec, materialize
 
 # families the port does not build yet -> their ROADMAP.md item
-_NOT_PORTED = {"vlm": "A.14.3 (the VLM prefix)",
-               "hybrid": "A.14.4 (the hybrid family with mamba2)",
+_NOT_PORTED = {"hybrid": "A.14.4 (the hybrid family with mamba2)",
                "audio": "A.14.5 (whisper)"}
 
 
@@ -30,7 +30,7 @@ _NOT_PORTED = {"vlm": "A.14.3 (the VLM prefix)",
 class InputSpec:
     spec: PSpec
     dtype: Any
-    kind: str  # tokens | labels | index
+    kind: str  # tokens | labels | embeds | index
 
 
 @dataclass
@@ -65,13 +65,13 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP.md queue A, item {_NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def build(cfg: ArchConfig) -> ModelBundle:
     _check_family(cfg)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return ModelBundle(
             cfg, lm.param_spec(cfg),
             loss_fn=lambda p, b: lm.loss_fn(p, cfg, b),
@@ -87,14 +87,24 @@ def build(cfg: ArchConfig) -> ModelBundle:
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, InputSpec]:
+    """The inputs of one step at ``shape``. A VLM's sequence of S positions
+    is its P patch embeddings, (B, P, d) bf16, then S - P text tokens
+    (and as many labels)."""
     _check_family(cfg)
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
         return {"tokens": InputSpec(PSpec((B, 1), ("batch", None)),
                                     torch.int32, "tokens"),
                 "pos": InputSpec(PSpec((), ()), torch.int32, "index")}
-    out = {"tokens": InputSpec(PSpec((B, S), ("batch", None)), torch.int32,
-                               "tokens")}
+    out = {}
+    if cfg.family == "vlm":
+        P = cfg.vlm.num_patches
+        out["patch_embeds"] = InputSpec(
+            PSpec((B, P, cfg.d_model), ("batch", None, None)),
+            torch.bfloat16, "embeds")
+        S -= P
+    out["tokens"] = InputSpec(PSpec((B, S), ("batch", None)), torch.int32,
+                              "tokens")
     if shape.kind == "train":
         out["labels"] = InputSpec(PSpec((B, S), ("batch", None)),
                                   torch.int32, "labels")
@@ -103,13 +113,18 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, InputSpec]:
 
 def sample_inputs(cfg: ArchConfig, shape: ShapeSpec, rng: np.random.Generator,
                   device=None):
-    """Concrete inputs: token ids drawn by numpy's ``rng`` (the reference's
-    draws from the same generator), as int32 tensors on ``device``."""
+    """Concrete inputs drawn by numpy's ``rng`` in the reference's order
+    (the reference's draws from the same generator): token ids as int32,
+    patch embeddings as standard normals rounded to bf16, on ``device``."""
     dev = resolve_device(device)
     out = {}
     for name, ispec in input_specs(cfg, shape).items():
         if ispec.kind in ("tokens", "labels"):
             ids = rng.integers(0, cfg.vocab_size, size=ispec.spec.shape)
+        elif ispec.kind == "embeds":
+            out[name] = torch.from_numpy(rng.standard_normal(
+                ispec.spec.shape)).to(device=dev, dtype=ispec.dtype)
+            continue
         else:  # index
             ids = np.asarray(shape.seq_len - 1)
         out[name] = torch.from_numpy(ids.astype(np.int32)).to(dev)

@@ -582,6 +582,41 @@ def test_merged_kernel_matches_plain_on_card(lay, F, N, bias, self_term):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lay,F,N,bias,self_term", [
+    ("single_block_dense_row", 128, 41, False, True),
+    ("single_block_dense_row", 256, 130, True, False),
+])
+def test_merged_kernel_and_plain_repeat_their_bits_on_card(lay, F, N, bias,
+                                                            self_term):
+    """ROADMAP.md C.9: the merged kernel and its plain version each give
+    one bit pattern over five runs, where a destination row holds ~1,500
+    edges. The plain aggregate sums them in edge order (``index_put_`` with
+    ``accumulate``); ``index_add_``'s atomics gave a new dw each run (20
+    patterns in 20, ``tests/merged_plain_repeat.py``), at times past the
+    allowance of the kernel's fixed-order dw."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    coo = _layout(lay)
+    h, w, _, s, g = _cuda(map(_t, _operands(coo, F, N, bias, self_term)))
+    dz = (g @ w.T).contiguous()
+    lay_c = _cuda(_layout_t(coo, FWD + BWD))
+    kernel = [agg.fused_bwd_merged(*lay_c, h, g, dz, s, has_bias=bias)
+              for _ in range(5)]
+    plain = [agg.fused_bwd_merged_plain(*lay_c, h, g, dz, s, bias)
+             for _ in range(5)]
+    torch.cuda.synchronize()
+    for runs in (kernel, plain):
+        for again in runs[1:]:
+            for a, b in zip(runs[0], again):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert torch.equal(a, b)
+    for a, p in zip(kernel[0], plain[0]):
+        if a is not None:
+            torch.testing.assert_close(a, p, rtol=RTOL, atol=_atol(p.cpu()))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("branch,case", [
     (br, c) for br, cs in VJP_CASES.items() for c in cs])
 def test_autograd_on_card_matches_cpu(branch, case):

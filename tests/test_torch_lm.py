@@ -1,9 +1,11 @@
-"""The port's LM zoo (the ``smoke()`` configs of Llama-3-8B, RWKV-6-3B,
-OLMoE-1B-7B and Grok-1) against ``repro``: the configs, the weight
-bridge, the standalone init's laws, the dense model's building blocks
-(norms, rope, MLP, logits, attention in prefill and decode) and the
-dense and MoE models' ``prefill_fn`` and ``decode_fn``, on the same
-numpy-seeded inputs and bridged parameters, in fp32 on the CPU.
+"""The port's LM zoo (the ``smoke()`` configs of Llama-3-8B, MiniCPM-2B,
+StarCoder2-7B, Yi-9B, RWKV-6-3B, OLMoE-1B-7B, Grok-1 and LLaVA-NeXT-34B)
+against ``repro``: the configs, the weight bridge, the standalone init's
+laws, the dense model's building blocks (norms, rope, MLP, logits,
+attention in prefill and decode) and the dense and MoE models'
+``prefill_fn`` and ``decode_fn``, on the same numpy-seeded inputs and
+bridged parameters, in fp32 on the CPU (the VLM's prefix:
+``tests/test_torch_vlm.py``).
 
 Tolerance: rtol 1e-4 / atol 1e-5 for the blocks (fp32 products over at
 most 192 terms, taken in another order), and rtol 1e-4 / atol 1e-4 for
@@ -28,7 +30,9 @@ from repro_torch.nn.param import (flatten, param_count, params_from_numpy,
 
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ("llama3-8b", "rwkv6-3b", "olmoe-1b-7b", "grok-1-314b")
+DENSE = ("minicpm-2b", "starcoder2-7b", "yi-9b")
+ARCHS = ("llama3-8b", "rwkv6-3b", "olmoe-1b-7b", "grok-1-314b",
+         "llava-next-34b") + DENSE
 
 
 def _normal(seed, *shape, scale=1.0):
@@ -328,9 +332,18 @@ def test_moe_prefill_and_decode_match_reference(arch, B, S):
     _prefill_and_decode_match_reference(arch, B, S)
 
 
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("B,S", [(2, 16), (1, 13)])
+def test_dense_prefill_and_decode_match_reference(arch, B, S):
+    """The other dense configs: MiniCPM-2B (36 heads over 36, tied
+    embeddings), StarCoder2-7B (gelu MLP and layernorm, 6 heads over 2)
+    and Yi-9B, at their smoke widths."""
+    _prefill_and_decode_match_reference(arch, B, S)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_fn_cache_contract(arch):
-    """dense and moe: decode_fn writes the step into the given cache's
+    """dense, moe and vlm: decode_fn writes the step into the given cache's
     tensors and returns them (the cache is donated); ssm: it returns a new
     state and leaves the given one as it was."""
     tb = build(get_smoke_config(arch))
@@ -339,7 +352,7 @@ def test_decode_fn_cache_contract(arch):
         np.random.default_rng(5).integers(0, tb.cfg.vocab_size, (2, 6))
         .astype(np.int32))
     _, cache = tb.prefill_fn(p, {"tokens": tokens})
-    kv = tb.cfg.family in ("dense", "moe")
+    kv = tb.cfg.family != "ssm"
     if kv:
         cache = _grow(cache, 2, 6)
     before = {k: v.clone() for k, v in cache.items()}
@@ -355,16 +368,22 @@ def test_decode_fn_cache_contract(arch):
 
 
 def test_llama_unported_paths_raise_naming_their_items():
+    """Since the VLM prefix is ported (A.14.3), the dense model takes one
+    too, as the reference's ``lm.forward`` does: its positions come first
+    and the loss leaves them unsupervised; one of the wrong width raises.
+    The default device is the card."""
     from repro_torch.models import lm
     cfg = get_smoke_config("llama3-8b")
     tb = build(cfg)
     p = tb.init_params(0, torch.float32, "cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=r"A\.14\.3"):
-        lm.forward(p, cfg, toks, embeds_prefix=torch.zeros(1, 2, 64))
-    with pytest.raises(NotImplementedError, match=r"A\.14\.3"):
-        tb.loss_fn(p, {"tokens": toks, "labels": toks,
-                       "patch_embeds": torch.zeros(1, 2, 64)})
+    x, _, _ = lm.forward(p, cfg, toks, embeds_prefix=torch.ones(1, 2, 64))
+    assert tuple(x.shape) == (1, 6, 64)
+    loss, _ = tb.loss_fn(p, {"tokens": toks, "labels": toks,
+                             "patch_embeds": torch.ones(1, 2, 64)})
+    assert torch.isfinite(loss)
+    with pytest.raises(ValueError, match="embeds_prefix"):
+        lm.forward(p, cfg, toks, embeds_prefix=torch.zeros(1, 2, 32))
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tb.init_params(0)

@@ -56,6 +56,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_products, flash_attention_bwd_terms,
     flash_attention_fwd, flash_attention_plain)
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models import lm
 from repro_torch.models.registry import build, sample_inputs
 from repro_torch.nn import attention as tattn
 from repro_torch.nn import layers as tL
@@ -293,16 +294,16 @@ def test_bf16_logits_keep_fp32_like_the_reference(real_vocab, tied):
 # the model and the step
 # ---------------------------------------------------------------------------
 
-def _bundles(seed=0, **cfg_kw):
-    """The reference's and the port's bundles of llama3-8b's smoke config
+def _bundles(seed=0, arch="llama3-8b", **cfg_kw):
+    """The reference's and the port's bundles of ``arch``'s smoke config
     (with ``cfg_kw`` replaced) and the reference's fp32 parameters, bridged."""
     import jax
     import jax.numpy as jnp
     from repro.configs.registry import get_smoke_config as j_smoke
     from repro.models.registry import build as j_build
-    jb = j_build(j_smoke("llama3-8b").replace(**cfg_kw))
+    jb = j_build(j_smoke(arch).replace(**cfg_kw))
     jp = jb.init_params(jax.random.PRNGKey(seed), jnp.float32)
-    tb = build(get_smoke_config("llama3-8b").replace(**cfg_kw))
+    tb = build(get_smoke_config(arch).replace(**cfg_kw))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return jb, jp, tb, tp
 
@@ -333,6 +334,27 @@ def test_loss_fn_and_every_gradient_leaf_match_reference(remat):
     for key in met:
         _close(met[key], np.asarray(j_met[key]), MODEL_TOL)
     _close(loss, np.asarray(j_loss), MODEL_TOL)
+    j_leaves = jax.tree.leaves(j_grads)
+    assert len(j_leaves) == len(grads)
+    for got, want in zip(grads, j_leaves):
+        assert tuple(got.shape) == want.shape
+        _close(got, np.asarray(want), MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "starcoder2-7b", "yi-9b"])
+def test_dense_configs_loss_and_every_gradient_leaf_match_reference(arch):
+    """The other dense configs at their smoke widths, fp32, remat "full":
+    tied embeddings (MiniCPM-2B), the gelu MLP and layernorm
+    (StarCoder2-7B), GQA (Yi-9B)."""
+    import jax
+    import jax.numpy as jnp
+    jb, jp, tb, tp = _bundles(arch=arch)
+    batch = _batch(2, 32)
+    (j_loss, j_met), j_grads = jax.value_and_grad(jb.loss_fn, has_aux=True)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    loss, met, grads = _port_grads(tb, tp, batch)
+    _close(loss, np.asarray(j_loss), MODEL_TOL)
+    _close(met["ce"], np.asarray(j_met["ce"]), MODEL_TOL)
     j_leaves = jax.tree.leaves(j_grads)
     assert len(j_leaves) == len(grads)
     for got, want in zip(grads, j_leaves):
@@ -537,12 +559,24 @@ def test_launcher_defaults_to_the_card_and_names_the_cpu_option(arch):
 
 
 def test_train_mode_raises_for_the_vlm_prefix():
+    """Train mode takes the VLM prefix since A.14.3 (its positions
+    unsupervised: the loss equals the text tokens' cross-entropy of the
+    model run on the whole sequence) and raises only for a prefix that
+    does not fit the batch and width."""
     tb = build(get_smoke_config("llama3-8b"))
     p = tb.init_params(0, torch.float32, "cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=r"A\.14\.3"):
-        tb.loss_fn(p, {"tokens": toks, "labels": toks,
-                       "patch_embeds": torch.zeros(1, 2, 64)})
+    prefix = torch.ones(1, 2, 64)
+    loss, met = tb.loss_fn(p, {"tokens": toks, "labels": toks,
+                               "patch_embeds": prefix})
+    x, _, _ = lm.forward(p, tb.cfg, toks, embeds_prefix=prefix,
+                         mode="train")
+    ce = tL.cross_entropy(tL.logits_fn(p["embed"], x[:, 2:], 256), toks)
+    assert torch.equal(met["ce"], ce)
+    for bad in (torch.zeros(2, 2, 64), torch.zeros(1, 2, 48)):
+        with pytest.raises(ValueError, match="embeds_prefix"):
+            tb.loss_fn(p, {"tokens": toks, "labels": toks,
+                           "patch_embeds": bad})
 
 
 # ---------------------------------------------------------------------------

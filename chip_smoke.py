@@ -335,7 +335,10 @@ measured. Phases, each of which exits non-zero on failure:
      (``vlm_dense_flash_launches``: LLaVA-NeXT-34B's one request of 4,096
      positions, 56 heads over 8, a GQA group of 7; MiniCPM-2B's 36 over 36
      of 64, StarCoder2-7B's 36 over 4 and Yi-9B's 32 over 4 at 4 x 4,096)
-     and at LLaVA's shape in fp32; ``wkv6_chunk`` at
+     and at LLaVA's shape in fp32, at Zamba2-2.7B's (``hybrid_flash_launches``:
+     4 x 4,096, 32 heads over 32 of 80, the wgmma route's second 64-column
+     panel zero-filled past column 80 by TMA) and at head dim 80 in fp32
+     (1 x 1,024); ``wkv6_chunk`` at
      RWKV-6-3B's prefill (4 x 4,096 tokens, 40 heads of 64, bf16 r/k/v and
      fp32 log-decays, y and the final state), in fp32 at 1 x 512, and at a
      ragged 1,007 tokens from a given state. fp32 launches are held at the
@@ -395,8 +398,21 @@ measured. Phases, each of which exits non-zero on failure:
      staging ring (``core.staging.upload_tensors``), inside the prefill's
      time, and decoding goes on at position 4,096. Each line adds its
      stages' seconds (``stage_s``);
+  9c. the hybrid family: Zamba2-2.7B at full depth (54 Mamba2 layers in 9
+     groups of 6, the one shared attention block called after each group,
+     2.42 B parameters) serving 4 prompts of 4,096 tokens as phase 9's:
+     exactly 9 ``flash_attention_fwd`` a prefill (one a group) and none a
+     decode step; only its KV caches (k and v, (9, B, S, 32, 80)) grow by
+     16 slots, its conv and SSM states (each layer's) carry on as they are.
+     The ``serve`` line adds each state's bytes (``cache_bytes``). Then one
+     Mamba2 layer split into its steps (``mamba`` line, ``mamba_parts``):
+     the in-projection, the conv, the SSD's per-chunk part and its state
+     part, the gated norm and the out-projection, each one's device ms at 4
+     x 4,096 beside its bound;
   10. prefill/decode consistency in fp32 (TF32 off) at full width and 2
-     layers (Grok-1 at 1): the last logits of a 1,024-token prefill against
+     layers (Grok-1 at 1, Zamba2-2.7B at 6: one group, its SSD chunks of
+     256 against 93 for the 1,023 tokens, then ``ssd_step``): the last
+     logits of a 1,024-token prefill against
      a 1,023-token prefill and one decode step (LLaVA-NeXT-34B's behind its
      2,880 seeded patch rows, the decode step at position 3,903), within
      rtol 1e-4 and atol
@@ -510,7 +526,29 @@ measured. Phases, each of which exits non-zero on failure:
      ``flash_attention_bwd`` a step, nothing else; and the fp32
      micro-step against the CPU (``train_vs_cpu``) at 64 patch rows and 64
      text tokens;
-  12. summary: one ``{"kernels": [...]}`` line, then the last line
+  11e. Zamba2-2.7B's training step: ``flash_attention_bwd`` against its
+     plain version at its training shape (1 x 4,096 tokens, 32 heads over
+     32 of 80, bf16, with the rounding readings), then phase 11's step
+     (``train`` line, ``"arch": "zamba2-2.7b"``) at the published widths
+     (d 2,560, d_inner 5,120, 80 SSM heads of 64, state 64, vocab 32,000),
+     12 of 54 layers (two groups, so the shared block's gradient sums two
+     calls; 0.747 B parameters), bf16, remat ``"full"`` on each Mamba2
+     layer (the shared block outside it, as in the reference), grad_accum 2
+     over 2 x 4,096 tokens, 3 AdamW steps: exactly 4
+     ``flash_attention_fwd`` and 4 ``flash_attention_bwd`` a step (one of
+     each a group and micro-batch), nothing else. The fp32 micro-step of
+     the 12 layers against the CPU is held block by block
+     (``train_blocks_vs_cpu`` line, ``hybrid_blocks_vs_cpu``): each block's
+     input and parameter gradients for a seeded cotangent, at the CPU's
+     activations, within rtol 1e-4 and atol 1e-4 times the leaf's largest
+     magnitude; the whole model is beyond that allowance in fp32 on either
+     device (``tests/zamba2_fp32_conditioning.py``). Every profiled
+     training step (phases 11-11e) traces the device alone between two
+     synchronised marker kernels (ROADMAP A.24: a trace has lost a launch
+     at times); its line says which markers the trace kept and where each
+     kernel of the model's fell;
+  12. summary: the smoke's total seconds, one ``{"kernels": [...]}`` line,
+     then the last line
      ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -663,7 +701,15 @@ CONSIST_TOL = 1e-4
 # would need ~633 GB) and runs the fp32 consistency check at 1 (6.53 B
 # parameters, ~26 GB)
 SERVE_LAYERS = {"grok-1-314b": 2}
-CONSIST_LAYERS_BY_ARCH = {"grok-1-314b": 1}
+# the hybrid family (phases 8, 9c, 10, 11e): Zamba2-2.7B serves at full
+# depth (54 Mamba2 layers, the shared attention block called 9 times);
+# its fp32 consistency check runs 6 layers (one group: depth cuts of the
+# hybrid are whole groups) and its training step 12 (two groups, so the
+# shared block's gradient sums two calls; the 54 layers' 2.42 B
+# parameters would need ~58 GB of AdamW's fp32 temporaries on the stacked
+# w_in alone)
+HYBRID_ARCH = "zamba2-2.7b"
+CONSIST_LAYERS_BY_ARCH = {"grok-1-314b": 1, HYBRID_ARCH: 6}
 # kernel vs plain on the card: fp32 at the reference's own kernel-test
 # tolerances; bf16 at rtol 1e-2 (one bf16 rounding of the output on each
 # side) with flash's atol 4e-3 x (P|v|) element-wise (each p rounded to
@@ -693,19 +739,23 @@ BWD_ROUNDING_LIMIT = 2.0 ** -11
 # TRAIN_STEPS AdamW steps on a cosine schedule; then one fp32 micro-step
 # of 1 x TRAIN_CPU_SEQ tokens on the card against the CPU
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 4096
+TRAIN_LAYERS_BY_ARCH = {HYBRID_ARCH: 12}
 TRAIN_ACCUM, TRAIN_STEPS, TRAIN_CPU_SEQ = 2, 3, 128
 # the VLM's fp32 micro-step against the CPU takes 64 patch rows and 64
 # text tokens (its 2,880 patch rows would not fit TRAIN_CPU_SEQ)
 TRAIN_CPU_PATCHES = 64
-# each trained model's kernels: {launch count's name: (launches a layer and
-# micro-batch, trace label, substring of its device kernels' names, device
-# kernels a launch)}
+# each trained model's kernels: {launch count's name: (launches an
+# attention call (a layer; a group of the hybrid's, whose shared block
+# stays outside remat) and micro-batch, trace label, substring of its
+# device kernels' names, device kernels a launch)}
 _FLASH_TRAIN = {"flash_attention_fwd": (2, "flash_fwd", "flash_fwd", 1),
                 "flash_attention_bwd": (1, "flash_bwd", "flash_bwd", 3)}
 TRAIN_KERNELS = {
     "llama3-8b": _FLASH_TRAIN,
     "olmoe-1b-7b": _FLASH_TRAIN,
     VLM_ARCH: _FLASH_TRAIN,
+    HYBRID_ARCH: {"flash_attention_fwd": (1, "flash_fwd", "flash_fwd", 1),
+                  "flash_attention_bwd": (1, "flash_bwd", "flash_bwd", 3)},
     "rwkv6-3b": {"wkv6_chunk": (2, "wkv6_fwd", "wkv6_chunk_kernel", 1),
                  "wkv6_chunk_bwd": (1, "wkv6_bwd", "wkv6_bwd_", 3)}}
 FWD = ("tile_off", "val", "tile_seg", "cols")
@@ -1708,6 +1758,20 @@ def vlm_dense_flash_launches(fa) -> list:
                            LM_PROMPT, 32, 4, 128, bf16, True, True)]
 
 
+def hybrid_flash_launches(fa) -> list:
+    """flash_attention_fwd against its plain version at Zamba2-2.7B's
+    prefill (phase 9c, the main path's launch): 4 x 4,096 tokens, 32 query
+    heads over 32 kv heads of 80 (the wgmma route's two 64-column panels,
+    TMA zero-filling columns 80-127), bf16; and the same head dim on the
+    fp32 (FMA) route at 1 x 1,024."""
+    return [
+        check_flash_launch("zamba2_2p7b_prefill", fa, LM_BATCH, LM_PROMPT,
+                           LM_PROMPT, 32, 32, 80, torch.bfloat16, True,
+                           True),
+        check_flash_launch("zamba2_2p7b_fp32", fa, 1, 1024, 1024, 32, 32,
+                           80, torch.float32, True, False)]
+
+
 def wkv6_flops(S: int, K: int, chunk: int = 16) -> tuple:
     """(products, elementwise flops, exponentials) of the chunked WKV6
     recurrence over S tokens of one head (K = V): per chunk of L tokens the
@@ -1910,18 +1974,32 @@ def traced(fn, cpu: bool = True, match: dict | None = None,
     host's critical path. ``match`` ({label: substring}) adds, for each
     label, the count and device ms of the kernels whose name holds the
     substring; ``top`` > 0 adds the ``top`` kernel names with the most
-    device ms (names cut to 80 characters), with their ms and count."""
+    device ms (names cut to 80 characters), with their ms and count.
+    A synchronised spin kernel (``torch.cuda._sleep``) brackets ``fn``
+    inside the trace, before and after it, so that the profiler is
+    recording when ``fn``'s first launch is made and has taken its last
+    before it stops; the markers are left out of every figure, and the
+    row says which of them the trace kept (``markers_seen``: "before" or
+    "after" ``fn``'s kernels) and where in the order of ``fn``'s kernels
+    each ``match`` label's kernels fell (``{label}_ranks``), so that a
+    lost launch can be placed (ROADMAP A.24)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
                                             else [])
     torch.cuda.synchronize()
     with profile(activities=activities) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    markers = [e for e in kernels if "spin_kernel" in e.name]
+    kernels = [e for e in kernels if "spin_kernel" not in e.name]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, end = 0.0, None
     for lo, hi in spans:
@@ -1936,6 +2014,13 @@ def traced(fn, cpu: bool = True, match: dict | None = None,
            "device_busy_ms": busy_ms,
            "device_idle_share": (1 - busy_ms / wall_ms) if kernels
            else None}
+    first = spans[0][0] if spans else 0.0
+    row["markers_seen"] = ["before" if e.time_range.start < first
+                           else "after" for e in markers]
+    order = sorted(kernels, key=lambda e: e.time_range.start)
+    for label, key in (match or {}).items():
+        row[f"{label}_ranks"] = [i for i, e in enumerate(order)
+                                 if key in e.name]
     for label, key in (match or {}).items():
         hits = [e for e in kernels if key in e.name]
         row[f"{label}_kernels"] = len(hits)
@@ -1984,6 +2069,22 @@ def drop_shares(kept: list) -> dict:
             "drop_share": sum(dropped) / max(1, sum(pairs))}
 
 
+def attention_calls(cfg) -> int:
+    """Calls of the model's attention (or WKV6) in one forward: one a
+    layer, but one a group of the hybrid's (its shared block)."""
+    if cfg.hybrid is not None:
+        return cfg.n_layers // cfg.hybrid.shared_attn_period
+    return cfg.n_layers
+
+
+def grow_kv(cache: dict, extra: int) -> dict:
+    """The KV caches (``k`` and ``v``, sequence on dim -3) grown by
+    ``extra`` slots as ``examples/lm_serve.py`` grows them; every other
+    state (RWKV's, the hybrid's conv and SSM states) as it is."""
+    return {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, extra))
+                if k in ("k", "v") else v) for k, v in cache.items()}
+
+
 def serve(arch) -> dict:
     """One model at its published width and depth through the serving
     entry points, in bf16 from a seeded init: a warm-up prefill, the
@@ -1991,7 +2092,8 @@ def serve(arch) -> dict:
     grown by LM_DECODE slots (``examples/lm_serve.py``), then LM_DECODE
     greedy decode steps. Launch counts are zeroed before and read after
     each prefill and each decode step: exactly one launch of the model's
-    kernel per layer and prefill, none per decode step. A VLM serves
+    kernel per attention call (``attention_calls``: a layer, a group of
+    the hybrid's) and prefill, none per decode step. A VLM serves
     SERVE_BATCH requests: the warm-up is text alone; the prefill's P patch
     rows (numpy-seeded on the host, ``models.registry.sample_inputs``) and
     LM_PROMPT - P text tokens cross the bus in one copy a request through
@@ -2011,7 +2113,9 @@ def serve(arch) -> dict:
     B = SERVE_BATCH.get(arch, LM_BATCH)
     vocab = pad_vocab(cfg.vocab_size)  # -1e30 past the real vocab
     kernel = {"dense": "flash_attention_fwd", "moe": "flash_attention_fwd",
-              "vlm": "flash_attention_fwd", "ssm": "wkv6_chunk"}[cfg.family]
+              "vlm": "flash_attention_fwd", "hybrid": "flash_attention_fwd",
+              "ssm": "wkv6_chunk"}[cfg.family]
+    calls = attention_calls(cfg)
     bundle = build(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2058,17 +2162,16 @@ def serve(arch) -> dict:
         stage_s[f"{label}_inputs"] = t0 - t_in
         stage_s[label] = wall
         got = dict(build_mod.launch_counts)
-        if got != {**none, kernel: cfg.n_layers}:
+        if got != {**none, kernel: calls}:
             fail(f"{arch}: {label} launched {got}, expected "
-                 f"{cfg.n_layers} {kernel} and nothing else")
+                 f"{calls} {kernel} and nothing else")
         launches[kernel] += got[kernel]
         if tuple(logits.shape) != (B, 1, vocab) \
                 or not torch.isfinite(logits).all():
             fail(f"{arch}: {label} logits {tuple(logits.shape)} are not "
                  f"finite of shape ({B}, 1, {vocab})")
-    if cfg.family != "ssm":  # grow the KV capacity as lm_serve does
-        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, LM_DECODE))
-                 for k, v in cache.items()}
+    cache = grow_kv(cache, LM_DECODE)  # the KV capacity, as lm_serve does
+    cache_bytes = {k: v.numel() * v.element_size() for k, v in cache.items()}
     tok = logits[:, -1].argmax(-1, keepdim=True).int()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2106,7 +2209,7 @@ def serve(arch) -> dict:
            / (decode_s - first_s),
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "decode_step_profile": profile, "kernel": kernel,
-           "launches_per_prefill": cfg.n_layers,
+           "cache_bytes": cache_bytes, "launches_per_prefill": calls,
            "launches_per_decode_step": 0, "launches": launches,
            "stage_s": stage_s}
     run.update(published_layers=get_config(arch).n_layers,
@@ -2212,11 +2315,114 @@ def moe_parts(card, arch: str = "olmoe-1b-7b") -> dict:
     return row
 
 
+def mamba_parts(card, arch: str = HYBRID_ARCH) -> dict:
+    """One Mamba2 layer of ``arch`` in bf16 (the first of a (1, period)
+    backbone stack drawn by the model's init laws from the seed) on seeded
+    unit-RMS tokens at the serving prefill's shape (LM_BATCH x LM_PROMPT),
+    without autograd, split into the steps ``nn.mamba2.mamba2_block``
+    takes, each one's device ms by CUDA events beside its bound: ``w_in``
+    (the in-projection), ``conv`` (the causal conv of x, B and C, and
+    dt's softplus), ``ssd_intra`` (the fp32 operands and every chunk's
+    state-free terms: the masked decay matrix, C B^T, its product with x
+    dt, each chunk's state contribution), ``ssd_state`` (the state carried
+    over the chunks and its term in y), ``gated_norm`` (the D skip, the
+    cast, the gate and the RMSNorm) and ``w_out``; and the whole block.
+    The parts composed must give the block's bits. Bounds: the products'
+    flops at their type's rate (bf16 989 TFLOP/s, the SSD's fp32 products
+    at 67 with TF32 off, only the causal pairs counted) and the decay
+    matrix's exponentials at the SFU's rate, against the bytes each step
+    must read and write at 3.35 TB/s; the larger."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import mamba2 as m2
+    from repro_torch.nn.param import materialize, stack_layers
+    cfg = get_config(arch)
+    h, d = cfg.hybrid, cfg.d_model
+    d_in, n, P = h.ssm_expand * d, h.ssm_state, h.ssm_headdim
+    H = d_in // P
+    E = 2 * d_in + 2 * n + H
+    stack = materialize(stack_layers(stack_layers(
+        m2.mamba2_spec(d, h), h.shared_attn_period, "layers_inner"), 1),
+        SEED, torch.bfloat16, "cuda")
+    p = {k: v[0, 0] for k, v in stack.items()}
+    del stack
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    B, S = LM_BATCH, LM_PROMPT
+    N = B * S
+    L = m2.chunk_len(S, h.ssm_chunk)
+    nc = S // L
+    x = torch.randn((B, S, d), device="cuda", generator=gen).bfloat16()
+    with torch.no_grad():
+        raw = m2._split_proj(p, x, d_in, n, H)
+        z = raw[0]
+        xc, Bm, Cm, dt, _ = m2.conv_dt(p, *raw[1:])
+        xh = xc.reshape(B, S, H, P)
+
+        def intra():
+            ops = m2.ssd_operands(xh, dt, p["a_log"], Bm, Cm, L)
+            return ops, m2.ssd_intra(*ops)
+        ops, (y0, cum, u) = intra()
+        y, _ = m2.ssd_inter(y0, cum, u, ops[3])
+        y = y.reshape(B, S, H, P)
+        normed = m2.gated_norm(p, y, xh, z, x.dtype)
+        got = normed @ p["w_out"]
+        whole, _ = m2.mamba2_block(p, x, h, mode="prefill")
+        if not torch.equal(got, whole):
+            fail("mamba/prefill: the parts composed differ from "
+                 "mamba2_block")
+        parts = {
+            "w_in": time_ms(lambda: m2._split_proj(p, x, d_in, n, H)),
+            "conv": time_ms(lambda: m2.conv_dt(p, *raw[1:])),
+            "ssd_intra": time_ms(intra),
+            "ssd_state": time_ms(lambda: m2.ssd_inter(y0, cum, u, ops[3])),
+            "gated_norm": time_ms(lambda: m2.gated_norm(p, y, xh, z,
+                                                        x.dtype)),
+            "w_out": time_ms(lambda: normed @ p["w_out"]),
+            "layer": time_ms(lambda: m2.mamba2_block(p, x, h,
+                                                     mode="prefill"))}
+    conv_dim = d_in + 2 * n
+    pairs = B * nc * L * (L + 1) // 2      # causal (t >= j) pairs a head
+    el = 2
+    bounds = {
+        "w_in": bound(el * (N * d + d * E + N * E), 2 * N * d * E,
+                      BF16_FLOPS),
+        "conv": bound(el * N * (conv_dim + H) + 4 * (conv_dim + H)
+                      + el * N * conv_dim + 4 * N * H, 0),
+        "ssd_intra": bound_parts(
+            el * N * d_in + 4 * N * H + 2 * el * N * n
+            + 4 * (N * d_in + N * H + B * nc * H * P * n),
+            {"products": (2 * pairs * H * P + 2 * pairs * n
+                          + 2 * N * H * P * n, FP32_FLOPS),
+             "exp": (pairs * H, SFU_EXP_PER_S)},
+            2 * pairs * H * P + 2 * pairs * n + 2 * N * H * P * n),
+        "ssd_state": bound(4 * (B * nc * H * P * n + N * n + N * H
+                                + 2 * N * d_in),
+                           2 * N * H * P * n),
+        "gated_norm": bound(4 * N * d_in + 2 * el * N * d_in
+                            + el * N * d_in, 0),
+        "w_out": bound(el * (N * d_in + d_in * d + N * d),
+                       2 * N * d_in * d, BF16_FLOPS)}
+    row = {"arch": arch, "d_model": d, "d_inner": d_in, "heads": H,
+           "head_dim": P, "state": n, "chunk": L, "chunks": nc,
+           "batch": B, "seq": S, "dtype": "bfloat16", "ms": parts,
+           "parts_sum_ms": sum(v for k, v in parts.items() if k != "layer"),
+           "bound_ms": {k: v["bound_ms"] for k, v in bounds.items()},
+           "bound_by": {k: v["bound_by"] for k, v in bounds.items()},
+           "bounds_sum_ms": sum(v["bound_ms"] for v in bounds.values()),
+           "card": card}
+    print("mamba " + json.dumps(row), flush=True)
+    del p, x, raw, z, xc, Bm, Cm, dt, xh, ops, y0, cum, u, y, normed, got
+    del whole
+    torch.cuda.empty_cache()
+    return row
+
+
 def consistency(arch) -> dict:
     """Prefilling all CONSIST_PROMPT tokens and taking the last logits
     must match prefilling all but the last token and decoding it: the
-    kernel path (flash or wkv6) against the plain decode path
-    (``decode_attention``, ``wkv6_recurrent``), in fp32 with TF32 off, at
+    kernel path (flash or wkv6; the hybrid's chunked SSD, whose chunks
+    differ between the two prompts: 256 and 93) against the plain decode
+    path (``decode_attention``, ``wkv6_recurrent``, ``ssd_step``), in fp32
+    with TF32 off, at
     full width and CONSIST_LAYERS layers (``CONSIST_LAYERS_BY_ARCH``
     where that does not fit), within rtol CONSIST_TOL and atol
     CONSIST_TOL times the largest logit (at least 1). A VLM puts its
@@ -2249,9 +2455,7 @@ def consistency(arch) -> dict:
         0, cfg.vocab_size, (CONSIST_BATCH, S)).astype(np.int32)).cuda()
     full, _ = prefill(params, {**pre, "tokens": tokens})
     _, cache = prefill(params, {**pre, "tokens": tokens[:, :-1]})
-    if cfg.family != "ssm":
-        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
-                 for k, v in cache.items()}
+    cache = grow_kv(cache, 1)
     last, _ = decode(params, cache, {"tokens": tokens[:, -1:],
                                      "pos": P + S - 1})
     torch.cuda.synchronize()
@@ -2463,25 +2667,31 @@ def check_train_logits(embed, cfg, tokens: int = 512) -> dict:
     if got.dtype != torch.float32:
         fail(f"train logits are {got.dtype}, not float32")
     want[..., cfg.vocab_size:] += -1e30
+    real = want[..., :cfg.vocab_size].abs()
     row = check_within("train_logits", "bf16 logits", got, want,
-                       CONSIST_TOL,
-                       CONSIST_TOL * float(want[..., :cfg.vocab_size]
-                                           .abs().max()))
-    del got, want, x
+                       CONSIST_TOL, CONSIST_TOL * float(real.max()))
+    # the magnitudes of the real vocabulary (past it both hold -1e30)
+    row.update(ref_max_abs=float(real.max()),
+               ref_mean_abs=float(real.mean()))
+    del got, want, x, real
     return row
 
 
 def lm_train(card, arch: str = "llama3-8b") -> dict:
-    """``arch``'s training step at its published widths, TRAIN_LAYERS deep,
+    """``arch``'s training step at its published widths, TRAIN_LAYERS deep
+    (``TRAIN_LAYERS_BY_ARCH`` where it differs),
     in bf16 from a seeded init, through ``launch.steps.make_train_step``
     (remat "full", grad_accum TRAIN_ACCUM) and AdamW on a cosine schedule,
     TRAIN_STEPS steps over batches of TRAIN_BATCH x TRAIN_SEQ numpy-seeded
     tokens. Each step's launch counts are zeroed before and read after:
-    exactly 2 x layers x micro-batches of the model's forward kernel (the
-    forward and remat's recompute) and layers x micro-batches of its
-    backward (``TRAIN_KERNELS``), nothing else. The first step then runs
-    again from the same parameters and batch, under ``torch.profiler``,
-    and its loss, gradient norm and parameters are compared bit for bit
+    exactly ``TRAIN_KERNELS``' launches per attention call
+    (``attention_calls``) and micro-batch of each kernel, nothing else: 2
+    of the forward kernel a layer (the forward and remat's recompute) and 1
+    of its backward, but 1 and 1 a group of the hybrid's, whose shared
+    block stays outside remat. The first step then runs
+    again from the same parameters and batch, under ``torch.profiler``
+    (the device alone, between two synchronised marker kernels), and its
+    loss, gradient norm and parameters are compared bit for bit
     with the first run's (printed: a difference is a finding, not a
     failure)."""
     from repro_torch.configs.base import ShapeSpec
@@ -2492,8 +2702,8 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
     from repro_torch.nn.param import flatten
     from repro_torch.optim.adam import AdamW
     from repro_torch.optim.schedules import get_schedule
-    cfg = get_config(arch).replace(n_layers=TRAIN_LAYERS,
-                                   grad_accum=TRAIN_ACCUM)
+    layers = TRAIN_LAYERS_BY_ARCH.get(arch, TRAIN_LAYERS)
+    cfg = get_config(arch).replace(n_layers=layers, grad_accum=TRAIN_ACCUM)
     bundle = build(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2507,8 +2717,8 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
                for _ in range(TRAIN_STEPS)]
     micro = TRAIN_ACCUM
     kernels = TRAIN_KERNELS[arch]
-    per_step = {name: per_layer * TRAIN_LAYERS * micro
-                for name, (per_layer, *_) in kernels.items()}
+    per_step = {name: per_call * attention_calls(cfg) * micro
+                for name, (per_call, *_) in kernels.items()}
     want = {**{k: 0 for k in build_mod.launch_counts}, **per_step}
     launches = {k: 0 for k in per_step}
     params, state = params0, opt.init(flatten(params0))
@@ -2542,6 +2752,7 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
     state0 = opt.init(flatten(params0))
     traced(lambda: torch.ones(1, device="cuda").add_(1))  # warms CUPTI
     prof = traced(lambda: out.update(run=step(params0, state0, batches[0])),
+                  cpu=False,
                   match={label: key for _, label, key, _ in kernels.values()},
                   top=12)
     # a share is read only from a trace that saw every launch (a backward
@@ -2556,7 +2767,7 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
             "params": all(torch.equal(a, b) for a, b in
                           zip(flatten(p_again), flatten(first[0])))}
     busy = prof["device_busy_ms"]
-    run = {"arch": arch, "layers": TRAIN_LAYERS,
+    run = {"arch": arch, "layers": layers,
            "d_model": cfg.d_model, "params": n_params, "dtype": "bfloat16",
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "prefix_rows": cfg.vlm.num_patches if cfg.vlm else 0,
@@ -2618,7 +2829,9 @@ def routing_row(card_routes: list, cpu_routes: list) -> dict:
 
 def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     """One fp32 micro-step (TF32 off) of ``arch``'s TRAIN_LAYERS-deep model
-    at full width, 1 x TRAIN_CPU_SEQ tokens: the loss and every gradient
+    (``TRAIN_LAYERS_BY_ARCH`` where it differs: the hybrid's 12 layers, two
+    calls of its shared block) at full width, 1 x TRAIN_CPU_SEQ tokens:
+    the loss and every gradient
     leaf on the card (flash's FMA route or wkv6's fp32 kernels, cuBLAS in
     fp32) against the port on the CPU (the plain versions) from the same
     parameters, within rtol CONSIST_TOL and atol CONSIST_TOL times the
@@ -2628,14 +2841,17 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     adds its routing (``routing_row``): the smallest margin between the
     K-th and the (K+1)-th router probability over its tokens and layers,
     and every token whose experts differ between the card and the CPU,
-    printed with its margins before the gradients are judged."""
+    printed with its margins before the gradients are judged. (The
+    hybrid's whole model is beyond this allowance in fp32 on either device:
+    ``hybrid_blocks_vs_cpu`` holds it block by block.)"""
     from repro_torch.checkpoint.checkpointing import flatten_with_paths
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.steps import _loss_and_grads
     from repro_torch.models.registry import build, sample_inputs
     from repro_torch.nn.param import flatten, unflatten
-    cfg = get_config(arch).replace(n_layers=TRAIN_LAYERS)
+    layers = TRAIN_LAYERS_BY_ARCH.get(arch, TRAIN_LAYERS)
+    cfg = get_config(arch).replace(n_layers=layers)
     if cfg.vlm is not None:
         cfg = cfg.replace(vlm=dataclasses.replace(
             cfg.vlm, num_patches=TRAIN_CPU_PATCHES))
@@ -2672,7 +2888,7 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
                            CONSIST_TOL, CONSIST_TOL * float(w.abs().max()))
         worst = max(worst, row["tol_used"])
         errs[name] = row["max_abs_err"]
-    row = {"arch": arch, "layers": TRAIN_LAYERS, "dtype": "float32",
+    row = {"arch": arch, "layers": layers, "dtype": "float32",
            "tokens": TRAIN_CPU_SEQ,
            "prefix_rows": cfg.vlm.num_patches if cfg.vlm else 0,
            "loss_card": float(loss_card),
@@ -2683,6 +2899,120 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
         row["routing"] = routing
     print("train_vs_cpu " + json.dumps(row), flush=True)
     del grads_card, grads_cpu, params_cpu
+    torch.cuda.empty_cache()
+    return row
+
+
+def hybrid_blocks_vs_cpu(card, arch: str = HYBRID_ARCH) -> dict:
+    """The hybrid's fp32 backward (TF32 off) on the card against the CPU,
+    block by block, at full width and ``TRAIN_LAYERS_BY_ARCH``' depth:
+    from ``lm_train_vs_cpu``'s seeded parameters and 1 x TRAIN_CPU_SEQ
+    tokens, the CPU's fp32 forward gives each block's input; then the
+    vector-Jacobian product of the embedding, of each Mamba2 layer and each
+    call of the shared block (flash's fp32 route, forward and backward)
+    with a seeded standard-normal cotangent, and of the head (ln_f, the
+    logits, the cross-entropy: the loss's own gradient), on the card and on
+    the CPU from the same input: the input's and every parameter leaf's
+    gradient within rtol CONSIST_TOL and atol CONSIST_TOL times the leaf's
+    largest magnitude, as ``lm_train_vs_cpu`` holds a whole model. The
+    whole 12-layer model is beyond that allowance in fp32 on either device
+    (``tests/zamba2_fp32_conditioning.py``: its gradient norm is in the
+    thousands at the reference's init, and the CPU's own fp32 gradient
+    sits ~2e-3 of a leaf's scale from float64); each block is not."""
+    from repro_torch.checkpoint.checkpointing import flatten_with_paths
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import zamba2
+    from repro_torch.models.lm import layer_params
+    from repro_torch.models.registry import build, sample_inputs
+    from repro_torch.nn import layers as L
+    from repro_torch.nn.param import flatten, unflatten
+    layers = TRAIN_LAYERS_BY_ARCH.get(arch, TRAIN_LAYERS)
+    cfg = get_config(arch).replace(n_layers=layers)
+    bundle = build(cfg)
+    params = bundle.init_params(SEED + 2, torch.float32, "cuda")
+    params = unflatten(params, [t.cpu() for t in flatten(params)])
+    torch.cuda.empty_cache()
+    batch = sample_inputs(cfg, ShapeSpec("cpu", TRAIN_CPU_SEQ, 1, "train"),
+                          np.random.default_rng(SEED + 2), "cpu")
+    tokens, labels = batch["tokens"], batch["labels"]
+    G, period = zamba2._groups(cfg)
+
+    def mamba(p, x):
+        return zamba2._mamba_layer(cfg, p, x, "train", None)[0]
+
+    def shared(p, x):
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        return zamba2._shared_block(cfg, p, x, pos, "train", None)[0]
+
+    def head(p, x):
+        h = L.apply_norm(p["ln_f"], x, cfg.norm_eps)
+        return L.cross_entropy(L.logits_fn(p["embed"], h, cfg.vocab_size),
+                               labels.to(x.device))
+
+    def embed(table, x):
+        return table[x.long()]
+
+    blocks = [("embed", embed, params["embed"]["table"], tokens)]
+    with torch.no_grad():
+        x = L.embed_tokens(params["embed"], tokens)
+        for g in range(G):
+            for i in range(period):
+                p_l = layer_params(layer_params(params["backbone"], g), i)
+                blocks.append((f"mamba[{g},{i}]", mamba, p_l, x))
+                x = mamba(p_l, x)
+            blocks.append((f"shared[{g}]", shared, params["shared"], x))
+            x = shared(params["shared"], x)
+        blocks.append(("head", head, {"embed": params["embed"],
+                                      "ln_f": params["ln_f"]}, x))
+
+    def vjp(fn, p, x, cot, device):
+        leaves = [t.to(device).requires_grad_() for t in flatten(p)]
+        p = unflatten(p, leaves) if isinstance(p, dict) else leaves[0]
+        xi = x.to(device)
+        wrt = leaves
+        if xi.is_floating_point():
+            xi.requires_grad_()
+            wrt = [xi] + leaves
+        out = fn(p, xi)
+        target = out if cot is None else (out * cot.to(device)).sum()
+        grads = torch.autograd.grad(target, wrt, allow_unused=True)
+        return [None if gr is None else gr.detach() for gr in grads]
+    gen = torch.Generator().manual_seed(SEED + 6)
+    used, cpu_s = {}, 0.0
+    for name, fn, p, x in blocks:
+        out_shape = ((x.shape + (cfg.d_model,)) if name == "embed"
+                     else x.shape)
+        cot = (None if name == "head"
+               else torch.randn(out_shape, generator=gen))
+        got = vjp(fn, p, x, cot, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = vjp(fn, p, x, cot, "cpu")
+        cpu_s += time.perf_counter() - t0
+        what = ((["input"] if x.is_floating_point() else [])
+                + (list(flatten_with_paths(p)) if isinstance(p, dict)
+                   else ["table"]))
+        worst = 0.0
+        for leaf, g, w in zip(what, got, want):
+            if w is None or g is None:
+                if (w is None) != (g is None):
+                    fail(f"train_blocks/{name}: {leaf} has a gradient on "
+                         f"one side only")
+                continue
+            w = w.cuda()
+            row = check_within(f"train_blocks/{name}", f"gradient {leaf}",
+                               g, w, CONSIST_TOL,
+                               CONSIST_TOL * float(w.abs().max()))
+            worst = max(worst, row["tol_used"])
+        used[name] = worst
+        del got, want
+    row = {"arch": arch, "layers": layers, "dtype": "float32",
+           "tokens": TRAIN_CPU_SEQ, "blocks": len(blocks),
+           "worst_tol_used": max(used.values()), "tol_used": used,
+           "cpu_s": cpu_s, "card": card}
+    print("train_blocks_vs_cpu " + json.dumps(row), flush=True)
+    del params, blocks
     torch.cuda.empty_cache()
     return row
 
@@ -4041,6 +4371,7 @@ def api_phase(graph, cfg, params0, fused_rows, fused_counts, runs, agg,
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
              "card")
@@ -4443,7 +4774,7 @@ def main() -> None:
                            LM_PROMPT, 16, 16, 128, bf16, True, True),
         check_flash_launch("grok_1_314b_prefill", fa, LM_BATCH, LM_PROMPT,
                            LM_PROMPT, 48, 8, 128, bf16, True, True)
-        ] + vlm_dense_flash_launches(fa)
+        ] + vlm_dense_flash_launches(fa) + hybrid_flash_launches(fa)
     rows["wkv6_chunk"] = [
         check_wkv6_launch("rwkv6_3b_prefill", wk, LM_BATCH, LM_PROMPT, 40, 64,
                           bf16, False, True, usage["wkv6_chunk"]),
@@ -4471,8 +4802,18 @@ def main() -> None:
         print(f"serving {arch}: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
+    # 9c. the hybrid family at full depth, then one Mamba2 layer split
+    # into its parts
+    t0 = time.perf_counter()
+    runs[HYBRID_ARCH] = serve(HYBRID_ARCH)
+    print(f"serving {HYBRID_ARCH}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    mamba_parts(card)
+    print(f"mamba parts: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 10. prefill/decode consistency in fp32 (TF32 is off since the start)
-    for arch in LM_ARCHS + (VLM_ARCH,) + DENSE_ARCHS:
+    for arch in LM_ARCHS + (VLM_ARCH,) + DENSE_ARCHS + (HYBRID_ARCH,):
         t0 = time.perf_counter()
         consistency(arch)
         print(f"consistency {arch}: {time.perf_counter() - t0:.1f} s",
@@ -4520,6 +4861,19 @@ def main() -> None:
     print(f"vlm training phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # 11e. Zamba2-2.7B's training step (the flash kernels at head dim 80,
+    # once a group): the backward at its shape, the step at 12 layers (two
+    # groups), fp32 against the CPU
+    t0 = time.perf_counter()
+    rows["flash_attention_bwd"].append(check_flash_bwd_launch(
+        "zamba2_2p7b_train", fa, 1, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 80,
+        torch.bfloat16, True, True, usage["flash_attention_bwd"],
+        rounding=True))
+    runs["zamba2_2p7b_train"] = lm_train(card, HYBRID_ARCH)
+    hybrid_blocks_vs_cpu(card)
+    print(f"hybrid training phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # 12. summary
     kernels = [kernel_entry(name, rows[name], {
         path: run["launches"].get(name, 0) for path, run in runs.items()})
@@ -4527,6 +4881,7 @@ def main() -> None:
     for k in kernels:
         if k["launches"] == 0:
             fail(f"{k['name']} was launched no time on the main paths")
+    print(f"smoke total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

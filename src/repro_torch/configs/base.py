@@ -4,10 +4,9 @@ copy so that it imports nothing of the reference).
 
 Every architecture gets one ``configs/<id>.py`` exporting ``CONFIG`` (the
 published config) and ``smoke()`` (a reduced same-family config for CPU
-tests). The port carries ``MoESpec``, ``RWKVSpec`` and ``VLMSpec``; the
-other families' spec classes (``HybridSpec``, ``EncDecSpec``) come with
-those families (ROADMAP.md queue A, items A.14.4 and A.14.5), and their
-fields here stay ``None``.
+tests). The port carries ``MoESpec``, ``HybridSpec``, ``RWKVSpec`` and
+``VLMSpec``; Whisper's ``EncDecSpec`` comes with its family (ROADMAP.md
+queue A, item A.14.5), and ``ArchConfig.encdec`` stays ``None``.
 """
 from __future__ import annotations
 
@@ -46,6 +45,18 @@ class MoESpec:
 
 
 @dataclass(frozen=True)
+class HybridSpec:
+    """Zamba2-style: a Mamba2 backbone with one weight-shared attention
+    block called every ``shared_attn_period`` backbone layers."""
+
+    ssm_state: int = 64
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    shared_attn_period: int = 6
+
+
+@dataclass(frozen=True)
 class RWKVSpec:
     head_size: int = 64
     decay_lora: int = 64  # rank of the data-dependent decay LoRA
@@ -73,7 +84,7 @@ class ArchConfig:
     vocab_size: int
     head_dim: int = 0           # 0 => d_model // n_heads
     moe: Optional[MoESpec] = None
-    hybrid: Optional[Any] = None
+    hybrid: Optional[HybridSpec] = None
     rwkv: Optional[RWKVSpec] = None
     encdec: Optional[Any] = None
     vlm: Optional[VLMSpec] = None

@@ -2,9 +2,10 @@
 
 The port serves the dense family (``minicpm-2b``, ``starcoder2-7b``,
 ``yi-9b``, ``llama3-8b``), the MoE family (``olmoe-1b-7b``,
-``grok-1-314b``), the VLM backbone (``llava-next-34b``) and ``rwkv6-3b``.
-The reference's other architectures are listed in ``ARCH_IDS`` and raise
-``NotImplementedError`` naming the ROADMAP.md item that ports their
+``grok-1-314b``), the hybrid family (``zamba2-2.7b``), the VLM backbone
+(``llava-next-34b``) and ``rwkv6-3b``. The reference's other architecture,
+``whisper-small``, is listed in ``ARCH_IDS`` and raises
+``NotImplementedError`` naming the ROADMAP.md item that ports its
 family.
 """
 from __future__ import annotations
@@ -23,11 +24,11 @@ _ARCH_MODULES: dict[str, str] = {
     "minicpm-2b": "minicpm_2b",
     "starcoder2-7b": "starcoder2_7b",
     "yi-9b": "yi_9b",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 # the reference's other archs -> the ROADMAP.md item that ports them
 _NOT_PORTED: dict[str, str] = {
-    "zamba2-2.7b": "A.14.4 (the hybrid family with mamba2)",
     "whisper-small": "A.14.5 (whisper)",
 }
 

@@ -4,9 +4,9 @@ ArchConfig into a ModelBundle of its parameter spec, an init, ``loss_fn``,
 specs.
 
 The port builds the ``dense``, ``moe`` and ``vlm`` families
-(``models/lm.py``) and the ``ssm`` family (``models/rwkv.py``), each of
-which trains and serves; the other families raise on ``build``, naming
-their ROADMAP.md items.
+(``models/lm.py``), the ``ssm`` family (``models/rwkv.py``) and the
+``hybrid`` family (``models/zamba2.py``), each of which trains and serves;
+the ``audio`` family raises on ``build``, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -18,12 +18,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
-from repro_torch.models import lm, rwkv
+from repro_torch.models import lm, rwkv, zamba2
 from repro_torch.nn.param import PSpec, materialize
 
 # families the port does not build yet -> their ROADMAP.md item
-_NOT_PORTED = {"hybrid": "A.14.4 (the hybrid family with mamba2)",
-               "audio": "A.14.5 (whisper)"}
+_NOT_PORTED = {"audio": "A.14.5 (whisper)"}
 
 
 @dataclass(frozen=True)
@@ -42,13 +41,17 @@ class ModelBundle:
     that same dict (the reference returns new arrays; the port saves
     copying the whole cache every step), so a caller that needs the cache
     from before a step keeps a clone. The ssm family's decode returns a new state and
-    leaves the given one as it was."""
+    leaves the given one as it was. The hybrid family's decode does both:
+    it writes k and v into the given state's tensors in place and returns
+    them, and returns new conv and SSM states, leaving the given ones as
+    they were."""
     cfg: ArchConfig
     param_spec: Any
     loss_fn: Callable        # (params, batch) -> (loss, metrics)
     prefill_fn: Callable     # (params, batch) -> (logits, cache)
     decode_fn: Callable      # (params, cache, batch) -> (logits, cache)
-    #                          (dense: the same cache, updated in place)
+    #                          (dense: the same cache, updated in place;
+    #                          hybrid: the same k and v, updated in place)
     cache_spec: Optional[Callable] = None   # (batch, seq) -> PSpec tree
 
     def init_params(self, seed: int, dtype: torch.dtype = torch.bfloat16,
@@ -65,7 +68,7 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             f"(ROADMAP.md queue A, item {_NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -78,6 +81,13 @@ def build(cfg: ArchConfig) -> ModelBundle:
             prefill_fn=lambda p, b: lm.prefill(p, cfg, b),
             decode_fn=lambda p, c, b: lm.decode_step(p, cfg, c, b),
             cache_spec=lambda batch, seq: lm.cache_spec(cfg, batch, seq))
+    if cfg.family == "hybrid":
+        return ModelBundle(
+            cfg, zamba2.param_spec(cfg),
+            loss_fn=lambda p, b: zamba2.loss_fn(p, cfg, b),
+            prefill_fn=lambda p, b: zamba2.prefill(p, cfg, b),
+            decode_fn=lambda p, c, b: zamba2.decode_step(p, cfg, c, b),
+            cache_spec=lambda batch, seq: zamba2.state_spec(cfg, batch, seq))
     return ModelBundle(
         cfg, rwkv.param_spec(cfg),
         loss_fn=lambda p, b: rwkv.loss_fn(p, cfg, b),

@@ -35,6 +35,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     for mod in ("aggregate", "update_mlp", "ops", "layout", "build",
                 "flash_attention", "wkv6"):
         assert f"repro_torch.kernels.{mod}" in res["modules"]
+    for mod in ("nn.mamba2", "models.zamba2", "configs.zamba2_2p7b"):
+        assert f"repro_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 
 

@@ -1,11 +1,13 @@
 """The port's LM zoo (the ``smoke()`` configs of Llama-3-8B, MiniCPM-2B,
-StarCoder2-7B, Yi-9B, RWKV-6-3B, OLMoE-1B-7B, Grok-1 and LLaVA-NeXT-34B)
+StarCoder2-7B, Yi-9B, RWKV-6-3B, OLMoE-1B-7B, Grok-1, LLaVA-NeXT-34B and
+Zamba2-2.7B)
 against ``repro``: the configs, the weight bridge, the standalone init's
 laws, the dense model's building blocks (norms, rope, MLP, logits,
 attention in prefill and decode) and the dense and MoE models'
 ``prefill_fn`` and ``decode_fn``, on the same numpy-seeded inputs and
 bridged parameters, in fp32 on the CPU (the VLM's prefix:
-``tests/test_torch_vlm.py``).
+``tests/test_torch_vlm.py``; the hybrid's model:
+``tests/test_torch_zamba2.py``).
 
 Tolerance: rtol 1e-4 / atol 1e-5 for the blocks (fp32 products over at
 most 192 terms, taken in another order), and rtol 1e-4 / atol 1e-4 for
@@ -32,7 +34,7 @@ BLOCK_TOL = dict(rtol=1e-4, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 DENSE = ("minicpm-2b", "starcoder2-7b", "yi-9b")
 ARCHS = ("llama3-8b", "rwkv6-3b", "olmoe-1b-7b", "grok-1-314b",
-         "llava-next-34b") + DENSE
+         "llava-next-34b", "zamba2-2.7b") + DENSE
 
 
 def _normal(seed, *shape, scale=1.0):
@@ -345,20 +347,22 @@ def test_dense_prefill_and_decode_match_reference(arch, B, S):
 def test_decode_fn_cache_contract(arch):
     """dense, moe and vlm: decode_fn writes the step into the given cache's
     tensors and returns them (the cache is donated); ssm: it returns a new
-    state and leaves the given one as it was."""
+    state and leaves the given one as it was; hybrid: k and v as the dense
+    family's, the conv and SSM states as the ssm family's."""
     tb = build(get_smoke_config(arch))
     p = tb.init_params(0, torch.float32, "cpu")
     tokens = torch.from_numpy(
         np.random.default_rng(5).integers(0, tb.cfg.vocab_size, (2, 6))
         .astype(np.int32))
     _, cache = tb.prefill_fn(p, {"tokens": tokens})
-    kv = tb.cfg.family != "ssm"
-    if kv:
-        cache = _grow(cache, 2, 6)
+    kv_names = {"ssm": (), "hybrid": ("k", "v")}.get(tb.cfg.family,
+                                                       tuple(cache))
+    cache = {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 2))
+                 if k in kv_names else v) for k, v in cache.items()}
     before = {k: v.clone() for k, v in cache.items()}
     _, after = tb.decode_fn(p, cache, {"tokens": tokens[:, :1], "pos": 6})
     for name, t in cache.items():
-        if kv:
+        if name in kv_names:
             assert after[name] is t
             assert torch.equal(t[:, :, :6], before[name][:, :, :6])
             assert not torch.equal(t[:, :, 6], before[name][:, :, 6])

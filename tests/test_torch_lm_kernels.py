@@ -312,6 +312,9 @@ def _card():
     (True, 1, 100, 384 + 17, 4, 1, 128),    # causal, Sq < Sk
     (True, 1, 384 + 17, 130, 2, 1, 64),     # causal, Sq > Sk
     (True, 2, 512, 512, 8, 2, 128),         # the 2-stage ring turns twice
+    # Zamba2's head dim 80: the second 64-column panel zero-filled past 80
+    (True, 2, 256, 256, 4, 4, 80),          # G 1, whole tiles
+    (True, 1, 200, 200, 4, 2, 80),          # G 2, ragged S
 ])
 def test_flash_kernel_matches_plain_on_card(causal, B, sq, sk, H, KH, D,
                                             dtype):

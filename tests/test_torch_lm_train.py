@@ -665,6 +665,8 @@ def _card():
     (False, 2, 100, 237, 4, 2, 128),  # Sq < Sk, non-causal (cross-attention)
     (False, 1, 300, 90, 2, 1, 64),    # Sq > Sk, non-causal
     (True, 1, 1100, 1100, 8, 2, 128),  # G 4, many k and q tiles, ragged
+    (True, 2, 256, 256, 4, 4, 80),    # Zamba2's head dim 80, G 1
+    (True, 1, 200, 200, 4, 2, 80),    # head dim 80, G 2, ragged S
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(causal, B, S, Sk, H, KH, D,
                                                 dtype):

@@ -338,7 +338,11 @@ measured. Phases, each of which exits non-zero on failure:
      and at LLaVA's shape in fp32, at Zamba2-2.7B's (``hybrid_flash_launches``:
      4 x 4,096, 32 heads over 32 of 80, the wgmma route's second 64-column
      panel zero-filled past column 80 by TMA) and at head dim 80 in fp32
-     (1 x 1,024); ``wkv6_chunk`` at
+     (1 x 1,024), at Whisper-small's (``audio_flash_launches``: 12 heads
+     over 12 of 64, the encoder's non-causal 4 x 1,500 over 1,500 frames,
+     ragged to the tiles, the cross-attention's non-causal 4 x 4,096 over
+     them and the decoder's causal 4 x 4,096, bf16) and at the encoder's
+     shape in fp32 (1 x 1,500); ``wkv6_chunk`` at
      RWKV-6-3B's prefill (4 x 4,096 tokens, 40 heads of 64, bf16 r/k/v and
      fp32 log-decays, y and the final state), in fp32 at 1 x 512, and at a
      ragged 1,007 tokens from a given state. fp32 launches are held at the
@@ -409,9 +413,22 @@ measured. Phases, each of which exits non-zero on failure:
      the in-projection, the conv, the SSD's per-chunk part and its state
      part, the gated norm and the out-projection, each one's device ms at 4
      x 4,096 beside its bound;
+  9d. the encoder-decoder: Whisper-small at full depth (12 encoder and 12
+     decoder layers, 0.28 B parameters) serving 4 requests as phase 9's,
+     each request's 1,500 numpy-seeded frames (the conv frontend is a stub
+     in the reference too) crossing the bus with its tokens in one copy
+     through the pinned staging ring, for the warm-up and the prefill:
+     exactly 36 ``flash_attention_fwd`` a prefill (12 in the encoder, 12
+     decoder self-attentions, 12 cross-attentions) and none a decode step
+     (the cross-attention reads the cross cache through the plain
+     ``decode_attention``); only the self caches grow, the cross cache
+     stays at 1,500 frames;
   10. prefill/decode consistency in fp32 (TF32 off) at full width and 2
      layers (Grok-1 at 1, Zamba2-2.7B at 6: one group, its SSD chunks of
-     256 against 93 for the 1,023 tokens, then ``ssd_step``): the last
+     256 against 93 for the 1,023 tokens, then ``ssd_step``; Whisper-small
+     at 2 + 2 over the same 1,500 seeded frames, the decode step's
+     cross-attention reading the cache where the prefill's runs the flash
+     kernel): the last
      logits of a 1,024-token prefill against
      a 1,023-token prefill and one decode step (LLaVA-NeXT-34B's behind its
      2,880 seeded patch rows, the decode step at position 3,903), within
@@ -543,10 +560,25 @@ measured. Phases, each of which exits non-zero on failure:
      activations, within rtol 1e-4 and atol 1e-4 times the leaf's largest
      magnitude; the whole model is beyond that allowance in fp32 on either
      device (``tests/zamba2_fp32_conditioning.py``). Every profiled
-     training step (phases 11-11e) traces the device alone between two
+     training step (phases 11-11f) traces the device alone between two
      synchronised marker kernels (ROADMAP A.24: a trace has lost a launch
      at times); its line says which markers the trace kept and where each
      kernel of the model's fell;
+  11f. Whisper-small's training step: ``flash_attention_bwd`` against its
+     plain version at its three training shapes (12 heads over 12 of 64,
+     bf16, with the rounding readings): the encoder's non-causal 1 x
+     1,500 over 1,500, the cross-attention's non-causal 1 x 4,096 over
+     1,500 and the decoder's causal 1 x 4,096; then phase 11's step
+     (``train`` line, ``"arch": "whisper-small"``) at full depth (12 + 12
+     layers, vocab 51,865 padded to 51,968), bf16, remat ``"full"`` on the
+     decoder's layers only (the encoder has none, as in the reference),
+     grad_accum 2 over 2 x 4,096 tokens, each sequence over its own 1,500
+     seeded frames, 3 AdamW steps: exactly 120 ``flash_attention_fwd``
+     (a micro-batch: 12 encoder layers once, 12 decoder layers x 2
+     attentions x the forward and remat's recompute) and 72
+     ``flash_attention_bwd`` a step, nothing else; and the fp32 micro-step
+     against the CPU (``train_vs_cpu``) at 2 + 2 layers, 1 x 128 tokens
+     over 100 frames;
   12. summary: the smoke's total seconds, one ``{"kernels": [...]}`` line,
      then the last line
      ``{"ok": true, "device": {...}}``.
@@ -710,6 +742,13 @@ SERVE_LAYERS = {"grok-1-314b": 2}
 # w_in alone)
 HYBRID_ARCH = "zamba2-2.7b"
 CONSIST_LAYERS_BY_ARCH = {"grok-1-314b": 1, HYBRID_ARCH: 6}
+# the encoder-decoder (phases 8, 9d, 10, 11f): Whisper-small serves and
+# trains at full depth (12 encoder and 12 decoder layers, 0.28 B
+# parameters), each request over its own 1,500 seeded frames; its fp32
+# consistency check runs 2 + 2 layers (CONSIST_LAYERS a side) and its fp32
+# micro-step against the CPU 2 + 2 over TRAIN_CPU_FRAMES frames (12 + 12
+# over 1,500 would hold the card machine's CPU too long)
+AUDIO_ARCH = "whisper-small"
 # kernel vs plain on the card: fp32 at the reference's own kernel-test
 # tolerances; bf16 at rtol 1e-2 (one bf16 rounding of the output on each
 # side) with flash's atol 4e-3 x (P|v|) element-wise (each p rounded to
@@ -739,25 +778,48 @@ BWD_ROUNDING_LIMIT = 2.0 ** -11
 # TRAIN_STEPS AdamW steps on a cosine schedule; then one fp32 micro-step
 # of 1 x TRAIN_CPU_SEQ tokens on the card against the CPU
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 2, 4096
-TRAIN_LAYERS_BY_ARCH = {HYBRID_ARCH: 12}
+TRAIN_LAYERS_BY_ARCH = {HYBRID_ARCH: 12, AUDIO_ARCH: 12}
 TRAIN_ACCUM, TRAIN_STEPS, TRAIN_CPU_SEQ = 2, 3, 128
+TRAIN_CPU_LAYERS_BY_ARCH = {AUDIO_ARCH: 2}
+TRAIN_CPU_FRAMES = 100
 # the VLM's fp32 micro-step against the CPU takes 64 patch rows and 64
 # text tokens (its 2,880 patch rows would not fit TRAIN_CPU_SEQ)
 TRAIN_CPU_PATCHES = 64
-# each trained model's kernels: {launch count's name: (launches an
-# attention call (a layer; a group of the hybrid's, whose shared block
-# stays outside remat) and micro-batch, trace label, substring of its
-# device kernels' names, device kernels a launch)}
-_FLASH_TRAIN = {"flash_attention_fwd": (2, "flash_fwd", "flash_fwd", 1),
-                "flash_attention_bwd": (1, "flash_bwd", "flash_bwd", 3)}
+# each trained model's kernels: {launch count's name: (launches a
+# micro-batch of the trained config, trace label, substring of its device
+# kernels' names, device kernels a launch)}
+
+
+def per_call(n: int):
+    """``n`` launches an attention call (``attention_calls``: a layer; a
+    group of the hybrid's, whose shared block stays outside remat) and
+    micro-batch."""
+    return lambda cfg: n * attention_calls(cfg)
+
+
+_FLASH_TRAIN = {
+    "flash_attention_fwd": (per_call(2), "flash_fwd", "flash_fwd", 1),
+    "flash_attention_bwd": (per_call(1), "flash_bwd", "flash_bwd", 3)}
 TRAIN_KERNELS = {
     "llama3-8b": _FLASH_TRAIN,
     "olmoe-1b-7b": _FLASH_TRAIN,
     VLM_ARCH: _FLASH_TRAIN,
-    HYBRID_ARCH: {"flash_attention_fwd": (1, "flash_fwd", "flash_fwd", 1),
-                  "flash_attention_bwd": (1, "flash_bwd", "flash_bwd", 3)},
-    "rwkv6-3b": {"wkv6_chunk": (2, "wkv6_fwd", "wkv6_chunk_kernel", 1),
-                 "wkv6_chunk_bwd": (1, "wkv6_bwd", "wkv6_bwd_", 3)}}
+    HYBRID_ARCH: {
+        "flash_attention_fwd": (per_call(1), "flash_fwd", "flash_fwd", 1),
+        "flash_attention_bwd": (per_call(1), "flash_bwd", "flash_bwd", 3)},
+    # the encoder's attention once a layer (no remat there, as in the
+    # reference); the decoder's two a layer (self and cross), each run
+    # again by remat's recompute
+    AUDIO_ARCH: {
+        "flash_attention_fwd": (
+            lambda cfg: cfg.encdec.enc_layers + 4 * cfg.n_layers,
+            "flash_fwd", "flash_fwd", 1),
+        "flash_attention_bwd": (
+            lambda cfg: cfg.encdec.enc_layers + 2 * cfg.n_layers,
+            "flash_bwd", "flash_bwd", 3)},
+    "rwkv6-3b": {
+        "wkv6_chunk": (per_call(2), "wkv6_fwd", "wkv6_chunk_kernel", 1),
+        "wkv6_chunk_bwd": (per_call(1), "wkv6_bwd", "wkv6_bwd_", 3)}}
 FWD = ("tile_off", "val", "tile_seg", "cols")
 BWD = ("tile_off_t", "val_t", "tile_seg_t", "cols_t")
 COMPACT = ("tile_id", "tile_off", "val", "cols")
@@ -1772,6 +1834,28 @@ def hybrid_flash_launches(fa) -> list:
                            80, torch.float32, True, False)]
 
 
+def audio_flash_launches(fa) -> list:
+    """flash_attention_fwd against its plain version at Whisper-small's
+    prefill (phase 9d, the main path's launches), 12 query heads over 12
+    of 64, bf16: the encoder's non-causal self-attention over 1,500 frames
+    (ragged to the 128-row q tiles and the 64-key tiles), the decoder's
+    non-causal cross-attention of 4,096 tokens over them (Sq != Sk) and its
+    causal self-attention, at LM_BATCH requests; and the encoder's shape on
+    the fp32 (FMA) route at 1 request."""
+    from repro_torch.configs.registry import get_config
+    bf16, frames = torch.bfloat16, get_config(AUDIO_ARCH).encdec.enc_len
+    return [
+        check_flash_launch("whisper_small_encoder", fa, LM_BATCH, frames,
+                           frames, 12, 12, 64, bf16, False, True),
+        check_flash_launch("whisper_small_cross", fa, LM_BATCH, LM_PROMPT,
+                           frames, 12, 12, 64, bf16, False, True),
+        check_flash_launch("whisper_small_decoder_self", fa, LM_BATCH,
+                           LM_PROMPT, LM_PROMPT, 12, 12, 64, bf16, True,
+                           True),
+        check_flash_launch("whisper_small_encoder_fp32", fa, 1, frames,
+                           frames, 12, 12, 64, torch.float32, False, False)]
+
+
 def wkv6_flops(S: int, K: int, chunk: int = 16) -> tuple:
     """(products, elementwise flops, exponentials) of the chunked WKV6
     recurrence over S tokens of one head (K = V): per chunk of L tokens the
@@ -2071,18 +2155,37 @@ def drop_shares(kept: list) -> dict:
 
 def attention_calls(cfg) -> int:
     """Calls of the model's attention (or WKV6) in one forward: one a
-    layer, but one a group of the hybrid's (its shared block)."""
+    layer, but one a group of the hybrid's (its shared block), and an
+    encoder-decoder's one an encoder layer and two a decoder layer (self
+    and cross)."""
     if cfg.hybrid is not None:
         return cfg.n_layers // cfg.hybrid.shared_attn_period
+    if cfg.encdec is not None:
+        return cfg.encdec.enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
 
 
 def grow_kv(cache: dict, extra: int) -> dict:
-    """The KV caches (``k`` and ``v``, sequence on dim -3) grown by
-    ``extra`` slots as ``examples/lm_serve.py`` grows them; every other
-    state (RWKV's, the hybrid's conv and SSM states) as it is."""
+    """The KV caches (``k`` and ``v``, an encoder-decoder's ``self_k`` and
+    ``self_v``; sequence on dim -3) grown by ``extra`` slots as
+    ``examples/lm_serve.py`` grows them; every other state (RWKV's, the
+    hybrid's conv and SSM states, the cross cache over the encoder's
+    frames) as it is."""
     return {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, extra))
-                if k in ("k", "v") else v) for k, v in cache.items()}
+                if k in ("k", "v", "self_k", "self_v") else v)
+            for k, v in cache.items()}
+
+
+def upload_requests(ring, host: dict) -> dict:
+    """A batch of requests' host tensors (batch on dim 0) to the card, one
+    pinned copy a request (``core.staging.upload_tensors``), joined along
+    the batch on the card."""
+    from repro_torch.core.staging import upload_tensors
+    parts = [upload_tensors(ring, {k: v[b:b + 1] for k, v in host.items()})
+             for b in range(next(iter(host.values())).shape[0])]
+    if len(parts) == 1:
+        return parts[0]
+    return {k: torch.cat([p[k] for p in parts]) for k in host}
 
 
 def serve(arch) -> dict:
@@ -2093,15 +2196,19 @@ def serve(arch) -> dict:
     greedy decode steps. Launch counts are zeroed before and read after
     each prefill and each decode step: exactly one launch of the model's
     kernel per attention call (``attention_calls``: a layer, a group of
-    the hybrid's) and prefill, none per decode step. A VLM serves
+    the hybrid's, an encoder-decoder's encoder layer and each of its
+    decoder layers' two) and prefill, none per decode step. A VLM serves
     SERVE_BATCH requests: the warm-up is text alone; the prefill's P patch
     rows (numpy-seeded on the host, ``models.registry.sample_inputs``) and
     LM_PROMPT - P text tokens cross the bus in one copy a request through
     the pinned staging ring (``core.staging.upload_tensors``), inside the
-    prefill's time, and decoding goes on at position LM_PROMPT."""
+    prefill's time, and decoding goes on at position LM_PROMPT. An
+    encoder-decoder's requests each bring their enc_len seeded frames,
+    which cross the bus with the tokens the same way, for the warm-up and
+    the prefill; only its self-attention caches grow."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.staging import StagingRing, upload_tensors
+    from repro_torch.core.staging import StagingRing
     from repro_torch.kernels import build as build_mod
     from repro_torch.launch import steps
     from repro_torch.models.registry import build, sample_inputs
@@ -2114,6 +2221,7 @@ def serve(arch) -> dict:
     vocab = pad_vocab(cfg.vocab_size)  # -1e30 past the real vocab
     kernel = {"dense": "flash_attention_fwd", "moe": "flash_attention_fwd",
               "vlm": "flash_attention_fwd", "hybrid": "flash_attention_fwd",
+              "audio": "flash_attention_fwd",
               "ssm": "wkv6_chunk"}[cfg.family]
     calls = attention_calls(cfg)
     bundle = build(cfg)
@@ -2133,12 +2241,14 @@ def serve(arch) -> dict:
     launches = {kernel: 0}
     none = {k: 0 for k in build_mod.launch_counts}
     upload, stage_s = {}, {}
+    ring = (StagingRing(B, torch.device("cuda"))
+            if cfg.family in ("vlm", "audio") else None)
     for label, S in (("warmup", LM_WARM_PROMPT), ("prefill", LM_PROMPT)):
         t_in = time.perf_counter()
-        if cfg.family == "vlm" and label == "prefill":
+        if cfg.family == "audio" or (cfg.family == "vlm"
+                                     and label == "prefill"):
             host = sample_inputs(cfg, ShapeSpec("serve", S, B, "prefill"),
                                  rng, "cpu")
-            ring = StagingRing(1, torch.device("cuda"))
         else:
             host = None
             batch = {"tokens": torch.from_numpy(rng.integers(
@@ -2147,14 +2257,18 @@ def serve(arch) -> dict:
         build_mod.reset_launch_counts()
         kept = []
         t0 = time.perf_counter()
-        if host is not None:  # the request's one copy, then its prefill
-            batch = upload_tensors(ring, host)
+        if host is not None:  # a copy a request, then the prefill
+            batch = upload_requests(ring, host)
             torch.cuda.synchronize()
             upload = {"upload_s": time.perf_counter() - t0,
                       "upload_bytes": sum(v.numel() * v.element_size()
                                           for v in host.values()),
-                      "prefix_rows": host["patch_embeds"].shape[1],
+                      "upload_copies": B,
                       "text_tokens": host["tokens"].shape[1]}
+            if "patch_embeds" in host:
+                upload["prefix_rows"] = host["patch_embeds"].shape[1]
+            if "frames" in host:
+                upload["frames"] = host["frames"].shape[1]
         with recording_ranks(kept):
             logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
@@ -2214,6 +2328,8 @@ def serve(arch) -> dict:
            "stage_s": stage_s}
     run.update(published_layers=get_config(arch).n_layers,
                params=sum(t.numel() for t in flatten(params)))
+    if cfg.encdec is not None:
+        run.update(enc_layers=cfg.encdec.enc_layers)
     if cfg.moe is not None:  # the prefill's pairs dropped at capacity
         run.update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
                    capacity_per_row=capacity(LM_PROMPT, cfg.moe),
@@ -2427,7 +2543,11 @@ def consistency(arch) -> dict:
     where that does not fit), within rtol CONSIST_TOL and atol
     CONSIST_TOL times the largest logit (at least 1). A VLM puts its
     patch rows (numpy-seeded, bf16) ahead of both prompts and decodes at
-    position P + CONSIST_PROMPT - 1. A MoE model runs at
+    position P + CONSIST_PROMPT - 1. An encoder-decoder (as deep on both
+    sides) gives both prompts the same enc_len seeded frames (bf16): its
+    decode step's cross-attention reads the prefill's cross cache (plain
+    ``decode_attention``) where the full prefill's runs the non-causal
+    flash kernel. A MoE model runs at
     capacity_factor E / K, so that C = S and no pair can drop: a prefill
     that drops one of the last token's pairs differs from a decode step
     (C = 8, nothing dropped) by the reference's own semantics."""
@@ -2437,6 +2557,9 @@ def consistency(arch) -> dict:
     from repro_torch.nn.moe import capacity
     layers = CONSIST_LAYERS_BY_ARCH.get(arch, CONSIST_LAYERS)
     cfg = get_config(arch).replace(n_layers=layers)
+    if cfg.encdec is not None:
+        cfg = cfg.replace(encdec=dataclasses.replace(cfg.encdec,
+                                                     enc_layers=layers))
     if cfg.moe is not None:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
@@ -2451,6 +2574,10 @@ def consistency(arch) -> dict:
         P = cfg.vlm.num_patches
         pre = {"patch_embeds": torch.from_numpy(rng.standard_normal(
             (CONSIST_BATCH, P, cfg.d_model))).to("cuda", torch.bfloat16)}
+    elif cfg.family == "audio":  # the same frames under both prompts
+        pre = {"frames": torch.from_numpy(rng.standard_normal(
+            (CONSIST_BATCH, cfg.encdec.enc_len, cfg.d_model))).to(
+                "cuda", torch.bfloat16)}
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (CONSIST_BATCH, S)).astype(np.int32)).cuda()
     full, _ = prefill(params, {**pre, "tokens": tokens})
@@ -2465,6 +2592,8 @@ def consistency(arch) -> dict:
                       rtol=CONSIST_TOL, atol=CONSIST_TOL)
     row = {"arch": arch, "layers": layers, "batch": CONSIST_BATCH,
            "prompt": S, "prefix_rows": P, "dtype": "float32",
+           **({"enc_layers": layers, "frames": cfg.encdec.enc_len}
+              if cfg.encdec else {}),
            "max_abs_err": err,
            "max_abs_logit": float(full.abs().max()),
            "same_argmax": bool(torch.equal(full.argmax(-1),
@@ -2683,12 +2812,14 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
     in bf16 from a seeded init, through ``launch.steps.make_train_step``
     (remat "full", grad_accum TRAIN_ACCUM) and AdamW on a cosine schedule,
     TRAIN_STEPS steps over batches of TRAIN_BATCH x TRAIN_SEQ numpy-seeded
-    tokens. Each step's launch counts are zeroed before and read after:
-    exactly ``TRAIN_KERNELS``' launches per attention call
-    (``attention_calls``) and micro-batch of each kernel, nothing else: 2
-    of the forward kernel a layer (the forward and remat's recompute) and 1
-    of its backward, but 1 and 1 a group of the hybrid's, whose shared
-    block stays outside remat. The first step then runs
+    tokens (an encoder-decoder's each over its own enc_len seeded frames).
+    Each step's launch counts are zeroed before and read after: exactly
+    ``TRAIN_KERNELS``' launches a micro-batch of each kernel, nothing else:
+    2 of the forward kernel a layer (the forward and remat's recompute) and
+    1 of its backward, but 1 and 1 a group of the hybrid's, whose shared
+    block stays outside remat, and an encoder-decoder's 1 and 1 an
+    encoder layer (no remat there) and 4 and 2 a decoder layer (self and
+    cross-attention, each recomputed). The first step then runs
     again from the same parameters and batch, under ``torch.profiler``
     (the device alone, between two synchronised marker kernels), and its
     loss, gradient norm and parameters are compared bit for bit
@@ -2717,8 +2848,8 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
                for _ in range(TRAIN_STEPS)]
     micro = TRAIN_ACCUM
     kernels = TRAIN_KERNELS[arch]
-    per_step = {name: per_call * attention_calls(cfg) * micro
-                for name, (per_call, *_) in kernels.items()}
+    per_step = {name: per_micro(cfg) * micro
+                for name, (per_micro, *_) in kernels.items()}
     want = {**{k: 0 for k in build_mod.launch_counts}, **per_step}
     launches = {k: 0 for k in per_step}
     params, state = params0, opt.init(flatten(params0))
@@ -2771,6 +2902,8 @@ def lm_train(card, arch: str = "llama3-8b") -> dict:
            "d_model": cfg.d_model, "params": n_params, "dtype": "bfloat16",
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "prefix_rows": cfg.vlm.num_patches if cfg.vlm else 0,
+           **({"enc_layers": cfg.encdec.enc_layers,
+               "frames": cfg.encdec.enc_len} if cfg.encdec else {}),
            "grad_accum": micro,
            "remat": cfg.remat, "steps": steps, "s_per_step": s_step,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / s_step,
@@ -2837,7 +2970,10 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     parameters, within rtol CONSIST_TOL and atol CONSIST_TOL times the
     leaf's largest magnitude (fp32 sums over up to 20,480 terms and 128
     positions, taken in another order). A VLM's 128 positions are
-    TRAIN_CPU_PATCHES patch rows and the text tokens. A MoE model's line
+    TRAIN_CPU_PATCHES patch rows and the text tokens. An encoder-decoder
+    runs ``TRAIN_CPU_LAYERS_BY_ARCH``' layers a side over
+    TRAIN_CPU_FRAMES seeded frames (ragged to the flash tiles). A MoE
+    model's line
     adds its routing (``routing_row``): the smallest margin between the
     K-th and the (K+1)-th router probability over its tokens and layers,
     and every token whose experts differ between the card and the CPU,
@@ -2850,11 +2986,15 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     from repro_torch.launch.steps import _loss_and_grads
     from repro_torch.models.registry import build, sample_inputs
     from repro_torch.nn.param import flatten, unflatten
-    layers = TRAIN_LAYERS_BY_ARCH.get(arch, TRAIN_LAYERS)
+    layers = TRAIN_CPU_LAYERS_BY_ARCH.get(
+        arch, TRAIN_LAYERS_BY_ARCH.get(arch, TRAIN_LAYERS))
     cfg = get_config(arch).replace(n_layers=layers)
     if cfg.vlm is not None:
         cfg = cfg.replace(vlm=dataclasses.replace(
             cfg.vlm, num_patches=TRAIN_CPU_PATCHES))
+    if cfg.encdec is not None:
+        cfg = cfg.replace(encdec=dataclasses.replace(
+            cfg.encdec, enc_layers=layers, enc_len=TRAIN_CPU_FRAMES))
     bundle = build(cfg)
     params = bundle.init_params(SEED + 2, torch.float32, "cuda")
     batch = sample_inputs(cfg, ShapeSpec("cpu", TRAIN_CPU_SEQ, 1, "train"),
@@ -2891,6 +3031,8 @@ def lm_train_vs_cpu(card, arch: str = "llama3-8b") -> dict:
     row = {"arch": arch, "layers": layers, "dtype": "float32",
            "tokens": TRAIN_CPU_SEQ,
            "prefix_rows": cfg.vlm.num_patches if cfg.vlm else 0,
+           **({"enc_layers": layers, "frames": cfg.encdec.enc_len}
+              if cfg.encdec else {}),
            "loss_card": float(loss_card),
            "loss_cpu": float(loss_cpu), "leaves": len(names),
            "worst_tol_used": worst, "max_abs_err": errs, "cpu_s": cpu_s,
@@ -4382,6 +4524,7 @@ def main() -> None:
     try:
         from repro_torch.checkpoint.checkpointing import Checkpointer
         from repro_torch.configs.gnn import GNNModelConfig
+        from repro_torch.configs.registry import get_config
         from repro_torch.core import scheduler as sched
         from repro_torch.core.sampler import (NeighborSampler,
                                               layer_capacities)
@@ -4774,7 +4917,8 @@ def main() -> None:
                            LM_PROMPT, 16, 16, 128, bf16, True, True),
         check_flash_launch("grok_1_314b_prefill", fa, LM_BATCH, LM_PROMPT,
                            LM_PROMPT, 48, 8, 128, bf16, True, True)
-        ] + vlm_dense_flash_launches(fa) + hybrid_flash_launches(fa)
+        ] + vlm_dense_flash_launches(fa) + hybrid_flash_launches(fa) \
+        + audio_flash_launches(fa)
     rows["wkv6_chunk"] = [
         check_wkv6_launch("rwkv6_3b_prefill", wk, LM_BATCH, LM_PROMPT, 40, 64,
                           bf16, False, True, usage["wkv6_chunk"]),
@@ -4812,8 +4956,16 @@ def main() -> None:
     mamba_parts(card)
     print(f"mamba parts: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 9d. the encoder-decoder at full depth, each request's frames through
+    # the pinned staging ring
+    t0 = time.perf_counter()
+    runs[AUDIO_ARCH] = serve(AUDIO_ARCH)
+    print(f"serving {AUDIO_ARCH}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # 10. prefill/decode consistency in fp32 (TF32 is off since the start)
-    for arch in LM_ARCHS + (VLM_ARCH,) + DENSE_ARCHS + (HYBRID_ARCH,):
+    for arch in LM_ARCHS + (VLM_ARCH,) + DENSE_ARCHS + (HYBRID_ARCH,
+                                                         AUDIO_ARCH):
         t0 = time.perf_counter()
         consistency(arch)
         print(f"consistency {arch}: {time.perf_counter() - t0:.1f} s",
@@ -4872,6 +5024,24 @@ def main() -> None:
     runs["zamba2_2p7b_train"] = lm_train(card, HYBRID_ARCH)
     hybrid_blocks_vs_cpu(card)
     print(f"hybrid training phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 11f. Whisper-small's training step (the flash kernels non-causal over
+    # the encoder's 1,500 frames and in the cross-attention): the backward
+    # at its three shapes, the step at full depth, fp32 against the CPU
+    t0 = time.perf_counter()
+    frames = get_config(AUDIO_ARCH).encdec.enc_len
+    rows["flash_attention_bwd"] += [
+        check_flash_bwd_launch(name, fa, 1, Sq, Sk, 12, 12, 64,
+                               torch.bfloat16, causal, True,
+                               usage["flash_attention_bwd"], rounding=True)
+        for name, Sq, Sk, causal in (
+            ("whisper_small_encoder_train", frames, frames, False),
+            ("whisper_small_cross_train", TRAIN_SEQ, frames, False),
+            ("whisper_small_decoder_train", TRAIN_SEQ, TRAIN_SEQ, True))]
+    runs["whisper_small_train"] = lm_train(card, AUDIO_ARCH)
+    lm_train_vs_cpu(card, AUDIO_ARCH)
+    print(f"audio training phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # 12. summary

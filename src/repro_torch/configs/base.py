@@ -4,15 +4,14 @@ copy so that it imports nothing of the reference).
 
 Every architecture gets one ``configs/<id>.py`` exporting ``CONFIG`` (the
 published config) and ``smoke()`` (a reduced same-family config for CPU
-tests). The port carries ``MoESpec``, ``HybridSpec``, ``RWKVSpec`` and
-``VLMSpec``; Whisper's ``EncDecSpec`` comes with its family (ROADMAP.md
-queue A, item A.14.5), and ``ArchConfig.encdec`` stays ``None``.
+tests). The port carries ``MoESpec``, ``HybridSpec``, ``RWKVSpec``,
+``EncDecSpec`` and ``VLMSpec``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -64,6 +63,15 @@ class RWKVSpec:
 
 
 @dataclass(frozen=True)
+class EncDecSpec:
+    """Whisper-style encoder/decoder split. The conv/audio frontend is a STUB:
+    the encoder consumes precomputed frame embeddings (B, enc_len, d_model)."""
+
+    enc_layers: int = 12
+    enc_len: int = 1_500  # Whisper 30s @ 50 Hz after conv stride 2
+
+
+@dataclass(frozen=True)
 class VLMSpec:
     """LLaVA-NeXT-style VLM. Vision tower + projector are a STUB: the model
     consumes precomputed patch embeddings (B, num_patches, d_model) that are
@@ -86,7 +94,7 @@ class ArchConfig:
     moe: Optional[MoESpec] = None
     hybrid: Optional[HybridSpec] = None
     rwkv: Optional[RWKVSpec] = None
-    encdec: Optional[Any] = None
+    encdec: Optional[EncDecSpec] = None
     vlm: Optional[VLMSpec] = None
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5

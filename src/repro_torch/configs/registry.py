@@ -1,12 +1,10 @@
 """Architecture registry (counterpart of ``repro.configs.registry``).
 
-The port serves the dense family (``minicpm-2b``, ``starcoder2-7b``,
-``yi-9b``, ``llama3-8b``), the MoE family (``olmoe-1b-7b``,
-``grok-1-314b``), the hybrid family (``zamba2-2.7b``), the VLM backbone
-(``llava-next-34b``) and ``rwkv6-3b``. The reference's other architecture,
-``whisper-small``, is listed in ``ARCH_IDS`` and raises
-``NotImplementedError`` naming the ROADMAP.md item that ports its
-family.
+The port serves every architecture of the reference: the dense family
+(``minicpm-2b``, ``starcoder2-7b``, ``yi-9b``, ``llama3-8b``), the MoE
+family (``olmoe-1b-7b``, ``grok-1-314b``), the hybrid family
+(``zamba2-2.7b``), the VLM backbone (``llava-next-34b``), the
+encoder-decoder (``whisper-small``) and ``rwkv6-3b``.
 """
 from __future__ import annotations
 
@@ -25,11 +23,7 @@ _ARCH_MODULES: dict[str, str] = {
     "starcoder2-7b": "starcoder2_7b",
     "yi-9b": "yi_9b",
     "zamba2-2.7b": "zamba2_2p7b",
-}
-
-# the reference's other archs -> the ROADMAP.md item that ports them
-_NOT_PORTED: dict[str, str] = {
-    "whisper-small": "A.14.5 (whisper)",
+    "whisper-small": "whisper_small",
 }
 
 ARCH_IDS: tuple[str, ...] = (
@@ -39,10 +33,6 @@ ARCH_IDS: tuple[str, ...] = (
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP.md queue A, item "
-            f"{_NOT_PORTED[arch]}); the port serves {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
     return importlib.import_module(

@@ -3,10 +3,10 @@ ArchConfig into a ModelBundle of its parameter spec, an init, ``loss_fn``,
 ``prefill_fn`` / ``decode_fn`` and its cache spec, plus per-shape input
 specs.
 
-The port builds the ``dense``, ``moe`` and ``vlm`` families
-(``models/lm.py``), the ``ssm`` family (``models/rwkv.py``) and the
-``hybrid`` family (``models/zamba2.py``), each of which trains and serves;
-the ``audio`` family raises on ``build``, naming its ROADMAP.md item.
+The port builds every family of the reference, each of which trains and
+serves: ``dense``, ``moe`` and ``vlm`` (``models/lm.py``), ``ssm``
+(``models/rwkv.py``), ``hybrid`` (``models/zamba2.py``) and ``audio``
+(``models/whisper.py``).
 """
 from __future__ import annotations
 
@@ -18,11 +18,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
-from repro_torch.models import lm, rwkv, zamba2
+from repro_torch.models import lm, rwkv, whisper, zamba2
 from repro_torch.nn.param import PSpec, materialize
 
-# families the port does not build yet -> their ROADMAP.md item
-_NOT_PORTED = {"audio": "A.14.5 (whisper)"}
+_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 @dataclass(frozen=True)
@@ -44,14 +43,17 @@ class ModelBundle:
     leaves the given one as it was. The hybrid family's decode does both:
     it writes k and v into the given state's tensors in place and returns
     them, and returns new conv and SSM states, leaving the given ones as
-    they were."""
+    they were. The audio family's decode writes self k and v into the
+    given cache's tensors in place and returns that same dict, its cross
+    k and v read and never written."""
     cfg: ArchConfig
     param_spec: Any
     loss_fn: Callable        # (params, batch) -> (loss, metrics)
     prefill_fn: Callable     # (params, batch) -> (logits, cache)
     decode_fn: Callable      # (params, cache, batch) -> (logits, cache)
     #                          (dense: the same cache, updated in place;
-    #                          hybrid: the same k and v, updated in place)
+    #                          hybrid: the same k and v, updated in place;
+    #                          audio: the same cache, self k and v updated)
     cache_spec: Optional[Callable] = None   # (batch, seq) -> PSpec tree
 
     def init_params(self, seed: int, dtype: torch.dtype = torch.bfloat16,
@@ -64,11 +66,7 @@ class ModelBundle:
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md queue A, item {_NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -88,6 +86,14 @@ def build(cfg: ArchConfig) -> ModelBundle:
             prefill_fn=lambda p, b: zamba2.prefill(p, cfg, b),
             decode_fn=lambda p, c, b: zamba2.decode_step(p, cfg, c, b),
             cache_spec=lambda batch, seq: zamba2.state_spec(cfg, batch, seq))
+    if cfg.family == "audio":
+        return ModelBundle(
+            cfg, whisper.param_spec(cfg),
+            loss_fn=lambda p, b: whisper.loss_fn(p, cfg, b),
+            prefill_fn=lambda p, b: whisper.prefill(p, cfg, b),
+            decode_fn=lambda p, c, b: whisper.decode_step(p, cfg, c, b),
+            cache_spec=lambda batch, seq: whisper.cache_spec(cfg, batch,
+                                                             seq))
     return ModelBundle(
         cfg, rwkv.param_spec(cfg),
         loss_fn=lambda p, b: rwkv.loss_fn(p, cfg, b),
@@ -99,7 +105,8 @@ def build(cfg: ArchConfig) -> ModelBundle:
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, InputSpec]:
     """The inputs of one step at ``shape``. A VLM's sequence of S positions
     is its P patch embeddings, (B, P, d) bf16, then S - P text tokens
-    (and as many labels)."""
+    (and as many labels); an encoder-decoder's S text tokens follow its
+    enc_len frame embeddings, (B, enc_len, d) bf16, in the encoder."""
     _check_family(cfg)
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
@@ -113,6 +120,10 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, InputSpec]:
             PSpec((B, P, cfg.d_model), ("batch", None, None)),
             torch.bfloat16, "embeds")
         S -= P
+    elif cfg.family == "audio":
+        out["frames"] = InputSpec(
+            PSpec((B, cfg.encdec.enc_len, cfg.d_model),
+                  ("batch", None, None)), torch.bfloat16, "embeds")
     out["tokens"] = InputSpec(PSpec((B, S), ("batch", None)), torch.int32,
                               "tokens")
     if shape.kind == "train":
@@ -125,7 +136,8 @@ def sample_inputs(cfg: ArchConfig, shape: ShapeSpec, rng: np.random.Generator,
                   device=None):
     """Concrete inputs drawn by numpy's ``rng`` in the reference's order
     (the reference's draws from the same generator): token ids as int32,
-    patch embeddings as standard normals rounded to bf16, on ``device``."""
+    patch and frame embeddings as standard normals rounded to bf16, on
+    ``device``."""
     dev = resolve_device(device)
     out = {}
     for name, ispec in input_specs(cfg, shape).items():

@@ -10,8 +10,11 @@ reference's ``jnp.repeat(k, G, axis=2)``. Training runs
 log-sum-exp and the backward kernel recomputes the probabilities from it,
 as the reference's ``_flash_core_bwd`` does). Decode runs
 ``decode_attention``, plain PyTorch as in the reference (no Pallas kernel
-computes it). The reference's sharding annotations are dropped: the port
-has no mesh.
+computes it). An encoder-decoder's non-causal attention (``attend``'s
+``x_kv``: the encoder's self-attention and the decoder's cross-attention)
+runs through the same flash kernels, and its decode reads the cross cache
+through ``attend_cached``. The reference's sharding annotations are
+dropped: the port has no mesh.
 """
 from __future__ import annotations
 
@@ -72,28 +75,42 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def attend(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
            rope_theta: Optional[float], positions: torch.Tensor,
-           mode: str = "prefill", cache: Optional[dict] = None):
-    """Self-attention block (projections + core; no norm or residual).
-    Returns (out, new_cache).
+           mode: str = "prefill", cache: Optional[dict] = None,
+           x_kv: Optional[torch.Tensor] = None):
+    """Attention block (projections + core; no norm or residual). Returns
+    (out, new_cache).
 
-    * ``"train"``: causal attention over the whole sequence through
+    Self-attention (``x_kv`` None) is causal; with ``x_kv`` (B, Sk, d) the
+    keys and values are projected from it, no rope is applied and the core
+    is non-causal: the encoder's bidirectional self-attention (``x_kv`` =
+    x) or the decoder's cross-attention (Sq != Sk), as in the reference.
+
+    * ``"train"``: attention over the whole sequence through
       ``flash_attention`` (the flash kernels, forward and backward); the
       cache it was given (None in the models) comes back as it was.
-    * ``"prefill"``: causal attention over the whole sequence through the
-      flash kernel; the new cache holds the unrepeated k (rope applied) and
-      v in x's dtype, at capacity S.
+    * ``"prefill"``: attention over the whole sequence through the flash
+      kernel; the new cache holds the unrepeated k (rope applied) and v in
+      x's dtype, at capacity S. With ``x_kv`` there is no self cache: the
+      cache holds x_kv's k and v, in x's dtype (the cross cache of an
+      encoder-decoder, projected once).
     * ``"decode"``: one token at ``positions[0]`` against ``cache``; k and v
       are written at that position, clamped into the cache as
       ``dynamic_update_slice`` clamps it, IN PLACE into the cache's tensors
       (the reference returns new arrays; the port saves the copy), and the
-      updated cache is returned.
+      updated cache is returned. Self-attention only: a cross cache is read
+      by ``decode_attention`` itself.
     """
     B = x.shape[0]
     G = n_heads // n_kv
+    cross = x_kv is not None
+    if cross and mode == "decode":
+        raise ValueError("decode attends to a cross cache through "
+                         "decode_attention, not attend(x_kv=...)")
+    src = x_kv if cross else x
     q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
-    if rope_theta is not None:
+    k = _project(src, p["wk"])
+    v = _project(src, p["wv"])
+    if rope_theta is not None and not cross:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
 
@@ -107,13 +124,27 @@ def attend(p, x: torch.Tensor, *, n_heads: int, n_kv: int, head_dim: int,
         new_cache = cache
         out = decode_attention(q, cache["k"], cache["v"], pos, G)
     elif mode == "prefill":
-        out = flash_attention_fwd(q, k, v, causal=True)
+        out = flash_attention_fwd(q, k, v, causal=not cross)
         new_cache = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
     elif mode == "train":
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=not cross)
         new_cache = cache
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
 
     out = out.reshape(B, -1, n_heads * head_dim)
     return out @ p["wo"].reshape(n_heads * head_dim, -1), new_cache
+
+
+def attend_cached(p, x: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, pos, *, n_heads: int, n_kv: int,
+                  head_dim: int) -> torch.Tensor:
+    """One token (x (B, 1, d)) against a cache it does not write, every
+    position <= ``pos`` attended: the query projection, ``decode_attention``
+    and the output projection (an encoder-decoder's cross-attention at
+    decode, the reference's inline einsums around ``decode_attention``)."""
+    B = x.shape[0]
+    out = decode_attention(_project(x, p["wq"]), k_cache, v_cache, pos,
+                           n_heads // n_kv)
+    out = out.reshape(B, 1, n_heads * head_dim)
+    return out @ p["wo"].reshape(n_heads * head_dim, -1)

@@ -57,6 +57,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def sinusoid_freqs(d: int, device=None) -> torch.Tensor:
+    """The d / 2 frequencies of Whisper's sinusoidal positions, in fp32 as
+    the reference forms them: exp(-i log(10000) / (d / 2 - 1)), the log
+    and the quotient taken in fp32."""
+    half = d // 2
+    step = torch.tensor(10_000.0, device=device).log() / (half - 1)
+    return torch.exp(-torch.arange(half, dtype=torch.float32,
+                                   device=device) * step)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embeddings (n, d) fp32:
+    sin of each position times each frequency, then cos."""
+    ang = (torch.arange(n, dtype=torch.float32, device=device)[:, None]
+           * sinusoid_freqs(d, device)[None, :])
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def embedding_spec(vocab_padded: int, d: int, tie: bool):
     spec = {"table": PSpec((vocab_padded, d), ("vocab", "embed"), "embed",
                            0.02)}

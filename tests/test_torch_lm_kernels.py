@@ -315,6 +315,10 @@ def _card():
     # Zamba2's head dim 80: the second 64-column panel zero-filled past 80
     (True, 2, 256, 256, 4, 4, 80),          # G 1, whole tiles
     (True, 1, 200, 200, 4, 2, 80),          # G 2, ragged S
+    # Whisper-small: the encoder's 1,500 frames (ragged to the 128-row q
+    # and 64-key tiles) and the decoder's cross-attention over them
+    (False, 1, 1500, 1500, 12, 12, 64),
+    (False, 1, 4096, 1500, 12, 12, 64),
 ])
 def test_flash_kernel_matches_plain_on_card(causal, B, sq, sk, H, KH, D,
                                             dtype):

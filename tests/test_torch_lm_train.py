@@ -667,6 +667,8 @@ def _card():
     (True, 1, 1100, 1100, 8, 2, 128),  # G 4, many k and q tiles, ragged
     (True, 2, 256, 256, 4, 4, 80),    # Zamba2's head dim 80, G 1
     (True, 1, 200, 200, 4, 2, 80),    # head dim 80, G 2, ragged S
+    (False, 1, 1500, 1500, 12, 12, 64),  # Whisper's encoder, ragged
+    (False, 1, 4096, 1500, 12, 12, 64),  # Whisper's cross-attention
 ])
 def test_flash_bwd_kernel_matches_plain_on_card(causal, B, S, Sk, H, KH, D,
                                                 dtype):
